@@ -1,0 +1,167 @@
+"""Inverted-index text store: tokenized corpus + top-k TF-IDF scoring.
+
+The port's counterpart of the reference package's ``stores/text_store.py``.
+The corpus is stored as the COO of its term-document matrix — one
+``(doc_id, term_id, tf)`` triple per posting, sorted by document — plus
+per-document lengths and the idf table.  Scoring a dense query vector is
+
+    score[d] = Σ_{postings (d, t)}  q[t] · idf[t] · tf[d,t] / len[d]
+
+followed by a top-k over documents, handed back as a (k,)-row relation.
+
+Two choices keep the ranking equal to the reference's and stable from run
+to run on the card:
+
+  * each document's contributions are summed **in posting order**, one
+    elementwise pass per posting rank (:func:`tfidf_scores`).  Elementwise
+    float adds are correctly rounded and ordered on every device, so equal
+    documents get bitwise-equal scores; a scatter with atomics would not;
+  * the top-k is a stable descending sort, so ties go to the lower doc id,
+    as ``lax.top_k`` breaks them.
+"""
+from __future__ import annotations
+
+from typing import Iterable, Sequence
+
+import numpy as np
+import torch
+
+from ..core.executor import resolve_device
+from ..core.ir import CorpusT, ValidationError
+
+
+class TextStore:
+    """Host-side container: tokenized documents -> inverted-index COO."""
+
+    def __init__(self, doc_ids, term_ids, tf, doc_len, idf, vocab: int):
+        self.doc_ids = np.asarray(doc_ids, np.int32)
+        self.term_ids = np.asarray(term_ids, np.int32)
+        self.tf = np.asarray(tf, np.float32)
+        self.doc_len = np.asarray(doc_len, np.float32)
+        self.idf = np.asarray(idf, np.float32)
+        self.vocab = int(vocab)
+        self.n_docs = int(self.doc_len.shape[0])
+        self.n_postings = int(self.doc_ids.shape[0])
+        self.version = 0
+
+    @staticmethod
+    def _index_flat(terms: np.ndarray, lengths: np.ndarray, vocab: int):
+        """Vectorized indexing of ``len(lengths)`` documents whose term ids
+        lie back to back in ``terms``: one sort of the (doc, term) keys
+        gives every document's unique terms in ascending order with their
+        counts — the postings the reference builds one document at a time.
+        """
+        terms = np.asarray(terms, np.int64)
+        lengths = np.asarray(lengths, np.int64)
+        n = int(lengths.shape[0])
+        if terms.size and (terms.min() < 0 or terms.max() >= vocab):
+            bad = np.flatnonzero((terms < 0) | (terms >= vocab))[0]
+            doc = int(np.searchsorted(np.cumsum(lengths), bad, side="right"))
+            raise ValidationError(f"doc {doc}: term id out of range")
+        doc = np.repeat(np.arange(n, dtype=np.int64), lengths)
+        keys, tfs = np.unique(doc * vocab + terms, return_counts=True)
+        doc_ids, term_ids = np.divmod(keys, vocab)
+        doc_len = np.maximum(lengths, 1).astype(np.float32)
+        df = np.bincount(term_ids, minlength=vocab).astype(np.int64)
+        return doc_ids, term_ids, tfs, doc_len, df
+
+    @staticmethod
+    def _idf(n_docs: int, df: np.ndarray) -> np.ndarray:
+        return (np.log((1.0 + n_docs) / (1.0 + df)) + 1.0)  # smoothed idf
+
+    @classmethod
+    def from_flat(cls, terms, lengths, vocab: int) -> "TextStore":
+        """``terms``: every document's term ids back to back; ``lengths``:
+        the term count of each document."""
+        doc_ids, term_ids, tfs, doc_len, df = cls._index_flat(
+            terms, lengths, vocab)
+        return cls(doc_ids, term_ids, tfs, doc_len,
+                   cls._idf(len(lengths), df), vocab)
+
+    @classmethod
+    def from_docs(cls, docs: Sequence[Iterable[int]],
+                  vocab: int) -> "TextStore":
+        """``docs``: one iterable of term ids per document."""
+        docs = [np.asarray(list(d), np.int64) for d in docs]
+        lengths = np.array([d.size for d in docs], np.int64)
+        flat = np.concatenate(docs) if docs else np.zeros(0, np.int64)
+        return cls.from_flat(flat, lengths, vocab)
+
+    @property
+    def type(self) -> CorpusT:
+        return CorpusT(self.n_docs, self.vocab, self.n_postings, None)
+
+    def payload(self, device="cuda") -> dict:
+        """The index on ``device`` (the card unless the caller asks for the
+        CPU)."""
+        return text_payload(self.doc_ids, self.term_ids, self.tf,
+                            self.doc_len, self.idf, resolve_device(device))
+
+    def query_vector(self, terms: Iterable[int]) -> np.ndarray:
+        """Dense (vocab,) query term-count vector for :func:`tfidf_scores`."""
+        q = np.zeros(self.vocab, np.float32)
+        for t in terms:
+            q[int(t)] += 1.0
+        return q
+
+
+def text_payload(doc_ids, term_ids, tf, doc_len, idf, device) -> dict:
+    """A corpus payload on ``device`` from its host arrays.  Besides the
+    reference's five arrays it carries ``doc_ptr`` (each document's first
+    posting, CSR style) and ``max_doc_postings`` (a host int), which the
+    ordered per-document sum needs without reading the device."""
+    doc_ids = np.asarray(doc_ids, np.int32)
+    n_docs = int(np.asarray(doc_len).shape[0])
+    if doc_ids.size and np.any(np.diff(doc_ids) < 0):
+        raise ValidationError("corpus postings must be sorted by doc id")
+    per_doc = np.bincount(doc_ids, minlength=n_docs)
+    doc_ptr = np.concatenate([[0], np.cumsum(per_doc)]).astype(np.int32)
+
+    def dev(a, dt):
+        return torch.from_numpy(np.require(a, dt, ["C", "W"])).to(device)
+
+    return {
+        "doc_ids": dev(doc_ids, np.int32),
+        "term_ids": dev(term_ids, np.int32),
+        "tf": dev(tf, np.float32),
+        "doc_len": dev(doc_len, np.float32),
+        "idf": dev(idf, np.float32),
+        "doc_ptr": dev(doc_ptr, np.int32),
+        "max_doc_postings": int(per_doc.max()) if per_doc.size else 0,
+    }
+
+
+# --------------------------------------------------------------------------
+# scoring (pure functions over the payload)
+# --------------------------------------------------------------------------
+
+
+def tfidf_scores(corpus: dict, query: torch.Tensor) -> torch.Tensor:
+    """TF-IDF score of every document against a dense query vector.  Pass
+    ``j`` adds every document's ``j``-th posting, so each document sums its
+    contributions in posting order (the order ``segment_sum`` uses on the
+    CPU), and the result does not change from run to run."""
+    w = query.to(torch.float32) * corpus["idf"]
+    contrib = (w[corpus["term_ids"]] * corpus["tf"]
+               / corpus["doc_len"][corpus["doc_ids"]])
+    ptr = corpus["doc_ptr"]
+    start, end = ptr[:-1], ptr[1:]
+    scores = torch.zeros(start.shape[0], dtype=torch.float32,
+                         device=contrib.device)
+    last = max(int(contrib.shape[0]) - 1, 0)
+    zero = torch.zeros((), dtype=torch.float32, device=contrib.device)
+    for j in range(int(corpus["max_doc_postings"])):
+        p = start + j
+        scores = scores + torch.where(p < end,
+                                      contrib[torch.clamp(p, max=last)], zero)
+    return scores
+
+
+def tfidf_topk(corpus: dict, query: torch.Tensor, k: int):
+    """Top-k documents by TF-IDF: ``(doc ids, scores, valid)``, each of
+    length ``min(k, n_docs)``.  Ties go to the lower doc id."""
+    scores = tfidf_scores(corpus, query)
+    k = min(int(k), int(scores.shape[0]))
+    ids = torch.sort(scores, descending=True, stable=True).indices[:k]
+    return (ids.to(torch.int32), scores[ids],
+            torch.ones(k, dtype=torch.bool, device=scores.device))

@@ -23,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
+from ..kernels.masked_kernels import JOIN_PROBE_MAX_BUILD
 from .ir import Plan, Node, TensorT, TupleT, ValidationError
 
 # --------------------------------------------------------------------------
@@ -293,11 +294,10 @@ def _personalization_sparse(nodes):
             <= SKIP_SELECTIVITY_THRESHOLD)
 
 
-# the MXU probe kernel holds the whole build side in one VMEM block, so the
-# gate bounds the build side's *physical capacity* (what actually rides in
-# VMEM and widens the one-hot), and requires a known expected count — the
-# quantity the cost model prices the candidate on
-JOIN_PROBE_MAX_BUILD = 4096
+# the probe kernel holds the whole build side in one shared-memory table,
+# so the gate bounds the build side's *physical capacity* (what actually
+# rides in the table), and requires a known expected count — the quantity
+# the cost model prices the candidate on
 
 
 def _probe_kernel_ok(nodes):

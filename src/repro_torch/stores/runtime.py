@@ -17,13 +17,15 @@ from __future__ import annotations
 import torch
 
 from ..core.engines import get_engine
-from ..core.feedback import filter_site
-from ..kernels.masked_kernels import masked_segment_agg
+from ..core.feedback import filter_site, sel_mask_site
+from ..kernels.masked_kernels import (compact_prefix, join_probe,
+                                      masked_segment_agg, masked_tfidf)
 from .base import GRAPH_ENGINE, REL_ENGINE, TEXT_ENGINE
 from .bounded import BoundedRel, as_bounded, compact_rel
 from .column_store import filter_mask, group_agg, hash_join
-from .graph_store import expand_frontier, pagerank
-from .text_store import tfidf_topk
+from .graph_store import expand_frontier, expand_frontier_blockskip, pagerank
+from .text_store import (masked_topk, tfidf_scores, tfidf_topk,
+                         tfidf_topk_blockskip, tfidf_topk_masked)
 
 _XLA = get_engine("xla")
 _PALLAS = get_engine("pallas")
@@ -87,6 +89,19 @@ def _step_rel_join(left, right, attrs, ctx=None):
     return BoundedRel(cols, valid, None, left.overflow | right.overflow)
 
 
+def _step_rel_join_probe(left, right, attrs, ctx=None):
+    """The kernel realization of ``rel_join``: the probe kernel against the
+    small build side.  Invalid build rows never match, so validity needs no
+    second gather; gathered values at unmatched rows differ from the
+    sort-probe path only under ``valid=False``."""
+    left, right = as_bounded(left), as_bounded(right)
+    lo, ro = attrs["left_on"], attrs["right_on"]
+    idx, matched = join_probe(left.cols[lo], right.cols[ro], right.valid)
+    cols = _merge_join_cols(left, right, ro, idx)
+    valid = left.valid & matched
+    return BoundedRel(cols, valid, None, left.overflow | right.overflow)
+
+
 def _step_rel_group_agg(tbl, attrs, ctx=None):
     rel = as_bounded(tbl)
     key = rel.cols[attrs["key"]]
@@ -105,14 +120,50 @@ def _step_rel_group_agg(tbl, attrs, ctx=None):
     return BoundedRel(cols, count > 0, None, rel.overflow)
 
 
+def _record_overflow(ctx, attrs, out):
+    """Report a compaction site's overflow flag to the observation sink: an
+    overflowed bound dropped rows, and the feedback store backs off."""
+    site = attrs.get("site")
+    if site is not None:
+        _record_count(ctx, ("compact_overflow", tuple(site)),
+                      out.overflow, 1)
+
+
 def _step_compact(tbl, attrs, ctx=None):
     rel = as_bounded(tbl)
     out = compact_rel(rel, attrs.get("capacity"))
-    site = attrs.get("site")
-    if site is not None:
-        # an overflowed bound dropped rows: the feedback store backs off
-        _record_count(ctx, ("compact_overflow", tuple(site)),
-                      out.overflow, 1)
+    _record_overflow(ctx, attrs, out)
+    return out
+
+
+def _step_compact_pallas(tbl, attrs, ctx=None):
+    """Kernel realization of ``compact``: destination slots from a prefix
+    sum, the scatter as the compaction kernel.  Bit-exact for float
+    columns; integer and bool columns round-trip through float32 (exact
+    below 2^24; the candidate gate admits only float and bool columns)."""
+    rel = as_bounded(tbl)
+    cap = int(attrs.get("capacity", rel.capacity))
+    cap = max(1, min(cap, rel.capacity))
+    keep = rel.valid.to(torch.float32)
+    pos = torch.where(rel.valid,
+                      torch.cumsum(rel.valid.to(torch.int32), 0,
+                                   dtype=torch.int32) - 1,
+                      torch.full_like(keep, -1, dtype=torch.int32))
+    names = tuple(rel.cols)
+    stacked = torch.stack([rel.cols[n].to(torch.float32) for n in names])
+    out = compact_prefix(stacked, pos, keep, cap)
+    count = torch.clamp(rel.count, max=cap).to(torch.int32)
+    valid = torch.arange(cap, dtype=torch.int32, device=rel.device) < count
+    cols = {}
+    for i, n in enumerate(names):
+        dt = rel.cols[n].dtype
+        v = out[i]
+        if not dt.is_floating_point:
+            v = torch.round(v)
+        cols[n] = v.to(dt)
+    overflow = rel.overflow | (rel.count > cap)
+    out = BoundedRel(cols, valid, count, overflow)
+    _record_overflow(ctx, attrs, out)
     return out
 
 
@@ -156,9 +207,24 @@ def _i_rel_join(ctx, args, node):
     return _step_rel_join(args[0], args[1], node.attrs, ctx)
 
 
+@_PALLAS.impl("rel_join_probe_pallas")
+def _i_rel_join_probe(ctx, args, node):
+    return _step_rel_join_probe(args[0], args[1], node.attrs, ctx)
+
+
 @REL_ENGINE.impl("rel_group_agg_col")
 def _i_rel_group(ctx, args, node):
     return _step_rel_group_agg(args[0], node.attrs, ctx)
+
+
+@REL_ENGINE.impl("compact_prefix_col")
+def _i_compact(ctx, args, node):
+    return _step_compact(args[0], node.attrs, ctx)
+
+
+@_PALLAS.impl("compact_prefix_pallas")
+def _i_compact_pallas(ctx, args, node):
+    return _step_compact_pallas(args[0], node.attrs, ctx)
 
 
 @REL_ENGINE.impl("rel_fused_col")
@@ -199,6 +265,25 @@ def _i_col_tensor(ctx, args, node):
     return torch.where(rel.valid, v, torch.zeros_like(v))
 
 
+@REL_ENGINE.impl("sel_mask_rel")
+def _i_sel_mask(ctx, args, node):
+    """Selection-mask export: ``mask[v]`` is set when a valid row has
+    ``col == v`` — a scatter-max of bools over the entity domain, the
+    predicate pushdown hands across the engine boundary.  Rows outside
+    ``[0, size)`` set nothing."""
+    rel = as_bounded(args[0])
+    col = rel.cols[node.attrs["col"]]
+    size = int(node.attrs["size"])
+    ok = rel.valid & (col >= 0) & (col < size)
+    idx = torch.where(ok, col, torch.full_like(col, size)).long()
+    out = torch.zeros(size + 1, dtype=torch.bool, device=col.device)
+    out = out.index_fill_(0, idx, True)[:size]
+    if ctx.aux.get("count_sink") is not None:
+        _record_count(ctx, sel_mask_site(node.attrs),
+                      out.sum(dtype=torch.int32), size)
+    return out
+
+
 # --------------------------------------------------------------------------
 # graph engine (plain scatter) + the CUDA scatter kernel
 # --------------------------------------------------------------------------
@@ -210,6 +295,12 @@ def _i_expand_csr(ctx, args, node):
                            hops=int(node.attrs.get("hops", 1)))
 
 
+@GRAPH_ENGINE.impl("graph_expand_skip")
+def _i_expand_skip(ctx, args, node):
+    return expand_frontier_blockskip(args[0], args[1],
+                                     hops=int(node.attrs.get("hops", 1)))
+
+
 @_PALLAS.impl("graph_expand_pallas")
 def _i_expand_kernel(ctx, args, node):
     return expand_frontier(args[0], args[1],
@@ -217,16 +308,23 @@ def _i_expand_kernel(ctx, args, node):
                            use_kernel=True)
 
 
-def _pagerank(args, node, use_kernel):
+def _pagerank(args, node, use_kernel, skip_first=False):
     return pagerank(args[0], iters=int(node.attrs.get("iters", 10)),
                     damping=float(node.attrs.get("damping", 0.85)),
                     personalization=args[1] if len(args) > 1 else None,
-                    use_kernel=use_kernel)
+                    use_kernel=use_kernel, skip_first=skip_first)
 
 
 @GRAPH_ENGINE.impl("graph_pagerank_csr")
 def _i_pagerank_csr(ctx, args, node):
     return _pagerank(args, node, use_kernel=False)
+
+
+@GRAPH_ENGINE.impl("graph_pagerank_skip")
+def _i_pagerank_skip(ctx, args, node):
+    """Personalization-sparsity pushdown: iteration 0's SpMV block-skips on
+    the pushed mask's support; bitwise equal to the dense iteration."""
+    return _pagerank(args, node, use_kernel=False, skip_first=True)
 
 
 @_PALLAS.impl("graph_pagerank_pallas")
@@ -246,10 +344,42 @@ def _topk_rel(ids, scores, valid):
 
 @TEXT_ENGINE.impl("text_topk_inv")
 def _i_text_topk(ctx, args, node):
-    if len(args) != 2:
-        raise NotImplementedError(
-            "text_topk_inv with a pushed doc mask is not ported yet")
-    return _topk_rel(*tfidf_topk(args[0], args[1], int(node.attrs["k"])))
+    k = int(node.attrs["k"])
+    if len(args) == 3:
+        # pushed candidate-doc mask, dense realization: score the whole
+        # corpus, then mask + top-k (the bitwise reference of the skipping
+        # and kernel realizations)
+        return _topk_rel(*tfidf_topk_masked(args[0], args[1], args[2], k))
+    return _topk_rel(*tfidf_topk(args[0], args[1], k))
+
+
+@TEXT_ENGINE.impl("text_topk_skip_inv")
+def _i_text_topk_skip(ctx, args, node):
+    return _topk_rel(*tfidf_topk_blockskip(args[0], args[1], args[2],
+                                           int(node.attrs["k"])))
+
+
+@_PALLAS.impl("text_topk_masked_pallas")
+def _i_text_topk_kernel(ctx, args, node):
+    """Masked TF-IDF scoring through the masked_tfidf kernel, which
+    gathers inside (a masked document costs one mask byte), then the
+    masked top-k."""
+    corpus, query, doc_mask = args
+    w = query.to(torch.float32) * corpus["idf"]
+    scores = masked_tfidf(corpus["doc_ptr"], corpus["term_ids"],
+                          corpus["tf"], corpus["doc_len"], w, doc_mask,
+                          corpus["max_doc_postings"])
+    return _topk_rel(*masked_topk(scores, doc_mask, int(node.attrs["k"])))
+
+
+@TEXT_ENGINE.impl("text_scores_inv")
+def _i_text_scores(ctx, args, node):
+    return tfidf_scores(args[0], args[1])
+
+
+@_XLA.impl("masked_topk_xla")
+def _i_masked_topk(ctx, args, node):
+    return _topk_rel(*masked_topk(args[0], args[1], int(node.attrs["k"])))
 
 
 # --------------------------------------------------------------------------

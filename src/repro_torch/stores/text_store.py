@@ -18,6 +18,12 @@ to run on the card:
     documents get bitwise-equal scores; a scatter with atomics would not;
   * the top-k is a stable descending sort, so ties go to the lower doc id,
     as ``lax.top_k`` breaks them.
+
+Under a pushed candidate-doc mask (:func:`masked_topk`) masked documents
+rank last; the dense (:func:`tfidf_topk_masked`), block-skipping
+(:func:`tfidf_topk_blockskip`) and kernel (``masked_tfidf``) realizations
+score every kept document with the same ordered sum, so all three give
+bitwise-equal results.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 
 from ..core.executor import resolve_device
 from ..core.ir import CorpusT, ValidationError
+from ..kernels.masked_kernels import ordered_doc_sum
 
 
 class TextStore:
@@ -165,3 +172,68 @@ def tfidf_topk(corpus: dict, query: torch.Tensor, k: int):
     ids = torch.sort(scores, descending=True, stable=True).indices[:k]
     return (ids.to(torch.int32), scores[ids],
             torch.ones(k, dtype=torch.bool, device=scores.device))
+
+
+def masked_topk(scores: torch.Tensor, doc_mask: torch.Tensor, k: int):
+    """Top-k over ``scores`` restricted to ``doc_mask``: masked docs score
+    ``-inf`` before a stable descending sort (ties to the lower doc id, as
+    ``lax.top_k``); result rows whose slot holds a masked doc (k exceeds
+    the kept count) come back ``valid=False`` with score 0.0, never
+    ``-inf`` (a downstream mask-weighted sum would turn ``-inf * 0`` into
+    NaN).  ``k`` is clamped to the doc count."""
+    k = min(int(k), int(scores.shape[0]))
+    neg = torch.where(doc_mask, scores,
+                      torch.full_like(scores, -torch.inf))
+    vals, ids = torch.sort(neg, descending=True, stable=True)
+    vals, ids = vals[:k], ids[:k]
+    valid = torch.isfinite(vals)
+    return (ids.to(torch.int32), torch.where(valid, vals,
+                                             torch.zeros_like(vals)), valid)
+
+
+def tfidf_topk_masked(corpus: dict, query: torch.Tensor,
+                      doc_mask: torch.Tensor, k: int):
+    """Dense masked scoring: score the whole corpus, then mask + top-k (the
+    always-available realization of a pushed mask, and the bitwise
+    reference of the skipping ones)."""
+    return masked_topk(tfidf_scores(corpus, query), doc_mask, k)
+
+
+def tfidf_topk_blockskip(corpus: dict, query: torch.Tensor,
+                         doc_mask: torch.Tensor, k: int, block: int = 8192):
+    """Masked scoring that skips posting blocks whose docs are all masked.
+
+    Postings are doc-sorted, so a block spans the doc range from its first
+    to its last posting's doc, and a prefix sum over the mask tests each
+    span in O(1), as in the reference.  Only documents with a posting in an
+    active block are scored — every kept document is — each with the dense
+    path's ordered float32 sum, so results are bitwise equal to
+    :func:`tfidf_topk_masked`."""
+    doc_ids = corpus["doc_ids"]
+    n_docs, e = int(corpus["doc_len"].shape[0]), int(doc_ids.shape[0])
+    scores = torch.zeros(n_docs, dtype=torch.float32,
+                         device=corpus["doc_len"].device)
+    if e == 0:
+        return masked_topk(scores, doc_mask, k)
+    b = max(8, min(int(block), e))
+    first = doc_ids[::b].long()
+    last = doc_ids[torch.clamp(torch.arange(b - 1, e + b - 1, b,
+                                            device=doc_ids.device),
+                               max=e - 1)].long()
+    prefix = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                    device=doc_ids.device),
+                        torch.cumsum(doc_mask.long(), 0)])
+    active = (prefix[last + 1] - prefix[first]) > 0
+    # a document is scored when the block of its first or of its last
+    # posting is active; a kept document's blocks all are
+    ptr = corpus["doc_ptr"].long()
+    nonempty = ptr[1:] > ptr[:-1]
+    touched = nonempty & (active[torch.clamp(ptr[:-1], max=e - 1) // b]
+                          | active[torch.clamp(ptr[1:] - 1, min=0) // b])
+    docs = torch.nonzero(touched).flatten()
+    w = query.to(torch.float32) * corpus["idf"]
+    scores[docs] = ordered_doc_sum(corpus["doc_ptr"], docs,
+                                   corpus["term_ids"], corpus["tf"],
+                                   corpus["doc_len"], w,
+                                   corpus["max_doc_postings"])
+    return masked_topk(scores, doc_mask, k)

@@ -15,6 +15,8 @@ from types import SimpleNamespace
 import pytest
 
 torch = pytest.importorskip("torch")
+# two intra-op threads: the suite runs beside other test workers
+torch.set_num_threads(2)
 
 from repro.core import ir as jir  # noqa: E402
 from repro.core.adil_parser import parse_adil as jparse  # noqa: E402
@@ -74,6 +76,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "sys.modules['jax'] = None\n"
         "sys.path.insert(0, '.')\n"
         "import repro_torch, repro_torch.examples.tri_model_analysis\n"
+        "import repro_torch.examples.windowed_ranking\n"
+        "import repro_torch.kernels.masked_kernels\n"
+        "import repro_torch.kernels.graph_kernels\n"
+        "import repro_torch.kernels.build\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and m.split('.')[0] in ('repro', 'jax', 'jaxlib')]\n"

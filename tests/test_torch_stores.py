@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# two intra-op threads: the suite runs beside other test workers
+torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -50,14 +50,54 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      unpushed (top-64 ids and scores bitwise); default against unfused
      (top-64 equal, output allclose); two card runs (top-64 bitwise);
 
- 11. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+  ``qwen3_serve`` (qwen3-0.6b served by the async runtime, slice 3):
 
-With ``--profile`` it also runs each path's default plan once under
-``torch.profiler`` and prints the device time of the 15 costliest kernels
-and the device's idle share of that run.
+ 11. data     — qwen3-0.6b at full width (28 layers, d_model 1024, 16 / 8
+     heads, head_dim 128, vocab 151,936; bfloat16 activations, float32
+     parameters) from ``he_init`` on a seeded generator on the card;
+ 12. serve-kernel — flash_attention against its plain version on the card
+     at the prefill's shapes (causal bfloat16 at each bucket 128-2048: the
+     batched-prefill width 4 that the serve launches, its two pad rows and
+     the prompts' pad tails built as the runtime builds them, and batch 1,
+     the shape warmup also runs) and at edge cases
+     (float32, non-causal, window, ragged lengths, q_len < kv_len, MQA,
+     fully-masked rows, the heads-major entry); CUDA-event medians of the
+     kernel, the plain version and ``scaled_dot_product_attention`` (timed
+     only, never called by the port), beside the bound;
+ 13. serve    — ``AsyncServingRuntime`` (engines xla + pallas, 4 decode
+     slots, max_seq 2048, page size 16) on 8 requests of 100 / 500 / 1000 /
+     2000 prompt tokens, 32 generated each: warmup, then serve with the
+     launch counts set to 0 just before it; chosen impls per bucket, TTFT
+     per request, decode and total tokens/s, plan-cache hit rate, pool
+     occupancy;
+ 14. check    — flash launches = 28 x the prefill forwards; 100 % plan-cache
+     hits after warmup; a float32 run of the same trace token for token
+     equal to ``serve_sequential``; a 2-request float32 sub-trace (prompts
+     100 and 500, 8 generated) on the card against the port's plain path on
+     the CPU (first-token logits allclose, token streams equal up to the
+     first step whose top-2 logit margin is within the tolerance);
+
+ 15. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+
+With ``--profile`` it also runs each path's default plan (and a second
+serve of the qwen3 trace) once under ``torch.profiler`` and prints the
+device time of the 15 costliest kernels and the device's idle share of
+that run.
 
 Tolerances: counts, ids and top-k order exact; float sums
-``rtol=1e-5, atol=1e-6`` (atomics add in a run-dependent order).
+``rtol=1e-5, atol=1e-6`` (atomics add in a run-dependent order).  Flash
+attention against its plain version: ``8 x 2e-5`` in float32 (the
+reference's kernel-test tolerance: the same float32 math in another
+summation order) and ``1e-2`` absolute and relative in bfloat16.  The
+reference's ``8 x 2e-2`` would be no test here: with unit-normal q, k and
+v an output row over n keys has a spread of about sqrt(e / n), 0.05 at
+n = 2048, so 0.16 would pass a kernel that drops a key tile or reads
+another row's K/V.  Both sides round one float32 result to bfloat16, so
+they differ by about one bfloat16 ulp (0.0039 at |x| ~ 1), which 1e-2
+still clears.
+Logits card against CPU: ``2e-3`` absolute and relative (float32 end to
+end; cuBLAS and the kernel against MKL and the plain softmax, summed in
+other orders through 28 layers).
 """
 from __future__ import annotations
 
@@ -79,6 +119,7 @@ import torch  # noqa: E402
 
 import repro_torch  # noqa: E402
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.adil_parser import parse_adil  # noqa: E402
 from repro_torch.core.engines import dispatch  # noqa: E402
 from repro_torch.core.executor import ExecContext, run_plan_subset  # noqa
@@ -90,12 +131,22 @@ from repro_torch.examples import windowed_ranking  # noqa: E402
 from repro_torch.examples.tri_model_analysis import (  # noqa: E402
     adil_script, build_social_data, inputs_for)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_mask, flash_attention, flash_attention_hmajor,
+    flash_attention_plain)
 from repro_torch.kernels.graph_kernels import (  # noqa: E402
     scatter_add, scatter_add_plain)
+from repro_torch.layers.common import rope  # noqa: E402
 from repro_torch.kernels.masked_kernels import (  # noqa: E402
     compact_prefix, compact_prefix_plain, join_probe, join_probe_plain,
     masked_segment_agg, masked_segment_agg_plain, masked_tfidf,
     masked_tfidf_plain)
+from repro_torch.core.plan_cache import PlanCache  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.decode import (DecodeGraph,  # noqa: E402
+                                       decode_step_batched, init_cache)
+from repro_torch.serving import (AsyncServingRuntime,  # noqa: E402
+                                 ServeRequest, bucket_len, serve_sequential)
 from repro_torch.stores import TextStore, graph_store, runtime  # noqa: E402
 from repro_torch.stores.text_store import tfidf_scores  # noqa: E402
 
@@ -110,6 +161,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP64_FLOPS = 34e12              # H100 SXM data sheet, outside tensor cores
 FP32_FLOPS = 67e12              # H100 SXM data sheet, outside tensor cores
+BF16_FLOPS = 989e12             # H100 SXM data sheet, dense tensor cores
 RTOL, ATOL = 1e-5, 1e-6
 REPS = 21
 RUNS = 5
@@ -117,6 +169,13 @@ TOPK_IMPLS = ("text_topk_inv", "text_topk_skip_inv", "text_topk_masked_pallas",
               "masked_topk_xla")
 # the table's float columns: what the compaction kernel may carry
 FLOAT_COLS = ("engagement",) + tuple(f"metric{i}" for i in range(8))
+# qwen3_serve: the served model and trace, and the CPU sub-trace
+SERVE = {"arch": "qwen3-0.6b", "requests": 8,
+         "prompt_lens": (100, 500, 1000, 2000), "gen": 32, "max_batch": 4,
+         "max_seq": 2048, "page_size": 16}
+SUBTRACE = {"prompt_lens": (100, 500), "gen": 8, "max_seq": 1024}
+FLASH_TOL = {torch.float32: 8 * 2e-5, torch.bfloat16: 1e-2}
+LOGIT_TOL = 2e-3
 
 
 def launch_counts(**counts) -> dict:
@@ -337,16 +396,21 @@ def top10_agrees(cpu, card) -> bool:
 
 
 def profile_run(fn, inputs, path):
-    """One main-path run under ``torch.profiler``: device time per CUDA
-    kernel (summed over its launches) and the device's idle share of the
-    run's wall time.  Only kernel events count; the PyTorch operators that
+    """One main-path run under ``torch.profiler`` (see profile_call)."""
+    profile_call(lambda: fn({}, inputs), path)
+
+
+def profile_call(run, path):
+    """``run()`` under ``torch.profiler``: device time per CUDA kernel
+    (summed over its launches) and the device's idle share of the run's
+    wall time.  Only kernel events count; the PyTorch operators that
     launch them would count the same time twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn({}, inputs)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -773,6 +837,413 @@ def window_path(args, dev, syscat) -> list:
     return [rec for _plan, rec in records]
 
 
+# -- phase 12: flash attention against its plain version -------------------
+
+
+def flash_inputs(gen, dev, b, sq, skv, h, kvh, d, dtype):
+    """q, k, v as the planned prefill hands them to the kernel: q and k
+    fresh tensors (the RoPE outputs), v a strided view into the fused qkv
+    projection's output."""
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, skv, kvh, d, generator=gen, device=dev).to(dtype)
+    qkv = torch.randn(b, skv, (h + 2 * kvh) * d, generator=gen,
+                      device=dev).to(dtype)
+    v = qkv[..., (h + kvh) * d:].reshape(b, skv, kvh, d)
+    return q, k, v
+
+
+def served_inputs(gen, dev, lens, s, h, kvh, d, theta):
+    """q, k, v of one batched prefill as the runtime builds its token
+    batch: row i holds a prompt of ``lens[i]`` tokens (0 for a pad row),
+    and every later position token 0, whose v is one vector and whose q
+    and k are one vector each rotated by RoPE to its position."""
+    b = len(lens)
+    q, k, v = flash_inputs(gen, dev, b, s, s, h, kvh, d, torch.bfloat16)
+    pos = torch.arange(s, device=dev)
+    pq, pk, pv = (torch.randn(1, 1, n, d, generator=gen, device=dev)
+                  .to(torch.bfloat16) for n in (h, kvh, kvh))
+    pq = rope(pq.expand(1, s, h, d), pos, theta=theta)[0]
+    pk = rope(pk.expand(1, s, kvh, d), pos, theta=theta)[0]
+    for i, n in enumerate(lens):
+        q[i, n:], k[i, n:], v[i, n:] = pq[n:], pk[n:], pv[0]
+    return q, k, v
+
+
+def attention_pairs(sq, skv, causal, window) -> int:
+    """The (query, key) pairs one head's attention must compute: each
+    row's valid keys, all kv_len keys for a row with none (their mean)."""
+    per_row = attention_mask(sq, skv, causal=causal, window=window).sum(1)
+    return int(torch.where(per_row > 0, per_row,
+                           torch.full_like(per_row, skv)).sum())
+
+
+def flash_compare(q, k, v, *, causal=True, window=0, hmajor=False):
+    """The kernel against its plain version on the same inputs, within
+    the dtype's tolerance; returns the max abs error."""
+    if hmajor:
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        got = flash_attention_hmajor(qh, kh, vh, causal=causal,
+                                     window=window).transpose(1, 2)
+    else:
+        got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    tol = FLASH_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          "flash_attention: wrong output dtype or shape")
+    return float((got.float() - want.float()).abs().max())
+
+
+# (name, b, sq, skv, h, kv heads, d, dtype, causal, window, hmajor)
+FLASH_EDGES = (
+    ("float32", 1, 256, 256, 16, 8, 128, torch.float32, True, 0, False),
+    ("non-causal", 2, 200, 200, 16, 8, 128, torch.bfloat16, False, 0, False),
+    ("window 16", 1, 300, 300, 16, 8, 128, torch.bfloat16, True, 16, False),
+    ("ragged 100", 1, 100, 100, 16, 8, 128, torch.bfloat16, True, 0, False),
+    ("ragged 1000", 1, 1000, 1000, 16, 8, 128, torch.bfloat16, True, 0,
+     False),
+    ("q_len 1", 4, 1, 777, 16, 8, 128, torch.bfloat16, True, 0, False),
+    ("q_len < kv_len", 2, 100, 1000, 16, 8, 128, torch.bfloat16, True, 0,
+     False),
+    ("MQA", 1, 512, 512, 16, 1, 128, torch.bfloat16, True, 0, False),
+    ("fully-masked rows", 1, 70, 50, 16, 8, 128, torch.float32, True, 0,
+     False),
+    ("smoke width", 2, 48, 48, 4, 2, 16, torch.float32, True, 0, False),
+    ("head_dim 64 window", 1, 130, 130, 8, 2, 64, torch.float32, True, 16,
+     False),
+    ("non-causal window", 1, 90, 90, 4, 4, 32, torch.float32, False, 8,
+     False),
+    ("heads-major entry", 2, 300, 300, 16, 8, 128, torch.bfloat16, True, 0,
+     True),
+)
+
+
+def check_flash(dev, gen, cfg, batched_width) -> dict:
+    """flash_attention at the serving prefill's shapes (timed) and at the
+    edge cases; returns its JSON record (the served width at bucket
+    2048)."""
+    h, kvh, d = cfg.heads, cfg.kv_heads, cfg.resolved_head_dim
+    err = 0.0
+    for name, b, sq, skv, hh, kk, dd, dt, causal, window, hm in FLASH_EDGES:
+        q, k, v = flash_inputs(gen, dev, b, sq, skv, hh, kk, dd, dt)
+        e = flash_compare(q, k, v, causal=causal, window=window, hmajor=hm)
+        if name == "fully-masked rows":
+            # rows 0..19 see no key: the mean of v over the 50 keys
+            mean_v = v.float().mean(1).repeat_interleave(hh // kk, dim=1)
+            got = flash_attention(q, k, v, causal=True)
+            torch.testing.assert_close(got[:, :20].float(),
+                                       mean_v[:, None].expand(-1, 20, -1, -1),
+                                       atol=FLASH_TOL[dt], rtol=FLASH_TOL[dt])
+        err = max(err, e)
+        phase("serve-kernel", case=json.dumps(name), b=b, q_len=sq,
+              kv_len=skv, heads=hh, kv_heads=kk, head_dim=dd,
+              dtype=str(dt).split(".")[1], causal=causal, window=window,
+              max_abs_err=e)
+    # each bucket of the trace at the served width (two prompts of the
+    # bucket's length, two pad rows) and at batch 1, the warmup's shape
+    lens_of = {}
+    for r in serve_trace(cfg, SERVE["prompt_lens"], SERVE["requests"], 1):
+        lens_of.setdefault(bucket_len(r.prompt_len, hi=SERVE["max_seq"]),
+                           []).append(r.prompt_len)
+    record = None
+    for s, lens in sorted(lens_of.items()):
+        served = (lens + [0] * batched_width)[:batched_width]
+        for b, rows in ((batched_width, served), (1, [s])):
+            q, k, v = served_inputs(gen, dev, rows, s, h, kvh, d,
+                                    cfg.rope_theta)
+            e = flash_compare(q, k, v)
+            err = max(err, e)
+            ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
+            plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
+                                                             causal=True))
+            qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = cuda_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 qh, kh, vh, is_causal=True, enable_gqa=True))
+            nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d)
+            nops = 4 * b * h * d * attention_pairs(s, s, True, 0)
+            bound_ms, bound_by = bound(nbytes, nops, BF16_FLOPS)
+            phase("serve-kernel", name="flash_attention",
+                  shape="served" if b == batched_width else "warmup", b=b,
+                  seq=s, prompt_lens=json.dumps(rows), heads=h,
+                  kv_heads=kvh, head_dim=d, dtype="bfloat16", causal=True,
+                  max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                  library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  share_of_bound=bound_ms / ms, tflops=nops / ms / 1e9)
+            if (b, s) == (batched_width, max(lens_of)):
+                record = {"name": "flash_attention", "route": "cuda",
+                          "source": "src/repro_torch/kernels/csrc/"
+                                    "flash_attention.cu",
+                          "replaces": "src/repro/kernels/flash_attention/"
+                                      "ops.py:110",
+                          "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": lib_ms}
+            del q, k, v, qh, kh, vh
+    record["max_abs_err"] = err
+    return record
+
+
+# -- phases 11-14: qwen3-0.6b served ---------------------------------------
+
+
+def serve_trace(cfg, prompt_lens, n, gen) -> list:
+    """n requests cycling over ``prompt_lens``, token ids from SEED."""
+    rng = np.random.RandomState(SEED)
+    return [ServeRequest(i, tuple(rng.randint(
+        0, cfg.vocab, prompt_lens[i % len(prompt_lens)]).tolist()), gen)
+        for i in range(n)]
+
+
+def bucket_impls(fwd) -> tuple:
+    """(outer impls, scan subplan impls) of a planned prefill."""
+    outer = Counter(fwd.chosen_impls())
+    inner = Counter(m.impl for n in fwd.concrete.topo()
+                    if n.subplan is not None for m in n.subplan.topo())
+    return outer, inner
+
+
+def timed(fn, acc, key):
+    """``fn`` wrapped to add its host seconds to ``acc[key]``."""
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            acc[key] += time.perf_counter() - t0
+    return wrapper
+
+
+def serve_runtime(model, params, syscat, dev, *, max_batch, max_seq,
+                  prefill_batch=4):
+    return AsyncServingRuntime(
+        model, params, engines=("xla", "pallas"), max_batch=max_batch,
+        max_seq=max_seq, page_size=SERVE["page_size"],
+        plan_cache=PlanCache(), syscat=syscat, prefill_batch=prefill_batch,
+        device=dev)
+
+
+def serve_path(args, dev, syscat) -> list:
+    """Phases 11-14: qwen3-0.6b served.  Returns the flash record."""
+    # 11. data: the model at full width from a seeded generator on the card
+    cfg = get_config(SERVE["arch"])
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(int(t.numel()) for _k, t in _leaves(params))
+    phase("data", path="qwen3_serve", arch=cfg.name, layers=cfg.n_layers,
+          d_model=cfg.d_model, heads=cfg.heads, kv_heads=cfg.kv_heads,
+          head_dim=cfg.resolved_head_dim, vocab=cfg.vocab, dtype=cfg.dtype,
+          param_dtype=cfg.param_dtype, params=n_params,
+          init_s=round(time.perf_counter() - t0, 3))
+
+    # 12. the kernel at the path's shapes and at edge cases
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    record = check_flash(dev, gen, cfg, SERVE["max_batch"])
+    torch.cuda.empty_cache()
+
+    # 13. the runtime through its entry points
+    reqs = serve_trace(cfg, SERVE["prompt_lens"], SERVE["requests"],
+                       SERVE["gen"])
+    rt = serve_runtime(model, params, syscat, dev,
+                       max_batch=SERVE["max_batch"],
+                       max_seq=SERVE["max_seq"])
+    t0 = time.perf_counter()
+    rt.warmup([r.prompt_len for r in reqs])
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    for bucket, fwd in sorted(rt._prefill_fns.items()):
+        outer, inner = bucket_impls(fwd)
+        check(inner["attn_flash_pallas"] == 1 and "sdpa_xla" not in inner,
+              f"bucket {bucket}: attention impls {dict(inner)}")
+        phase("serve", bucket=bucket, plan_id=fwd.plan_id[:12],
+              impls=json.dumps(dict(outer)), layer_impls=json.dumps(
+                  dict(inner)))
+    s0 = rt.pc.stats()
+    fwd0 = rt.registry.count("lm.prefill_forwards", 0)
+    secs = {"prefill": 0.0, "decode": 0.0}
+    rt._try_join = timed(rt._try_join, secs, "prefill")
+    rt._decode_tick = timed(rt._decode_tick, secs, "decode")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = rt.serve(reqs, timeout_s=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = kernels.launches()
+    forwards = rt.registry.count("lm.prefill_forwards", 0) - fwd0
+    s1 = rt.pc.stats()
+    check([r.status for r in res] == ["ok"] * len(reqs),
+          f"serve statuses {[r.status for r in res]}")
+    check(all(len(r.tokens) == SERVE["gen"] for r in res),
+          "a request generated the wrong number of tokens")
+    hits, misses = s1["hits"] - s0["hits"], s1["misses"] - s0["misses"]
+    tokens = sum(len(r.tokens) for r in res)
+    occ = rt.pool.occupancy()
+    fill = rt.registry.summary("lm.pool_fill")
+    phase("serve", requests=len(reqs), ok=len(res), wall_s=round(wall, 4),
+          warmup_s=round(warmup_s, 3), prefill_forwards=forwards,
+          launches=json.dumps({k: v for k, v in counted.items() if v}),
+          tokens=tokens, total_tok_s=tokens / wall,
+          decode_tok_s=sum(len(r.tokens) - 1 for r in res) / secs["decode"],
+          prefill_s=round(secs["prefill"], 4),
+          decode_s=round(secs["decode"], 4), ticks=rt.metrics.ticks,
+          ttft_ms=json.dumps([round(r.metrics.ttft_s * 1e3, 2)
+                              for r in res]),
+          plan_ms=json.dumps([round(r.metrics.plan_ms, 2) for r in res]),
+          prefill_ms=json.dumps([round(r.metrics.prefill_ms, 2)
+                                 for r in res]),
+          tpot_ms=json.dumps([round(r.metrics.tpot_s * 1e3, 3)
+                              for r in res]),
+          plan_hits_after_warmup=hits, plan_misses_after_warmup=misses,
+          pool_fill_max=fill.max, pool_after=json.dumps(occ),
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    record["launches"] = counted["flash_attention"]
+    record["path"] = "qwen3_serve"
+    if args.profile:
+        rt2 = serve_runtime(model, params, syscat, dev,
+                            max_batch=SERVE["max_batch"],
+                            max_seq=SERVE["max_seq"])
+        rt2.warmup([r.prompt_len for r in reqs])
+        profile_call(lambda: rt2.serve(reqs, timeout_s=600), "qwen3_serve")
+        del rt2
+
+    # 14. checks
+    check(counted == launch_counts(flash_attention=cfg.n_layers * forwards),
+          f"launches {counted} != {cfg.n_layers} x {forwards} forwards")
+    check(misses == 0 and hits >= len(reqs),
+          f"plan cache after warmup: {hits} hits, {misses} misses")
+    check(occ["slots_used"] == 0 and occ["pages_used"] == 0,
+          f"pool not drained: {occ}")
+    del rt, res
+    torch.cuda.empty_cache()
+    graph_ms = check_decode_graph(model, params, dev, SERVE["max_batch"])
+    model32 = build_model(cfg.replace(dtype="float32"))
+    rt32 = serve_runtime(model32, params, syscat, dev,
+                         max_batch=SERVE["max_batch"],
+                         max_seq=SERVE["max_seq"])
+    rt32.warmup([r.prompt_len for r in reqs])
+    t0 = time.perf_counter()
+    res32 = rt32.serve(reqs, timeout_s=600)
+    rt_s = time.perf_counter() - t0
+    del rt32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    seq = serve_sequential(model32, params, reqs, max_seq=SERVE["max_seq"],
+                           engines=("xla", "pallas"), syscat=syscat,
+                           plan_cache=PlanCache(), device=dev)
+    seq_s = time.perf_counter() - t0
+    check([r.status for r in res32] == ["ok"] * len(reqs),
+          "float32 serve failed")
+    differ = [r.rid for r, q in zip(res32, seq) if r.tokens != q.tokens]
+    check(not differ, f"float32 runtime and serve_sequential differ on "
+                      f"requests {differ}")
+    torch.cuda.empty_cache()
+    cpu = cpu_subtrace(cfg, model32, params, syscat, dev)
+    phase("check", path="qwen3_serve",
+          launches_equal_layers_x_forwards=True,
+          decode_graph_bitwise_eager=True, **graph_ms,
+          plan_hit_rate_after_warmup=hits / (hits + misses),
+          f32_runtime_equal_sequential=True, f32_runtime_s=round(rt_s, 3),
+          f32_sequential_s=round(seq_s, 3), **cpu)
+    return [record]
+
+
+def check_decode_graph(model, params, dev, batch) -> dict:
+    """The runtime's CUDA-graph decode step against the eager step on
+    equal random caches, slots at different positions: logits and caches
+    bitwise equal.  Returns the two steps' CUDA-event medians."""
+    params = model.inference_params(params)
+    cache = init_cache(model, batch, 512, device=dev)
+    graph = DecodeGraph(model, params, cache, batch)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for _key, leaf in _leaves(cache):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev))
+    twin = {g: {k: v.clone() for k, v in gc.items()}
+            for g, gc in cache.items()}
+    tok = torch.randint(0, model.cfg.vocab, (batch, 1), generator=gen,
+                        device=dev)
+    idx = torch.arange(batch, device=dev) * 100 + 7
+    got = graph(tok, idx).clone()
+    want, _ = decode_step_batched(model, params, twin, tok, idx)
+    check(torch.equal(got, want), "DecodeGraph logits differ from the "
+                                  "eager step's")
+    check(all(torch.equal(cache[g][k], twin[g][k])
+              for g in cache for k in cache[g]),
+          "DecodeGraph cache writes differ from the eager step's")
+    return {"decode_graph_ms": cuda_ms(lambda: graph(tok, idx), reps=5),
+            "decode_eager_ms": cuda_ms(lambda: decode_step_batched(
+                model, params, twin, tok, idx), reps=5)}
+
+
+def params_to(tree, device):
+    """The same nested dict of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def cpu_subtrace(cfg, model32, params, syscat, dev) -> dict:
+    """Two float32 requests on the card and through the port's plain path
+    on the CPU: first-token logits allclose; token streams equal up to the
+    first step whose top-2 logit margin (on the CPU) is within LOGIT_TOL."""
+    reqs = serve_trace(cfg, SUBTRACE["prompt_lens"], 2, SUBTRACE["gen"])
+    runs = {}
+    t0 = time.perf_counter()
+    for where, p in (("card", params), ("cpu", params_to(params, "cpu"))):
+        rt = serve_runtime(model32, p, syscat, dev if where == "card"
+                           else "cpu", max_batch=2,
+                           max_seq=SUBTRACE["max_seq"], prefill_batch=1)
+        rt.warmup([r.prompt_len for r in reqs])
+        res = rt.serve(reqs, timeout_s=900)
+        check([r.status for r in res] == ["ok", "ok"],
+              f"{where} sub-trace statuses {[r.status for r in res]}")
+        runs[where] = (rt, res)
+    cpu_s = time.perf_counter() - t0
+
+    def last_logits(where, toks):
+        rt, _ = runs[where]
+        bucket = rt.bucket_of(len(toks))
+        fwd, _ = rt._plan_prefill(bucket)
+        padded = torch.zeros((1, bucket), dtype=torch.long, device=rt.device)
+        padded[0, :len(toks)] = torch.tensor(toks)
+        out = fwd(rt.params, {"tokens": padded})[0][0, len(toks) - 1,
+                                                    :cfg.vocab]
+        return out.float().cpu()
+
+    err, diverged, margins = 0.0, [], []
+    for i, req in enumerate(reqs):
+        a = last_logits("card", req.prompt)
+        c = last_logits("cpu", req.prompt)
+        torch.testing.assert_close(a, c, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+        err = max(err, float((a - c).abs().max()))
+        top = torch.topk(c, 2).values
+        margins.append(float(top[0] - top[1]))
+        ta, tc = runs["card"][1][i].tokens, runs["cpu"][1][i].tokens
+        t = next((j for j, (x, y) in enumerate(zip(ta, tc)) if x != y), None)
+        if t is not None:
+            top = torch.topk(last_logits("cpu", req.prompt + tuple(tc[:t])),
+                             2).values
+            check(float(top[0] - top[1]) <= LOGIT_TOL,
+                  f"request {i}: card and CPU tokens differ at step {t} "
+                  f"where the top-2 margin is {float(top[0] - top[1])}")
+            diverged.append((i, t))
+    return {"cpu_first_logits_max_abs_err": err,
+            "cpu_first_top2_margins": json.dumps(margins),
+            "cpu_tokens_equal": not diverged,
+            "cpu_diverged_at_near_tie": json.dumps(diverged),
+            "cpu_subtrace_s": round(cpu_s, 3)}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -809,8 +1280,10 @@ def main(argv=None) -> int:
     records = pulse_path(args, dev, syscat)
     torch.cuda.empty_cache()
     records += window_path(args, dev, syscat)
+    torch.cuda.empty_cache()
+    records += serve_path(args, dev, syscat)
 
-    # 11. results
+    # 15. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -11,9 +11,15 @@ written by hand for Hopper** (CUDA C++ for ``sm_90a`` under
 ``kernels/csrc``).  A kernel's plain PyTorch version runs only on CPU
 tensors; on a CUDA tensor the kernel launches or raises.
 
+The same planner serves a language model: ``repro_torch.serving``'s
+``AsyncServingRuntime`` plans one ``prefill_kv`` forward per prompt bucket
+(``repro_torch.models``), seeds a paged KV pool from it and decodes with
+continuous batching (``python -m repro_torch.launch.serve``).
+
 Entry points run on the card unless the caller passes ``device="cpu"``:
-:func:`compile`, ``PlannedFunction.__call__`` and every store's
-``payload(device=...)``.  Without a card they raise.
+:func:`compile`, ``PlannedFunction.__call__``, every store's
+``payload(device=...)``, the serving runtime and ``serve_sequential``.
+Without a card they raise.
 
     from repro_torch import compile
     from repro_torch.core.adil_parser import parse_adil
@@ -22,8 +28,8 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
 """
 from __future__ import annotations
 
-from .core.executor import PlannedFunction, resolve_device
-from .core.ir import SystemCatalog, hardware_for_device
+from .core.executor import PlannedFunction, default_syscat, resolve_device
+from .core.ir import SystemCatalog  # noqa: F401  (repro_torch.SystemCatalog)
 from . import stores
 from .stores import store_engines
 
@@ -40,8 +46,7 @@ def compile(analysis, syscat=None, *, engines=None, device="cuda",
     ``device="cpu"``."""
     dev = resolve_device(device)
     if syscat is None:
-        syscat = (SystemCatalog(hardware=hardware_for_device())
-                  if dev.type == "cuda" else SystemCatalog())
+        syscat = default_syscat(dev)
     if engines is None:
         engines = store_engines(pallas=True)
     return analysis.compile(syscat, engines=engines, device=dev, **kw)

@@ -1,11 +1,15 @@
 """Physical-plan executor of the port: walks the chosen physical DAG and runs
 it as PyTorch operations on one device.
 
-The counterpart of the reference package's ``core/executor.py``, store
-subset only: the execution context, the impl table over the port's own
-engine registry (the generic impls live here; the store impls register from
-``repro_torch.stores.runtime``), the fast ``run_plan`` path, and
-:class:`PlannedFunction`, the staged plan bound to a device.  Planning is
+The counterpart of the reference package's ``core/executor.py``: the
+execution context, the impl table over the port's own engine registry (the
+generic and the language-model impls live here; the store impls register
+from ``repro_torch.stores.runtime``), the fast ``run_plan`` path, and
+:class:`PlannedFunction`, the staged plan bound to a device.  The LM impls
+cover the dense family's prefill: ``scan_layers_xla`` runs its subplan in a
+Python loop over the stacked per-layer parameters under
+``torch.inference_mode()`` (``remat`` means nothing without a backward), and
+``attn_flash_pallas`` is the flash-attention kernel.  Planning is
 the copied staged pipeline, so a plan id here equals the reference
 package's for the same analysis and catalogs.
 
@@ -15,7 +19,7 @@ than carry on on the CPU.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Optional
 
 import torch
@@ -23,8 +27,12 @@ import torch
 from .buffering import BufferingDecision
 from .cost_model import CostModel
 from .engines import dispatch, get_engine, resolve_engines
-from .ir import FunctionCatalog, Plan, SystemCatalog
+from .ir import FunctionCatalog, Plan, SystemCatalog, hardware_for_device
 from .physical import PHYS_OPS, PhysPlan
+from ..layers import attention as A
+from ..layers import embedding as E
+from ..layers import mlp as F
+from ..layers.common import layer_slice, rmsnorm, torch_dtype
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,6 +47,14 @@ def resolve_device(device=None) -> torch.device:
             f"device {dev} requested but torch.cuda.is_available() is False;"
             f" pass device='cpu' to run the plain path on the CPU")
     return dev
+
+
+def default_syscat(device) -> SystemCatalog:
+    """The system catalog to plan for on ``device``: the data sheet of the
+    card in use, or of the H100 SXM when planning for the CPU."""
+    if torch.device(device).type == "cuda":
+        return SystemCatalog(hardware=hardware_for_device())
+    return SystemCatalog()
 
 
 def _tensors(value):
@@ -66,7 +82,19 @@ class ExecContext:
     root: Any                       # full param tree
     scope: Any                      # current scope
     device: torch.device            # where the plan's tensors live
-    aux: dict = field(default_factory=dict)   # count_sink, ...
+    aux: dict = field(default_factory=dict)   # count_sink, positions, ...
+
+    def params_for(self, node):
+        """The parameters under the node's ``pp`` path: from the root for
+        ``shared`` nodes, else from the current scope (a layer slice inside
+        ``scan_layers``)."""
+        path = node.attrs.get("pp")
+        if path is None:
+            return self.scope
+        base = self.root if node.attrs.get("shared") else self.scope
+        for k in path:
+            base = base[k]
+        return base
 
 
 # --------------------------------------------------------------------------
@@ -91,6 +119,178 @@ def _i_const(ctx, args, node):
 @impl("residual_add_xla")
 def _i_resid(ctx, args, node):
     return args[0] + args[1]
+
+
+# --------------------------------------------------------------------------
+# language-model impls (one device: partition and merge are identities)
+# --------------------------------------------------------------------------
+
+@impl("partition", "merge")
+def _i_partition(ctx, args, node):
+    return args[0]
+
+
+@impl("embed_gather")
+def _i_embed(ctx, args, node):
+    out = E.embed(ctx.params_for(node), args[0].long(),
+                  scale=node.attrs.get("scale", False))
+    dt = node.attrs.get("dtype")
+    return out.to(torch_dtype(dt)) if dt else out
+
+
+@impl("rmsnorm_xla")
+def _i_rmsnorm(ctx, args, node):
+    return rmsnorm(args[0], ctx.params_for(node)["scale"])
+
+
+def _attn_cfg(node):
+    a = node.attrs
+    return a["heads"], a["kv_heads"], a["head_dim"]
+
+
+@impl("q_proj_xla")
+def _i_qproj(ctx, args, node):
+    h, k, d = _attn_cfg(node)
+    return A.project_q(ctx.params_for(node), args[0], h, d)
+
+
+@impl("k_proj_xla")
+def _i_kproj(ctx, args, node):
+    h, k, d = _attn_cfg(node)
+    return A.project_kv(ctx.params_for(node), args[0], k, d)[0]
+
+
+@impl("v_proj_xla")
+def _i_vproj(ctx, args, node):
+    h, k, d = _attn_cfg(node)
+    return A.project_kv(ctx.params_for(node), args[0], k, d)[1]
+
+
+@impl("pack_qkv_xla")
+def _i_pack(ctx, args, node):
+    return tuple(args)
+
+
+@impl("qkv_proj_fused")
+def _i_qkv_fused(ctx, args, node):
+    h, k, d = _attn_cfg(node)
+    return A.project_qkv_fused(ctx.params_for(node), args[0], h, k, d)
+
+
+def _prep(ctx, node, q, k):
+    pos = ctx.aux.get("positions")
+    if pos is None:
+        pos = torch.arange(q.shape[1], device=q.device)[None, :]
+    return A.qk_prep(ctx.params_for(node), q, k, pos,
+                     qk_norm=node.attrs.get("qk_norm", False),
+                     use_rope=node.attrs.get("rope", True),
+                     rope_theta=node.attrs.get("rope_theta", 10000.0))
+
+
+def _emit_kv(ctx, node, k, v):
+    """KV export hook: inside a ``collect_kv`` scan, sdpa impls append their
+    prepped K (post qk-norm/RoPE — exactly what the decode cache stores) and
+    raw V to the sink the scan body planted in ``ctx.aux``."""
+    sink = ctx.aux.get("kv_sink")
+    if sink is not None and node.attrs.get("emit_kv"):
+        sink.append((k, v))
+
+
+@impl("sdpa_xla")
+def _i_sdpa(ctx, args, node):
+    q, k, v = args[0]
+    q, k = _prep(ctx, node, q, k)
+    _emit_kv(ctx, node, k, v)
+    return A.sdpa_full(q, k, v, causal=node.attrs.get("causal", True),
+                       window=node.attrs.get("window", 0) or 0)
+
+
+@impl("attn_flash_pallas", engine="pallas")
+def _i_flash(ctx, args, node):
+    q, k, v = args[0]
+    q, k = _prep(ctx, node, q, k)
+    _emit_kv(ctx, node, k, v)
+    return A.sdpa_flash(q, k, v, causal=node.attrs.get("causal", True),
+                        window=node.attrs.get("window", 0) or 0)
+
+
+@impl("out_proj_xla")
+def _i_outproj(ctx, args, node):
+    return A.out_project(ctx.params_for(node), args[0])
+
+
+@impl("ffn_up_xla")
+def _i_ffn_up(ctx, args, node):
+    return F.ffn_up(ctx.params_for(node), args[0])
+
+
+@impl("ffn_gate_xla")
+def _i_ffn_gate(ctx, args, node):
+    return F.ffn_gate(ctx.params_for(node), args[0])
+
+
+@impl("ffn_glu_xla")
+def _i_ffn_glu(ctx, args, node):
+    return F.ffn_glu(args[0], args[1], node.attrs.get("act", "silu"))
+
+
+@impl("ffn_act_xla")
+def _i_ffn_act(ctx, args, node):
+    return F.ffn_act(args[0], node.attrs.get("act", "gelu"))
+
+
+@impl("ffn_down_xla")
+def _i_ffn_down(ctx, args, node):
+    return F.ffn_down(ctx.params_for(node), args[0])
+
+
+@impl("mlp_fused_xla")
+def _i_mlp(ctx, args, node):
+    return F.mlp_fused(ctx.params_for(node), args[0],
+                       gated=node.attrs.get("gated", True),
+                       act=node.attrs.get("act"))
+
+
+@impl("unembed_matmul")
+def _i_unembed(ctx, args, node):
+    out = E.unembed(ctx.params_for(node), args[0])
+    true_v = node.attrs.get("true_vocab")
+    if true_v and true_v < out.shape[-1]:
+        out = E.mask_padded_logits(out, true_v)
+    return out
+
+
+@impl("tuple_get_xla")
+def _i_tuple_get(ctx, args, node):
+    return args[0][node.attrs["index"]]
+
+
+@impl("scan_layers_xla")
+def _i_scan(ctx, args, node):
+    """The reference's ``lax.scan`` over stacked layers as a Python loop.
+    With ``collect_kv`` each layer's emitting sdpa impls append (K, V) to a
+    fresh sink, stacked over layers to ``(layers, B, S, KV, D)`` — the
+    decode cache layout; returns ``(carry, ((K, V), ...))`` then."""
+    carry = args[0]
+    p_stack = ctx.params_for(node)
+    sub = node.subplan
+    in_names = list(sub.inputs.keys())
+    extra_env = dict(zip(in_names[1:], args[1:]))
+    collect_kv = bool(node.attrs.get("collect_kv"))
+    per_layer = []
+    with torch.inference_mode():
+        for i in range(int(node.attrs["n_layers"])):
+            sink: list = []
+            aux = {**ctx.aux, "kv_sink": sink} if collect_kv else ctx.aux
+            ctx2 = replace(ctx, scope=layer_slice(p_stack, i), aux=aux)
+            carry = run_plan(sub, ctx2, {in_names[0]: carry, **extra_env})[0]
+            per_layer.append(tuple(sink))
+        if not collect_kv:
+            return carry
+        kv = tuple((torch.stack([layer[j][0] for layer in per_layer]),
+                    torch.stack([layer[j][1] for layer in per_layer]))
+                   for j in range(len(per_layer[0])))
+    return (carry, kv)
 
 
 # --------------------------------------------------------------------------

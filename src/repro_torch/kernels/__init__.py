@@ -9,10 +9,16 @@
   * :func:`masked_kernels.join_probe` — equi-join probe against a small
     unique-key build side (``csrc/join_probe.cu``);
   * :func:`masked_kernels.compact_prefix` — prefix compaction of stacked
-    columns (``csrc/compact_prefix.cu``).
+    columns (``csrc/compact_prefix.cu``);
+  * :func:`flash_attention.flash_attention` (and its heads-major entry
+    ``flash_attention_hmajor``) — blocked online-softmax attention, the
+    serving prefill's ``attn_flash_pallas`` (``csrc/flash_attention.cu``).
+    The package attribute ``flash_attention`` stays the module.
 
 Sources build with ``nvcc`` for ``sm_90a`` at first use (:mod:`.build`).
 """
+from . import flash_attention as _flash_attention
+from .flash_attention import flash_attention_hmajor, flash_attention_plain
 from .graph_kernels import scatter_add, scatter_add_plain
 from .masked_kernels import (compact_prefix, compact_prefix_plain, join_probe,
                              join_probe_plain, masked_segment_agg,
@@ -20,7 +26,7 @@ from .masked_kernels import (compact_prefix, compact_prefix_plain, join_probe,
                              masked_tfidf_plain)
 
 KERNELS = (scatter_add, masked_segment_agg, masked_tfidf, join_probe,
-           compact_prefix)
+           compact_prefix, _flash_attention.flash_attention)
 
 
 def reset_launches() -> None:

@@ -1,0 +1,197 @@
+"""Serving path: cache construction, single-token decode, and seeding a
+cache from a ``prefill_kv`` plan's outputs.
+
+The port of the reference's ``models/decode.py`` for attention blocks.  The
+cache is a dict ``{group: {b{i}_k, b{i}_v: (count, B, S, KV, D)}}`` in the
+model's dtype, the reference's layout.  Unlike the reference, whose JAX
+arrays are immutable, every function here writes the cache **in place** and
+returns the same dict.  Ring-buffer local caches, int8 KV and TP-replicated
+KV heads wait for the gemma3 slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.executor import resolve_device
+from ..layers import attention as A
+from ..layers import embedding as E
+from ..layers import mlp as F
+from ..layers.common import layer_slice, rmsnorm, rope_apply, rope_tables
+from .lm import LM, Block
+
+
+def _attn_dims(cfg: ModelConfig):
+    return cfg.heads, cfg.kv_heads, cfg.resolved_head_dim
+
+
+# --------------------------------------------------------------------------
+# cache construction
+# --------------------------------------------------------------------------
+
+def init_cache(model: LM, batch: int, max_seq: int, *, device=None,
+               ring_local: bool = False, kv_repeat_to: int = 0,
+               quantize_kv: bool = False) -> dict:
+    """Zeroed full-length caches for every attention block, on ``device``
+    (the card unless the caller names another)."""
+    if ring_local or kv_repeat_to or quantize_kv:
+        raise NotImplementedError(
+            "ring-buffer, int8 and replicated-KV caches are not ported yet "
+            "(ROADMAP §1, the gemma3 slice)")
+    dev = resolve_device(device)
+    _, kv, d = _attn_dims(model.cfg)
+    cache: dict = {}
+    for g in model.groups:
+        gc: dict = {}
+        for i in attn_block_indices(g):
+            for key in (f"b{i}_k", f"b{i}_v"):
+                gc[key] = torch.zeros((g.count, batch, max_seq, kv, d),
+                                      dtype=model.dtype, device=dev)
+        cache[g.name] = gc
+    return cache
+
+
+# --------------------------------------------------------------------------
+# single-token decode
+# --------------------------------------------------------------------------
+
+def _decode_attn(p, x, ck, cv, cfg: ModelConfig, window: int, step: dict):
+    """x: (B, 1, E); ck/cv: one layer's (B, S, KV, D) cache, written in
+    place at each slot's own position ``step["pos"]``."""
+    h, kvh, d = _attn_dims(cfg)
+    q = A.project_q(p, x, h, d)
+    k, v = A.project_kv(p, x, kvh, d)
+    if cfg.qk_norm and "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    q = rope_apply(q, step["cos"], step["sin"])
+    k = rope_apply(k, step["cos"], step["sin"])
+    rows, pos = step["rows"], step["pos"]
+    ck[rows, pos] = k[:, 0].to(ck.dtype)
+    cv[rows, pos] = v[:, 0].to(cv.dtype)
+    valid = step["valid"]
+    if window and window > 0:
+        valid = valid & (step["keys"][None, :] > (pos - window)[:, None])
+    return A.out_project(p, A.decode_attend_gqa(q, ck, cv, valid))
+
+
+def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, x, lc, step):
+    if blk.kind != "attn_mlp" or blk.cross:
+        raise NotImplementedError(f"block {blk} is not ported yet")
+    h = rmsnorm(x, p[f"b{i}_ln1"]["scale"])
+    x = x + _decode_attn(p[f"b{i}_attn"], h, lc[f"b{i}_k"], lc[f"b{i}_v"],
+                         cfg, blk.window, step)
+    h = rmsnorm(x, p[f"b{i}_ln2"]["scale"])
+    return x + F.mlp_fused(p[f"b{i}_mlp"], h, gated=cfg.gated, act=cfg.act)
+
+
+@torch.inference_mode()
+def decode_step_batched(model: LM, params, cache, tokens, indices):
+    """Continuous-batching decode: one token per batch slot at a per-slot
+    position.  tokens: (B, 1) int; indices: (B,) int — slot b decodes
+    position ``indices[b]``: its K/V land there and it attends to
+    positions ``<= indices[b]``.  Returns (logits (B, 1, V), cache), the
+    cache updated in place.  The reference's ``vmap`` over
+    ``decode_step`` becomes this batch dimension written out."""
+    cfg = model.cfg
+    pos = indices.to(device=tokens.device, dtype=torch.long)
+    any_cache = next(iter(next(iter(cache.values())).values()))
+    s_alloc = any_cache.shape[2]
+    keys = torch.arange(s_alloc, device=tokens.device)
+    cos, sin = rope_tables(pos[:, None], cfg.resolved_head_dim,
+                           theta=cfg.rope_theta)
+    step = {"pos": pos, "rows": torch.arange(pos.shape[0],
+                                             device=tokens.device),
+            "cos": cos, "sin": sin, "keys": keys,
+            "valid": keys[None, :] < (pos + 1).clamp(max=s_alloc)[:, None]}
+    x = E.embed(params["embed"], tokens.long(),
+                scale=cfg.embed_scale).to(model.dtype)
+    for g in model.groups:
+        gp, gc = params[g.name], cache[g.name]
+        for layer in range(g.count):
+            lp, lc = layer_slice(gp, layer), layer_slice(gc, layer)
+            for i, blk in enumerate(g.blocks):
+                x = _decode_block(cfg, blk, i, lp, x, lc, step)
+    x = rmsnorm(x, params["final_norm"]["scale"])
+    logits = E.mask_padded_logits(E.unembed(params["embed"], x), cfg.vocab)
+    return logits, cache
+
+
+class DecodeGraph:
+    """:func:`decode_step_batched` on one fixed cache and batch width,
+    captured once in a CUDA graph and replayed for every step — the
+    counterpart of the reference's ``jax.jit`` of its decode step.  A step
+    is some 1,800 small PyTorch operations at qwen3-0.6b's 28 layers;
+    replayed, they cost their device time instead of their Python dispatch.
+    Replay runs the kernels the eager step runs.
+
+    Building it runs the step once on token 0 at position 0 of every row
+    (the warm-up CUDA graphs need), writing that K/V at position 0: build
+    it before any row is seeded (the runtime does so in ``warmup``).  The
+    returned logits live in a static buffer that the next call
+    overwrites."""
+
+    def __init__(self, model: LM, params, cache, batch: int):
+        dev = next(iter(next(iter(cache.values())).values())).device
+        if dev.type != "cuda":
+            raise ValueError(f"DecodeGraph needs a CUDA cache, got {dev}")
+        self.tokens = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        self.indices = torch.zeros((batch,), dtype=torch.long, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):   # warm-up: cuBLAS handles, workspace
+            decode_step_batched(model, params, cache, self.tokens,
+                                self.indices)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits, _ = decode_step_batched(model, params, cache,
+                                                 self.tokens, self.indices)
+
+    def __call__(self, tokens, indices):
+        """One step: (B, 1) tokens at (B,) positions; returns the logits
+        (B, 1, V) and updates the cache in place, as the eager step."""
+        self.tokens.copy_(tokens)
+        self.indices.copy_(indices)
+        self.graph.replay()
+        return self.logits
+
+
+def decode_step(model: LM, params, cache, tokens, index):
+    """tokens: (B, 1) int; index: the position every row decodes.
+    Returns (logits (B, 1, V), cache), the cache updated in place."""
+    idx = torch.full((tokens.shape[0],), int(index), dtype=torch.long,
+                     device=tokens.device)
+    return decode_step_batched(model, params, cache, tokens, idx)
+
+
+def attn_block_indices(group) -> list:
+    """Block indices within a group whose cache entries are attention K/V
+    — the blocks a ``prefill_kv`` plan emits, in emission order."""
+    return [i for i, blk in enumerate(group.blocks)
+            if blk.kind in ("attn_mlp", "attn_moe")]
+
+
+@torch.inference_mode()
+def seed_cache_from_prefill(model: LM, cache, kv_groups, prompt_len: int, *,
+                            slot=None):
+    """Write a ``prefill_kv`` plan's K/V outputs into a decode cache, in
+    place.  ``kv_groups``: one entry per model group, a tuple over emitting
+    blocks of (K, V) stacked as (layers, B, bucket, KV, D).  With
+    ``slot=None`` the prefill batch must match the cache batch and all rows
+    are seeded; with an int ``slot`` the prefill must be batch-1 and lands
+    in that cache row.  Returns the cache."""
+    for g, kv_g in zip(model.groups, kv_groups):
+        gc = cache[g.name]
+        for bi, (k, v) in zip(attn_block_indices(g), kv_g):
+            if gc[f"b{bi}_k"].shape[2] < prompt_len:
+                raise ValueError("prefill_kv seeding needs full-length "
+                                 "caches")
+            for key, val in ((f"b{bi}_k", k), (f"b{bi}_v", v)):
+                leaf = gc[key]
+                val = val[:, :, :prompt_len].to(leaf.dtype)
+                if slot is None:
+                    leaf[:, :, :prompt_len] = val
+                else:
+                    leaf[:, slot, :prompt_len] = val[:, 0]
+    return cache

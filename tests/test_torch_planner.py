@@ -80,6 +80,16 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.masked_kernels\n"
         "import repro_torch.kernels.graph_kernels\n"
         "import repro_torch.kernels.build\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.configs, repro_torch.configs.qwen3_0_6b\n"
+        "import repro_torch.layers.common, repro_torch.layers.embedding\n"
+        "import repro_torch.layers.mlp, repro_torch.layers.attention\n"
+        "import repro_torch.models, repro_torch.models.lm\n"
+        "import repro_torch.models.decode\n"
+        "import repro_torch.serving, repro_torch.serving.admission\n"
+        "import repro_torch.serving.scheduler, repro_torch.serving.metrics\n"
+        "import repro_torch.serving.kv_pool, repro_torch.serving.runtime\n"
+        "import repro_torch.launch.serve\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and m.split('.')[0] in ('repro', 'jax', 'jaxlib')]\n"

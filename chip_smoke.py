@@ -77,12 +77,53 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      the CPU (first-token logits allclose, token streams equal up to the
      first step whose top-2 logit margin is within the tolerance);
 
- 15. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+ ``rwkv6_serve`` and ``zamba2_serve`` (the recurrent families served by the
+  async runtime through its replay fallback, slice 4), each in turn, the
+  model before it freed:
 
-With ``--profile`` it also runs each path's default plan (and a second
-serve of the qwen3 trace) once under ``torch.profiler`` and prints the
-device time of the 15 costliest kernels and the device's idle share of
-that run.
+ 15./19. data — rwkv6-3b (32 layers, d_model 2560, 40 heads of 64, vocab
+     65,536) / zamba2-7b (81 mamba blocks, d_model 3584, 112 SSD heads of
+     64, state 64, and a shared attention block of 32 heads of 112 every 6
+     blocks; vocab 32,000) at full width and depth, bfloat16 activations,
+     float32 parameters from ``he_init`` on a seeded generator on the card:
+     parameter count, bytes, seconds;
+ 16./20. serve — ``AsyncServingRuntime`` (engines xla + pallas, 4 decode
+     slots, max_seq 2048, page size 16; replay mode) on 4 requests of 100 /
+     500 / 1000 / 2000 prompt tokens, 16 generated each: warmup, then serve
+     with the launch counts set to 0 just before it and the kernel's (and
+     flash attention's) arguments recorded at each bucket; chosen impls per
+     bucket; prefill, replay and adopt ms per request; TTFT; decode and
+     total tokens/s; plan-cache hits; pool occupancy;
+ 17./21. kernel — wkv6 / ssd against its plain version (the sequential
+     recurrence) on the card on the very arguments each bucket's planned
+     prefill gave it, and at edge cases (T = 1, T = 300, B = 2, float32 and
+     bfloat16, decay 1.0 exactly and 1e-6, ssd's b and c shared over heads
+     with stride 0 and per head); CUDA-event medians of the kernel and the
+     plain version beside the bound (no single PyTorch call computes either
+     recurrence: ``library_ms`` is null).  zamba2-7b: flash attention at
+     head_dim 112 on the arguments its prefills gave it, timed beside
+     ``scaled_dot_product_attention``;
+ 18./22. check — wkv6 launches = 32 x the prefill forwards, ssd launches =
+     81 x, flash launches = 13 x the zamba2 forwards whose plan picked
+     ``attn_flash_pallas``; 100 % plan-cache hits after warmup; a float32
+     run of a 2-request sub-trace (prompts 100 and 500, 8 generated)
+     through the runtime token for token equal to ``serve_sequential``;
+     the float32 planned prefill at bucket 512 with the kernel (xla +
+     pallas) against the chunked plain engine (xla): last-position logits
+     within 2e-3; rwkv6-3b only: one float32 request (prompt 48, 4
+     generated; each CPU decode step reads 12.3 GB of float32 weights, so
+     the prompt is cut from 100 to keep the run near 6 minutes) on the
+     card against the port's plain path on the CPU, as the qwen3
+     sub-trace.  zamba2-7b's CPU side would hold 26.5 GB of
+     float32 parameters, so its card-against-CPU check stays with the CPU
+     tests at SMOKE width (``tests/test_torch_recurrent_*.py``);
+
+ 23. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+
+With ``--profile`` it also runs each path's default plan (a second serve
+of the qwen3 trace; for each recurrent family a serve of one request of
+100 prompt tokens) once under ``torch.profiler`` and prints the device
+time of the 15 costliest kernels and the device's idle share of that run.
 
 Tolerances: counts, ids and top-k order exact; float sums
 ``rtol=1e-5, atol=1e-6`` (atomics add in a run-dependent order).  Flash
@@ -97,7 +138,13 @@ they differ by about one bfloat16 ulp (0.0039 at |x| ~ 1), which 1e-2
 still clears.
 Logits card against CPU: ``2e-3`` absolute and relative (float32 end to
 end; cuBLAS and the kernel against MKL and the plain softmax, summed in
-other orders through 28 layers).
+other orders through 28 layers); the same for the kernel's prefill
+against the chunked engine's.  WKV6 and SSD against their sequential
+plain versions: ``1e-4`` absolute and relative in float32 (one float32
+sum order against another over up to 2048 steps: the kernel sums a
+column's terms in index order, the plain version through einsum), ``1e-2``
+in bfloat16 (both round one float32 result to bfloat16: one ulp apart at
+most, 2^-8 relative).
 """
 from __future__ import annotations
 
@@ -122,7 +169,8 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.adil_parser import parse_adil  # noqa: E402
 from repro_torch.core.engines import dispatch  # noqa: E402
-from repro_torch.core.executor import ExecContext, run_plan_subset  # noqa
+from repro_torch.core.executor import (ExecContext,  # noqa: E402
+                                       plan_and_compile, run_plan_subset)
 from repro_torch.core.ir import (SystemCatalog, hardware_for_device,  # noqa
                                  standard_catalog)
 from repro_torch.core.rewrite import (DEFAULT_PIPELINE,  # noqa: E402
@@ -136,6 +184,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_plain)
 from repro_torch.kernels.graph_kernels import (  # noqa: E402
     scatter_add, scatter_add_plain)
+from repro_torch.kernels.ssd import ssd, ssd_reference  # noqa: E402
+from repro_torch.kernels.wkv6 import wkv6, wkv6_reference  # noqa: E402
+from repro_torch.layers import attention as attention_layer  # noqa: E402
+from repro_torch.layers import mamba as mamba_layer  # noqa: E402
+from repro_torch.layers import rwkv as rwkv_layer  # noqa: E402
 from repro_torch.layers.common import rope  # noqa: E402
 from repro_torch.kernels.masked_kernels import (  # noqa: E402
     compact_prefix, compact_prefix_plain, join_probe, join_probe_plain,
@@ -143,6 +196,7 @@ from repro_torch.kernels.masked_kernels import (  # noqa: E402
     masked_tfidf_plain)
 from repro_torch.core.plan_cache import PlanCache  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.lm import CATALOG  # noqa: E402
 from repro_torch.models.decode import (DecodeGraph,  # noqa: E402
                                        decode_step_batched, init_cache)
 from repro_torch.serving import (AsyncServingRuntime,  # noqa: E402
@@ -176,6 +230,30 @@ SERVE = {"arch": "qwen3-0.6b", "requests": 8,
 SUBTRACE = {"prompt_lens": (100, 500), "gen": 8, "max_seq": 1024}
 FLASH_TOL = {torch.float32: 8 * 2e-5, torch.bfloat16: 1e-2}
 LOGIT_TOL = 2e-3
+# rwkv6_serve / zamba2_serve: the served trace, the float32 sub-trace
+# (runtime against serve_sequential; the kernel's prefill against the
+# chunked engine's at engine_bucket) and rwkv6-3b's CPU request
+RSERVE = {"requests": 4, "prompt_lens": (100, 500, 1000, 2000), "gen": 16,
+          "max_batch": 4, "max_seq": 2048}
+RSUB = {"prompt_lens": (100, 500), "gen": 8, "engine_bucket": 512}
+RCPU = {"prompt_lens": (48,), "gen": 4, "max_seq": 256}
+RECURRENT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+RECURRENT = {
+    "rwkv6-3b": {
+        "name": "wkv6", "path": "rwkv6_serve", "kernel": wkv6,
+        "plain": wkv6_reference, "module": rwkv_layer,
+        "entry": "wkv6_kernel", "impl": "wkv6_pallas",
+        "xla": "wkv6_scan_xla",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6/wkv6.py:70", "cpu_check": True},
+    "zamba2-7b": {
+        "name": "ssd", "path": "zamba2_serve", "kernel": ssd,
+        "plain": ssd_reference, "module": mamba_layer,
+        "entry": "ssd_kernel", "impl": "ssd_pallas",
+        "xla": "ssd_chunked_xla",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:76", "cpu_check": False},
+}
 
 
 def launch_counts(**counts) -> dict:
@@ -1140,7 +1218,9 @@ def serve_path(args, dev, syscat) -> list:
     check(not differ, f"float32 runtime and serve_sequential differ on "
                       f"requests {differ}")
     torch.cuda.empty_cache()
-    cpu = cpu_subtrace(cfg, model32, params, syscat, dev)
+    cpu = cpu_subtrace(cfg, model32, params, syscat, dev,
+                       serve_trace(cfg, SUBTRACE["prompt_lens"], 2,
+                                   SUBTRACE["gen"]), SUBTRACE["max_seq"])
     phase("check", path="qwen3_serve",
           launches_equal_layers_x_forwards=True,
           decode_graph_bitwise_eager=True, **graph_ms,
@@ -1192,20 +1272,19 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def cpu_subtrace(cfg, model32, params, syscat, dev) -> dict:
-    """Two float32 requests on the card and through the port's plain path
-    on the CPU: first-token logits allclose; token streams equal up to the
+def cpu_subtrace(cfg, model32, params, syscat, dev, reqs, max_seq) -> dict:
+    """Float32 requests on the card and through the port's plain path on
+    the CPU: first-token logits allclose; token streams equal up to the
     first step whose top-2 logit margin (on the CPU) is within LOGIT_TOL."""
-    reqs = serve_trace(cfg, SUBTRACE["prompt_lens"], 2, SUBTRACE["gen"])
     runs = {}
     t0 = time.perf_counter()
     for where, p in (("card", params), ("cpu", params_to(params, "cpu"))):
         rt = serve_runtime(model32, p, syscat, dev if where == "card"
-                           else "cpu", max_batch=2,
-                           max_seq=SUBTRACE["max_seq"], prefill_batch=1)
+                           else "cpu", max_batch=2, max_seq=max_seq,
+                           prefill_batch=1)
         rt.warmup([r.prompt_len for r in reqs])
         res = rt.serve(reqs, timeout_s=900)
-        check([r.status for r in res] == ["ok", "ok"],
+        check([r.status for r in res] == ["ok"] * len(reqs),
               f"{where} sub-trace statuses {[r.status for r in res]}")
         runs[where] = (rt, res)
     cpu_s = time.perf_counter() - t0
@@ -1216,9 +1295,9 @@ def cpu_subtrace(cfg, model32, params, syscat, dev) -> dict:
         fwd, _ = rt._plan_prefill(bucket)
         padded = torch.zeros((1, bucket), dtype=torch.long, device=rt.device)
         padded[0, :len(toks)] = torch.tensor(toks)
-        out = fwd(rt.params, {"tokens": padded})[0][0, len(toks) - 1,
-                                                    :cfg.vocab]
-        return out.float().cpu()
+        out = fwd(rt.params, {"tokens": padded})
+        logits = out[0] if isinstance(out, tuple) else out   # prefill_kv
+        return logits[0, len(toks) - 1, :cfg.vocab].float().cpu()
 
     err, diverged, margins = 0.0, [], []
     for i, req in enumerate(reqs):
@@ -1242,6 +1321,379 @@ def cpu_subtrace(cfg, model32, params, syscat, dev) -> dict:
             "cpu_tokens_equal": not diverged,
             "cpu_diverged_at_near_tie": json.dumps(diverged),
             "cpu_subtrace_s": round(cpu_s, 3)}
+
+# -- phases 15-22: the recurrent families served ---------------------------
+
+
+@contextlib.contextmanager
+def recording_shapes(module, name, calls):
+    """Keep in ``calls`` the arguments of the first call of ``module.name``
+    (a kernel wrapper, under the name the layer calls it by) at each new
+    shape of its first argument: one planned prefill's arguments per
+    bucket, without holding every layer's."""
+    wrapped = getattr(module, name)
+
+    def record(*args, **kwargs):
+        key = tuple(args[0].shape)
+        if key not in calls:
+            calls[key] = (args, kwargs)
+        return wrapped(*args, **kwargs)
+
+    setattr(module, name, record)
+    try:
+        yield
+    finally:
+        setattr(module, name, wrapped)
+
+
+def stored_bytes(t) -> int:
+    """The bytes a tensor's storage holds for its view: dimensions of
+    stride 0 (a broadcast) count once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n * t.element_size()
+
+
+def wkv6_inputs(gen, dev, b, t, h, d, dtype, decay=None):
+    """r, k, v (unit normal), w in (0.4, 0.99) or the constant ``decay``,
+    u: the kernel's arguments as ``rwkv_time_mix`` shapes them."""
+    r, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    w = (torch.rand(b, t, h, d, generator=gen, device=dev) * 0.59 + 0.4
+         if decay is None else torch.full((b, t, h, d), decay, device=dev))
+    u = torch.randn(h, d, generator=gen, device=dev)
+    return (r, k, v, w.to(dtype), u), {}
+
+
+def ssd_inputs(gen, dev, b, t, h, p, n, dtype, decay=None, shared=True):
+    """x, a in (0.5, 0.99) or the constant ``decay``, and b, c as the
+    mamba block passes them (one (B, T, N) matrix expanded over heads,
+    stride 0) or materialized per head."""
+    x = torch.randn(b, t, h, p, generator=gen, device=dev).to(dtype)
+    a = (torch.rand(b, t, h, generator=gen, device=dev) * 0.49 + 0.5
+         if decay is None else torch.full((b, t, h), decay, device=dev))
+    hh = 1 if shared else h
+    bb, cc = (torch.randn(b, t, hh, n, generator=gen, device=dev).to(dtype)
+              .expand(b, t, h, n) for _ in range(2))
+    return (x, a.to(dtype), bb, cc), {}
+
+
+# (name, b, t, dtype, decay, ssd's b/c shared over heads)
+RECURRENT_EDGES = (
+    ("T = 1", 1, 1, torch.bfloat16, None, True),
+    ("T = 300, float32", 1, 300, torch.float32, None, True),
+    ("B = 2, T = 300", 2, 300, torch.bfloat16, None, True),
+    ("decay 1.0", 1, 300, torch.float32, 1.0, True),
+    ("decay near 0", 1, 300, torch.float32, 1e-6, True),
+    ("B = 2, T = 77 (ssd: b, c per head)", 2, 77, torch.float32, None,
+     False),
+)
+
+
+def recurrence_compare(spec, args, kwargs):
+    """The kernel against its plain version on the same arguments, within
+    the dtype's tolerance; returns the max abs error."""
+    got = spec["kernel"](*args, **kwargs)
+    want = spec["plain"](*args, **kwargs)[0]
+    tol = RECURRENT_TOL[args[0].dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    check(got.dtype == args[0].dtype and got.shape == args[0].shape,
+          f"{spec['name']}: wrong output dtype or shape")
+    return float((got.float() - want.float()).abs().max())
+
+
+def recurrence_work(spec, args) -> tuple:
+    """(bytes, operations) the recurrence needs on these arguments: each
+    input's stored bytes once, the output once; 5 D² + 3 D (wkv6: r·S,
+    the state update and the bonus scalar Σ r u k) or 5 N P (ssd: the
+    state update and c·H) operations a step and head."""
+    out = args[0]
+    nbytes = sum(stored_bytes(t) for t in args) + stored_bytes(out)
+    if spec["name"] == "wkv6":
+        b, t, h, d = out.shape
+        return nbytes, (5 * d * d + 3 * d) * b * t * h
+    b, t, h, p = out.shape
+    return nbytes, 5 * args[2].shape[-1] * p * b * t * h
+
+
+def check_recurrence(dev, gen, cfg, spec, calls) -> dict:
+    """The recurrence kernel on the arguments one planned prefill gave it
+    at each bucket (timed) and at the edge cases; returns its JSON record
+    (the largest bucket)."""
+    err = 0.0
+    if spec["name"] == "wkv6":
+        h, d = cfg.heads, cfg.resolved_head_dim
+        make = lambda b, t, dt, dc, sh: wkv6_inputs(  # noqa: E731
+            gen, dev, b, t, h, d, dt, dc)
+    else:
+        h = cfg.expand * cfg.d_model // cfg.mamba_head_dim
+        make = lambda b, t, dt, dc, sh: ssd_inputs(  # noqa: E731
+            gen, dev, b, t, h, cfg.mamba_head_dim, cfg.ssm_state, dt, dc,
+            sh)
+    for name, b, t, dt, decay, shared in RECURRENT_EDGES:
+        args, kwargs = make(b, t, dt, decay, shared)
+        e = recurrence_compare(spec, args, kwargs)
+        err = max(err, e)
+        phase(f"{spec['path']}-kernel", case=json.dumps(name), b=b, t=t,
+              dtype=str(dt).split(".")[1], max_abs_err=e)
+    record = None
+    for shape, (args, kwargs) in sorted(calls.items(),
+                                        key=lambda kv: kv[0][1]):
+        e = recurrence_compare(spec, args, kwargs)
+        err = max(err, e)
+        ms = cuda_ms(lambda: spec["kernel"](*args, **kwargs))
+        plain_ms = cuda_ms(lambda: spec["plain"](*args, **kwargs), reps=3,
+                           warmup=1)
+        nbytes, nops = recurrence_work(spec, args)
+        bound_ms, bound_by = bound(nbytes, nops, FP32_FLOPS)
+        phase(f"{spec['path']}-kernel", name=spec["name"], shape="served",
+              args=json.dumps([list(a.shape) for a in args]),
+              strides=json.dumps([list(a.stride()) for a in args]),
+              dtype=str(args[0].dtype).split(".")[1], max_abs_err=e, ms=ms,
+              plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+              bound_by=bound_by, share_of_bound=bound_ms / ms,
+              mb=nbytes / 1e6, gflop=nops / 1e9)
+        record = {"name": spec["name"], "route": "cuda",
+                  "source": spec["source"], "replaces": spec["replaces"],
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "library_ms": None}
+    check(record is not None, f"{spec['name']}: no call was recorded")
+    record["max_abs_err"] = err
+    return record
+
+
+def check_flash_calls(calls) -> dict:
+    """flash_attention on the arguments zamba2's planned prefill gave it
+    at each bucket (timed, beside scaled_dot_product_attention); returns
+    its JSON record (the largest bucket)."""
+    err, record = 0.0, None
+    for _shape, (args, kwargs) in sorted(calls.items(),
+                                         key=lambda kv: kv[0][1]):
+        q, k, v = args
+        causal, window = kwargs.get("causal", True), kwargs.get("window", 0)
+        e = flash_compare(q, k, v, causal=causal, window=window)
+        err = max(err, e)
+        b, s, h, d = q.shape
+        kvh = k.shape[2]
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                             window=window))
+        plain_ms = cuda_ms(lambda: flash_attention_plain(
+            q, k, v, causal=causal, window=window))
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(
+                             qh, kh, vh, is_causal=causal, enable_gqa=True))
+        nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kvh * d)
+        nops = 4 * b * h * d * attention_pairs(s, s, causal, window)
+        bound_ms, bound_by = bound(nbytes, nops, BF16_FLOPS)
+        phase("zamba2_serve-kernel", name="flash_attention", b=b, seq=s,
+              heads=h, kv_heads=kvh, head_dim=d,
+              dtype=str(q.dtype).split(".")[1], max_abs_err=e, ms=ms,
+              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+              bound_by=bound_by, share_of_bound=bound_ms / ms)
+        record = {"name": "flash_attention", "route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                  "replaces": "src/repro/kernels/flash_attention/ops.py:110",
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "library_ms": lib_ms}
+    check(record is not None, "zamba2: no flash_attention call recorded")
+    record["max_abs_err"] = err
+    return record
+
+
+def prefill_engines_agree(model32, params, syscat, dev, spec) -> float:
+    """The float32 planned prefill at bucket 512 with the kernel (engines
+    xla + pallas) against the chunked plain engine (xla) on the card:
+    last-position logits within LOGIT_TOL.  Returns the max abs error."""
+    bucket = RSUB["engine_bucket"]
+    toks = torch.randint(0, model32.cfg.vocab, (1, bucket), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED))
+    params = model32.inference_params(params)
+    last = {}
+    for engines in (("xla", "pallas"), ("xla",)):
+        fwd = plan_and_compile(
+            model32.build_plan(1, bucket, mode="prefill"), CATALOG, syscat,
+            engines=engines, cache=False, device=dev)
+        inner = bucket_impls(fwd)[1]
+        want = spec["impl"] if "pallas" in engines else spec["xla"]
+        check(inner[want] > 0, f"bucket {bucket} {engines}: impls "
+                               f"{dict(inner)}")
+        last[engines] = fwd(params, {"tokens": toks})[0, -1].float()
+    a, b = last[("xla", "pallas")], last[("xla",)]
+    torch.testing.assert_close(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    return float((a - b).abs().max())
+
+
+def recurrent_path(args, dev, syscat, arch) -> list:
+    """One recurrent family served (rwkv6-3b: phases 15-18; zamba2-7b:
+    19-22).  Returns its kernels' records."""
+    spec = RECURRENT[arch]
+    path = spec["path"]
+    t_path = time.perf_counter()
+    # data: the model at full width from a seeded generator on the card
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    leaves = [t for _k, t in _leaves(params)]
+    phase("data", path=path, arch=cfg.name, family=cfg.family,
+          layers=cfg.n_layers, d_model=cfg.d_model, dtype=cfg.dtype,
+          param_dtype=cfg.param_dtype,
+          params=sum(int(t.numel()) for t in leaves),
+          param_gb=round(sum(stored_bytes(t) for t in leaves) / 1e9, 3),
+          seconds=round(time.perf_counter() - t0, 3))
+
+    # serve: the runtime through its entry points, each kernel's
+    # arguments recorded at every bucket
+    t0 = time.perf_counter()
+    reqs = serve_trace(cfg, RSERVE["prompt_lens"], RSERVE["requests"],
+                       RSERVE["gen"])
+    rt = serve_runtime(model, params, syscat, dev,
+                       max_batch=RSERVE["max_batch"],
+                       max_seq=RSERVE["max_seq"])
+    check(not rt.kv_mode, f"{arch}: the runtime is not in replay mode")
+    rt.warmup([r.prompt_len for r in reqs])
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    flash_buckets = set()
+    for bucket, fwd in sorted(rt._prefill_fns.items()):
+        outer, inner = bucket_impls(fwd)
+        check(inner[spec["impl"]] > 0 and spec["xla"] not in inner,
+              f"bucket {bucket}: recurrence impls {dict(inner)}")
+        if inner["attn_flash_pallas"]:
+            flash_buckets.add(bucket)
+        phase("serve", path=path, bucket=bucket, plan_id=fwd.plan_id[:12],
+              impls=json.dumps(dict(outer)),
+              layer_impls=json.dumps(dict(inner)))
+    s0 = rt.pc.stats()
+    fwd0 = rt.registry.count("lm.prefill_forwards", 0)
+    secs = {"prefill": 0.0, "decode": 0.0}
+    rt._try_join = timed(rt._try_join, secs, "prefill")
+    rt._decode_tick = timed(rt._decode_tick, secs, "decode")
+    calls, flash_calls = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with recording_shapes(spec["module"], spec["entry"], calls), \
+            recording_shapes(attention_layer, "flash_attention", flash_calls):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = rt.serve(reqs, timeout_s=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = kernels.launches()
+    forwards = rt.registry.count("lm.prefill_forwards", 0) - fwd0
+    s1 = rt.pc.stats()
+    hits, misses = s1["hits"] - s0["hits"], s1["misses"] - s0["misses"]
+    check([r.status for r in res] == ["ok"] * len(reqs),
+          f"{arch} serve statuses {[r.status for r in res]}")
+    check(all(len(r.tokens) == RSERVE["gen"] for r in res),
+          f"{arch}: a request generated the wrong number of tokens")
+    tokens = sum(len(r.tokens) for r in res)
+    occ = rt.pool.occupancy()
+    ms_of = lambda key: json.dumps([  # noqa: E731
+        round(getattr(r.metrics, key), 2) for r in res])
+    phase("serve", path=path, requests=len(reqs), wall_s=round(wall, 4),
+          warmup_s=round(warmup_s, 3), prefill_forwards=forwards,
+          replay_steps=rt.registry.count("lm.replay_steps", 0),
+          launches=json.dumps({k: v for k, v in counted.items() if v}),
+          tokens=tokens, total_tok_s=tokens / wall,
+          decode_tok_s=sum(len(r.tokens) - 1 for r in res) / secs["decode"],
+          join_s=round(secs["prefill"], 4), decode_s=round(secs["decode"], 4),
+          ticks=rt.metrics.ticks,
+          ttft_ms=json.dumps([round(r.metrics.ttft_s * 1e3, 2)
+                              for r in res]),
+          plan_ms=ms_of("plan_ms"), prefill_ms=ms_of("prefill_ms"),
+          replay_ms=ms_of("replay_ms"), adopt_ms=ms_of("adopt_ms"),
+          tpot_ms=json.dumps([round(r.metrics.tpot_s * 1e3, 3)
+                              for r in res]),
+          plan_hits_after_warmup=hits, plan_misses_after_warmup=misses,
+          pool_after=json.dumps(occ),
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
+          seconds=round(time.perf_counter() - t_path, 1))
+    # one batch-1 forward per request: the kernel runs in every layer of
+    # it, flash in every shared attention block where the bucket's plan
+    # picked it
+    shared = cfg.n_layers // cfg.shared_attn_period \
+        if cfg.family == "hybrid" else 0
+    flash_forwards = sum(rt.bucket_of(r.prompt_len) in flash_buckets
+                         for r in reqs)
+    expected = launch_counts(**{spec["name"]: cfg.n_layers * forwards,
+                                "flash_attention": shared * flash_forwards})
+    check(forwards == len(reqs), f"{forwards} prefill forwards for "
+                                 f"{len(reqs)} requests")
+    check(counted == expected, f"{arch} launches {counted} != {expected}")
+    check(misses == 0 and hits >= len(reqs),
+          f"plan cache after warmup: {hits} hits, {misses} misses")
+    check(occ["slots_used"] == 0 and occ["pages_used"] == 0,
+          f"pool not drained: {occ}")
+    if args.profile:
+        # one request (prompt 100): the full trace's ~3,600 replayed steps
+        # of thousands of kernels each would swamp the profiler
+        del rt
+        torch.cuda.empty_cache()
+        one = serve_trace(cfg, RSERVE["prompt_lens"][:1], 1, RSERVE["gen"])
+        rt = serve_runtime(model, params, syscat, dev,
+                           max_batch=RSERVE["max_batch"],
+                           max_seq=RSERVE["max_seq"])
+        rt.warmup([r.prompt_len for r in one])
+        profile_call(lambda: rt.serve(one, timeout_s=900), path)
+    del rt, res
+    torch.cuda.empty_cache()
+
+    # kernel: against its plain version on the recorded arguments and at
+    # edge cases
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    records = [check_recurrence(dev, gen, cfg, spec, calls)]
+    if flash_calls:
+        records.append(check_flash_calls(flash_calls))
+    for rec in records:
+        rec["launches"] = counted[rec["name"]]
+        rec["path"] = path
+    del calls, flash_calls
+    torch.cuda.empty_cache()
+    phase(f"{path}-kernel", seconds=round(time.perf_counter() - t0, 1))
+
+    # check: float32 runtime against serve_sequential; the kernel's
+    # prefill against the chunked engine's; rwkv6-3b on the CPU
+    t0 = time.perf_counter()
+    model32 = build_model(cfg.replace(dtype="float32"))
+    sub = serve_trace(cfg, RSUB["prompt_lens"], len(RSUB["prompt_lens"]),
+                      RSUB["gen"])
+    rt32 = serve_runtime(model32, params, syscat, dev,
+                         max_batch=RSERVE["max_batch"],
+                         max_seq=RSERVE["max_seq"])
+    rt32.warmup([r.prompt_len for r in sub])
+    res32 = rt32.serve(sub, timeout_s=900)
+    del rt32
+    torch.cuda.empty_cache()
+    seq = serve_sequential(model32, params, sub, max_seq=RSERVE["max_seq"],
+                           engines=("xla", "pallas"), syscat=syscat,
+                           plan_cache=PlanCache(), device=dev)
+    check([r.status for r in res32] == ["ok"] * len(sub),
+          f"{arch} float32 serve failed")
+    differ = [r.rid for r, q in zip(res32, seq) if r.tokens != q.tokens]
+    check(not differ, f"{arch} float32 runtime and serve_sequential differ "
+                      f"on requests {differ}")
+    f32_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    engine_err = prefill_engines_agree(model32, params, syscat, dev, spec)
+    cpu = {}
+    if spec["cpu_check"]:
+        cpu = cpu_subtrace(cfg, model32, params, syscat, dev,
+                           serve_trace(cfg, RCPU["prompt_lens"], 1,
+                                       RCPU["gen"]), RCPU["max_seq"])
+    phase("check", path=path, launches_equal_layers_x_forwards=True,
+          flash_forwards=flash_forwards,
+          plan_hit_rate_after_warmup=hits / (hits + misses),
+          f32_runtime_equal_sequential=True, f32_s=round(f32_s, 3),
+          prefill_kernel_vs_chunked_max_abs_err=engine_err, **cpu,
+          seconds=round(time.perf_counter() - t0, 1))
+    del params, leaves, model, model32
+    torch.cuda.empty_cache()
+    return records
 
 
 def main(argv=None) -> int:
@@ -1277,11 +1729,17 @@ def main(argv=None) -> int:
           kernels=",".join(built["logs"]), ptxas=json.dumps(regs))
 
     syscat = SystemCatalog(hardware=hardware_for_device(name))
-    records = pulse_path(args, dev, syscat)
-    torch.cuda.empty_cache()
-    records += window_path(args, dev, syscat)
-    torch.cuda.empty_cache()
-    records += serve_path(args, dev, syscat)
+    records = []
+    paths = [("hashtag_pulse", pulse_path), ("tri_selective_0.01",
+                                             window_path),
+             ("qwen3_serve", serve_path)]
+    paths += [(spec["path"], lambda a, d, s, arch=arch: recurrent_path(
+        a, d, s, arch)) for arch, spec in RECURRENT.items()]
+    for path, run in paths:
+        t0 = time.perf_counter()
+        records += run(args, dev, syscat)
+        torch.cuda.empty_cache()
+        phase("time", path=path, seconds=round(time.perf_counter() - t0, 1))
 
     # 15. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

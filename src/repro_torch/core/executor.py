@@ -6,12 +6,14 @@ execution context, the impl table over the port's own engine registry (the
 generic and the language-model impls live here; the store impls register
 from ``repro_torch.stores.runtime``), the fast ``run_plan`` path, and
 :class:`PlannedFunction`, the staged plan bound to a device.  The LM impls
-cover the dense family's prefill: ``scan_layers_xla`` runs its subplan in a
-Python loop over the stacked per-layer parameters under
-``torch.inference_mode()`` (``remat`` means nothing without a backward), and
-``attn_flash_pallas`` is the flash-attention kernel.  Planning is
-the copied staged pipeline, so a plan id here equals the reference
-package's for the same analysis and catalogs.
+cover the dense, rwkv and hybrid families' prefill: ``scan_layers_xla``
+runs its subplan in a Python loop over the stacked per-layer parameters
+under ``torch.inference_mode()`` (``remat`` means nothing without a
+backward); ``attn_flash_pallas``, ``wkv6_pallas`` and ``ssd_pallas`` are the
+flash-attention, WKV6 and SSD kernels, ``wkv6_scan_xla`` and
+``ssd_chunked_xla`` the recurrences' chunked plain forms.  Planning is the
+copied staged pipeline, so a plan id here equals the reference package's
+for the same analysis and catalogs.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; without a card they raise (:func:`resolve_device`) rather
@@ -31,7 +33,9 @@ from .ir import FunctionCatalog, Plan, SystemCatalog, hardware_for_device
 from .physical import PHYS_OPS, PhysPlan
 from ..layers import attention as A
 from ..layers import embedding as E
+from ..layers import mamba as M
 from ..layers import mlp as F
+from ..layers import rwkv as R
 from ..layers.common import layer_slice, rmsnorm, torch_dtype
 
 
@@ -249,6 +253,44 @@ def _i_mlp(ctx, args, node):
     return F.mlp_fused(ctx.params_for(node), args[0],
                        gated=node.attrs.get("gated", True),
                        act=node.attrs.get("act"))
+
+
+@impl("wkv6_scan_xla")
+def _i_wkv_xla(ctx, args, node):
+    a = node.attrs
+    return R.rwkv_time_mix(ctx.params_for(node), args[0], heads=a["heads"],
+                           head_dim=a["head_dim"], use_kernel=False)
+
+
+@impl("wkv6_pallas", engine="pallas")
+def _i_wkv_kernel(ctx, args, node):
+    a = node.attrs
+    return R.rwkv_time_mix(ctx.params_for(node), args[0], heads=a["heads"],
+                           head_dim=a["head_dim"], use_kernel=True)
+
+
+def _mamba_node_cfg(node):
+    """The mamba block config a planned ssd node carries."""
+    a = node.attrs
+    return {"embed": a["embed"], "state": a["state"],
+            "expand": a.get("expand", 2), "head_dim": a["head_dim"]}
+
+
+@impl("ssd_chunked_xla")
+def _i_ssd_xla(ctx, args, node):
+    return M.mamba2_block(ctx.params_for(node), args[0],
+                          _mamba_node_cfg(node), use_kernel=False)
+
+
+@impl("ssd_pallas", engine="pallas")
+def _i_ssd_kernel(ctx, args, node):
+    return M.mamba2_block(ctx.params_for(node), args[0],
+                          _mamba_node_cfg(node), use_kernel=True)
+
+
+@impl("rwkv_channel_mix")
+def _i_rwkv_cm(ctx, args, node):
+    return R.rwkv_channel_mix(ctx.params_for(node), args[0])
 
 
 @impl("unembed_matmul")

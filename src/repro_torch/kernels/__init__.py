@@ -13,7 +13,12 @@
   * :func:`flash_attention.flash_attention` (and its heads-major entry
     ``flash_attention_hmajor``) — blocked online-softmax attention, the
     serving prefill's ``attn_flash_pallas`` (``csrc/flash_attention.cu``).
-    The package attribute ``flash_attention`` stays the module.
+    The package attribute ``flash_attention`` stays the module;
+  * :func:`wkv6.wkv6` — the RWKV6 WKV recurrence, rwkv6-3b's
+    ``wkv6_pallas`` (``csrc/wkv6.cu``);
+  * :func:`ssd.ssd` — the Mamba2 SSD scan, zamba2-7b's ``ssd_pallas``
+    (``csrc/ssd.cu``).  The package attributes ``wkv6`` and ``ssd`` stay
+    the modules.
 
 Sources build with ``nvcc`` for ``sm_90a`` at first use (:mod:`.build`).
 """
@@ -24,9 +29,12 @@ from .masked_kernels import (compact_prefix, compact_prefix_plain, join_probe,
                              join_probe_plain, masked_segment_agg,
                              masked_segment_agg_plain, masked_tfidf,
                              masked_tfidf_plain)
+from . import ssd as _ssd
+from . import wkv6 as _wkv6
 
 KERNELS = (scatter_add, masked_segment_agg, masked_tfidf, join_probe,
-           compact_prefix, _flash_attention.flash_attention)
+           compact_prefix, _flash_attention.flash_attention, _wkv6.wkv6,
+           _ssd.ssd)
 
 
 def reset_launches() -> None:

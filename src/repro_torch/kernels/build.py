@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into a shared
 library with a plain C interface, for ``sm_90a`` (Hopper), and loaded with
-``ctypes``.  The library's file name carries a hash of its source and of
-the flags, so an edited kernel is rebuilt and a stale one never loaded.
+``ctypes``.  The library's file name carries a hash of its source, of
+every shared header (``csrc/*.cuh``) and of the flags, so an edited kernel
+is rebuilt and a stale one never loaded.
 Builds go to ``kernels/_build/`` beside this file (ignored by git), at
 first use; :func:`build_all` starts one ``nvcc`` per source, all at once.
 
@@ -47,7 +48,9 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src + headers +
+                         " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:16]}.so"
 
 

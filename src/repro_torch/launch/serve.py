@@ -3,12 +3,16 @@
 Requests (mixed prompt lengths) are admitted by power-of-two bucket so every
 warm bucket hits an already-cached staged plan, prefilled through the
 planned ``prefill_kv`` forward (per-layer K/V are plan outputs that seed the
-paged KV pool directly), and decoded with continuous batching.  Runs on the
-card unless ``--device cpu``; without a card it raises.
+paged KV pool directly) — or, for the recurrent families (rwkv6-3b,
+zamba2-7b), through the planned ``prefill`` forward and a replay of the
+prompt through the decode step (``mode=replay``) — and decoded with
+continuous batching.  Runs on the card unless ``--device cpu``; without a
+card it raises.
 
 CPU-scale demo:
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu \
       --requests 8 --gen 16 --max-batch 4
+  python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -77,7 +81,8 @@ def main(argv=None):
         model, params, max_batch=args.max_batch, max_seq=args.max_seq,
         page_size=args.page_size, engines=tuple(args.engines.split(",")),
         plan_cache_dir=args.plan_cache_dir, device=dev)
-    print(f"[serve] arch={cfg.name} mode=prefill_kv (plan-seeded KV) "
+    print(f"[serve] arch={cfg.name} mode="
+          f"{'prefill_kv (plan-seeded KV)' if rt.kv_mode else 'replay'} "
           f"max_batch={args.max_batch} max_seq={args.max_seq} device={dev}")
 
     t0 = time.time()

@@ -1,12 +1,18 @@
 """Serving path: cache construction, single-token decode, and seeding a
 cache from a ``prefill_kv`` plan's outputs.
 
-The port of the reference's ``models/decode.py`` for attention blocks.  The
-cache is a dict ``{group: {b{i}_k, b{i}_v: (count, B, S, KV, D)}}`` in the
-model's dtype, the reference's layout.  Unlike the reference, whose JAX
-arrays are immutable, every function here writes the cache **in place** and
-returns the same dict.  Ring-buffer local caches, int8 KV and TP-replicated
-KV heads wait for the gemma3 slice.
+The port of the reference's ``models/decode.py`` for attention, rwkv and
+mamba blocks.  The cache is a dict ``{group: {leaf: (count, B, ...)}}``,
+the reference's layout: attention K/V ``b{i}_k``, ``b{i}_v`` (count, B, S,
+KV, D) in the model's dtype; an rwkv block's float32 WKV state ``b{i}_state``
+(count, B, H, D, D) and last inputs ``b{i}_last_tm``, ``b{i}_last_cm``; a
+mamba block's float32 SSD state ``b{i}_state`` (count, B, heads, N, P) and
+conv inputs ``b{i}_conv`` (count, B, 3, inner + 2N).  Unlike the reference,
+whose JAX arrays are immutable, every function here writes the cache **in
+place** (``copy_`` into every leaf) and returns the same dict: a CUDA graph
+of the step (:class:`DecodeGraph`) replays into the same buffers.
+Ring-buffer local caches, int8 KV and TP-replicated KV heads wait for the
+gemma3 slice.
 """
 from __future__ import annotations
 
@@ -16,9 +22,11 @@ from ..configs.base import ModelConfig
 from ..core.executor import resolve_device
 from ..layers import attention as A
 from ..layers import embedding as E
+from ..layers import mamba as M
 from ..layers import mlp as F
+from ..layers import rwkv as R
 from ..layers.common import layer_slice, rmsnorm, rope_apply, rope_tables
-from .lm import LM, Block
+from .lm import LM, Block, _mamba_cfg
 
 
 def _attn_dims(cfg: ModelConfig):
@@ -32,21 +40,41 @@ def _attn_dims(cfg: ModelConfig):
 def init_cache(model: LM, batch: int, max_seq: int, *, device=None,
                ring_local: bool = False, kv_repeat_to: int = 0,
                quantize_kv: bool = False) -> dict:
-    """Zeroed full-length caches for every attention block, on ``device``
-    (the card unless the caller names another)."""
+    """Zeroed caches for every block, on ``device`` (the card unless the
+    caller names another): full-length K/V for attention blocks, the
+    recurrent leaves for rwkv and mamba blocks."""
     if ring_local or kv_repeat_to or quantize_kv:
         raise NotImplementedError(
             "ring-buffer, int8 and replicated-KV caches are not ported yet "
             "(ROADMAP §1, the gemma3 slice)")
     dev = resolve_device(device)
-    _, kv, d = _attn_dims(model.cfg)
+    cfg = model.cfg
+    _, kv, d = _attn_dims(cfg)
+
+    def zeros(shape, dtype=model.dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
     cache: dict = {}
     for g in model.groups:
         gc: dict = {}
-        for i in attn_block_indices(g):
-            for key in (f"b{i}_k", f"b{i}_v"):
-                gc[key] = torch.zeros((g.count, batch, max_seq, kv, d),
-                                      dtype=model.dtype, device=dev)
+        for i, blk in enumerate(g.blocks):
+            lead = (g.count, batch)
+            if blk.kind in ("attn_mlp", "attn_moe", "shared_attn"):
+                gc[f"b{i}_k"] = zeros(lead + (max_seq, kv, d))
+                gc[f"b{i}_v"] = zeros(lead + (max_seq, kv, d))
+            if blk.kind in ("mamba", "shared_attn"):
+                ei = cfg.expand * cfg.d_model
+                gc[f"b{i}_state"] = zeros(
+                    lead + (ei // cfg.mamba_head_dim, cfg.ssm_state,
+                            cfg.mamba_head_dim), torch.float32)
+                gc[f"b{i}_conv"] = zeros(
+                    lead + (M.CONV_K - 1, ei + 2 * cfg.ssm_state))
+            if blk.kind == "rwkv":
+                hd = cfg.resolved_head_dim
+                gc[f"b{i}_state"] = zeros(lead + (cfg.heads, hd, hd),
+                                          torch.float32)
+                gc[f"b{i}_last_tm"] = zeros(lead + (cfg.d_model,))
+                gc[f"b{i}_last_cm"] = zeros(lead + (cfg.d_model,))
         cache[g.name] = gc
     return cache
 
@@ -75,14 +103,60 @@ def _decode_attn(p, x, ck, cv, cfg: ModelConfig, window: int, step: dict):
     return A.out_project(p, A.decode_attend_gqa(q, ck, cv, valid))
 
 
-def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, x, lc, step):
-    if blk.kind != "attn_mlp" or blk.cross:
-        raise NotImplementedError(f"block {blk} is not ported yet")
-    h = rmsnorm(x, p[f"b{i}_ln1"]["scale"])
-    x = x + _decode_attn(p[f"b{i}_attn"], h, lc[f"b{i}_k"], lc[f"b{i}_v"],
-                         cfg, blk.window, step)
-    h = rmsnorm(x, p[f"b{i}_ln2"]["scale"])
-    return x + F.mlp_fused(p[f"b{i}_mlp"], h, gated=cfg.gated, act=cfg.act)
+def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, root, x, lc,
+                  step):
+    """One block of the decode step.  ``p`` holds the layer's parameters,
+    ``root`` the whole tree (the hybrid's shared attention reads
+    ``root["shared"]``); ``lc`` the layer's cache leaves, each written in
+    place."""
+    pre = f"b{i}"
+    if blk.kind == "attn_mlp" and not blk.cross:
+        h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
+        x = x + _decode_attn(p[f"{pre}_attn"], h, lc[f"{pre}_k"],
+                             lc[f"{pre}_v"], cfg, blk.window, step)
+        h = rmsnorm(x, p[f"{pre}_ln2"]["scale"])
+        return x + F.mlp_fused(p[f"{pre}_mlp"], h, gated=cfg.gated,
+                               act=cfg.act)
+    if blk.kind == "rwkv":
+        h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
+        tm, last, st = R.rwkv_time_mix(
+            p[f"{pre}_tm"], h, heads=cfg.heads,
+            head_dim=cfg.resolved_head_dim, last_x=lc[f"{pre}_last_tm"],
+            state=lc[f"{pre}_state"])
+        lc[f"{pre}_last_tm"].copy_(last)
+        lc[f"{pre}_state"].copy_(st)
+        x = x + tm
+        h = rmsnorm(x, p[f"{pre}_ln2"]["scale"])
+        cm, last_cm = R.rwkv_channel_mix(p[f"{pre}_cm"], h,
+                                         last_x=lc[f"{pre}_last_cm"])
+        lc[f"{pre}_last_cm"].copy_(last_cm)
+        return x + cm
+    if blk.kind in ("mamba", "shared_attn"):
+        h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
+        mb, st, conv = M.mamba2_block(p[f"{pre}_mamba"], h, _mamba_cfg(cfg),
+                                      state=lc[f"{pre}_state"],
+                                      conv_state=lc[f"{pre}_conv"])
+        lc[f"{pre}_state"].copy_(st)
+        lc[f"{pre}_conv"].copy_(conv)
+        x = x + mb
+        if blk.kind == "shared_attn":
+            sp = root["shared"]
+            h = rmsnorm(x, sp["ln1"]["scale"])
+            x = x + _decode_attn(sp["attn"], h, lc[f"{pre}_k"],
+                                 lc[f"{pre}_v"], cfg, 0, step)
+            h = rmsnorm(x, sp["ln2"]["scale"])
+            x = x + F.mlp_fused(sp["mlp"], h, gated=cfg.gated, act=cfg.act)
+        return x
+    raise NotImplementedError(f"block {blk} is not ported yet")
+
+
+def _seq_alloc(cache) -> int:
+    """The sequence length of the cache's K/V leaves (0 without any)."""
+    for gc in cache.values():
+        for key, leaf in gc.items():
+            if key.endswith("_k"):
+                return leaf.shape[2]
+    return 0
 
 
 @torch.inference_mode()
@@ -90,13 +164,13 @@ def decode_step_batched(model: LM, params, cache, tokens, indices):
     """Continuous-batching decode: one token per batch slot at a per-slot
     position.  tokens: (B, 1) int; indices: (B,) int — slot b decodes
     position ``indices[b]``: its K/V land there and it attends to
-    positions ``<= indices[b]``.  Returns (logits (B, 1, V), cache), the
-    cache updated in place.  The reference's ``vmap`` over
-    ``decode_step`` becomes this batch dimension written out."""
+    positions ``<= indices[b]``; its recurrent state advances one step.
+    Returns (logits (B, 1, V), cache), the cache updated in place.  The
+    reference's ``vmap`` over ``decode_step`` becomes this batch dimension
+    written out."""
     cfg = model.cfg
     pos = indices.to(device=tokens.device, dtype=torch.long)
-    any_cache = next(iter(next(iter(cache.values())).values()))
-    s_alloc = any_cache.shape[2]
+    s_alloc = _seq_alloc(cache)
     keys = torch.arange(s_alloc, device=tokens.device)
     cos, sin = rope_tables(pos[:, None], cfg.resolved_head_dim,
                            theta=cfg.rope_theta)
@@ -111,7 +185,7 @@ def decode_step_batched(model: LM, params, cache, tokens, indices):
         for layer in range(g.count):
             lp, lc = layer_slice(gp, layer), layer_slice(gc, layer)
             for i, blk in enumerate(g.blocks):
-                x = _decode_block(cfg, blk, i, lp, x, lc, step)
+                x = _decode_block(cfg, blk, i, lp, params, x, lc, step)
     x = rmsnorm(x, params["final_norm"]["scale"])
     logits = E.mask_padded_logits(E.unembed(params["embed"], x), cfg.vocab)
     return logits, cache
@@ -126,8 +200,11 @@ class DecodeGraph:
     Replay runs the kernels the eager step runs.
 
     Building it runs the step once on token 0 at position 0 of every row
-    (the warm-up CUDA graphs need), writing that K/V at position 0: build
-    it before any row is seeded (the runtime does so in ``warmup``).  The
+    (the warm-up CUDA graphs need): that writes K/V at position 0 and
+    advances every recurrent state one step.  Build it before any row is
+    seeded (the runtime does so in its constructor), and overwrite or zero
+    a row's recurrent leaves before use (``PagedKVPool.adopt`` writes all
+    of a slot's leaves; the replay cache is zeroed per request).  The
     returned logits live in a static buffer that the next call
     overwrites."""
 

@@ -1,9 +1,11 @@
 """Config-driven language model: the logical plan for the planner (prefill,
 ``prefill_kv`` and training shapes) and its parameters.
 
-The port of the reference's ``models/lm.py`` for the ``dense`` family
-(qwen3-0.6b).  The plan builders are the reference's node for node, so a
-plan's id equals the reference's under an equal ``SystemCatalog``.
+The port of the reference's ``models/lm.py`` for the ``dense`` (qwen3-0.6b),
+``rwkv`` (rwkv6-3b) and ``hybrid`` (zamba2-7b: mamba blocks and a
+weight-shared attention block) families.  The plan builders are the
+reference's node for node, so a plan's id equals the reference's under an
+equal ``SystemCatalog``.
 Parameters are a nested dict of tensors keyed exactly as the reference's
 tree (``layers_0`` → ``b0_attn`` → ``wq`` …, each leaf stacked over the
 group's layers), so the plans' ``pp`` paths index them unchanged;
@@ -20,12 +22,20 @@ from ..configs.base import ModelConfig
 from ..core.ir import Plan, TensorT, standard_catalog
 from ..layers import attention as A
 from ..layers import embedding as E
+from ..layers import mamba as M
 from ..layers import mlp as F
+from ..layers import rwkv as R
 from ..layers.common import stack_params, torch_dtype
 
 CATALOG = standard_catalog()
-# the matrices the layers cast to the activation dtype before a matmul
-_PROJECTIONS = frozenset(("wq", "wk", "wv", "wo", "wi", "wg"))
+# the parameters the layers cast to the activation dtype at every call
+# (``.astype(x.dtype)`` in the reference): attention and mlp projections,
+# the rwkv time and channel mixes' projections, decay LoRA and token-shift
+# mixes, the mamba block's projections, conv and skip.  ``w0``, ``u``,
+# ``a_log``, ``dt_bias`` and every norm scale are read in float32.
+_CAST = frozenset(("wq", "wk", "wv", "wo", "wi", "wg",
+                   "wr", "wA", "wB", "mu",
+                   "w_in", "conv", "d_skip", "w_out"))
 
 
 # --------------------------------------------------------------------------
@@ -34,7 +44,7 @@ _PROJECTIONS = frozenset(("wq", "wk", "wv", "wo", "wi", "wg"))
 
 @dataclass(frozen=True)
 class Block:
-    kind: str              # attn_mlp (the port's only kind so far)
+    kind: str              # attn_mlp | rwkv | mamba | shared_attn
     window: int = 0        # 0 = global attention
     causal: bool = True
     cross: bool = False    # decoder block with cross-attention
@@ -50,10 +60,21 @@ class Group:
 
 
 def layer_groups(cfg: ModelConfig) -> list:
+    if cfg.family == "rwkv":
+        return [Group("layers_0", cfg.n_layers, (Block("rwkv"),))]
+    if cfg.family == "hybrid":
+        period = cfg.shared_attn_period
+        sup = tuple([Block("mamba")] * (period - 1) + [Block("shared_attn")])
+        n_sup, rem = divmod(cfg.n_layers, period)
+        groups = [Group("layers_0", n_sup, sup)]
+        if rem:
+            groups.append(Group("layers_1", rem, (Block("mamba"),)))
+        return groups
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"§1, the LM stack); the port runs the dense family")
+            f"§1, the LM stack); the port runs the dense, rwkv and hybrid "
+            f"families")
     if cfg.local_ratio > 0:
         period = cfg.local_ratio + 1
         sup = tuple([Block("attn_mlp", window=cfg.window)] * cfg.local_ratio
@@ -77,18 +98,53 @@ def _attn_cfg(cfg: ModelConfig) -> dict:
             "qk_norm": cfg.qk_norm}
 
 
+def _mamba_cfg(cfg: ModelConfig) -> dict:
+    return {"embed": cfg.d_model, "state": cfg.ssm_state,
+            "expand": cfg.expand, "head_dim": cfg.mamba_head_dim}
+
+
 def _init_block(gen, cfg: ModelConfig, block: Block, i: int, dtype):
-    if block.kind != "attn_mlp" or block.cross:
+    if block.cross:
         raise NotImplementedError(f"block {block} is not ported yet")
     e = cfg.d_model
-    zeros = lambda: torch.zeros((e,), dtype=dtype, device=gen.device)  # noqa
-    return {
-        f"b{i}_ln1": {"scale": zeros()},
-        f"b{i}_attn": A.init_attention(gen, _attn_cfg(cfg), dtype),
-        f"b{i}_ln2": {"scale": zeros()},
-        f"b{i}_mlp": F.init_mlp(
-            gen, {"embed": e, "ffn": cfg.d_ff, "gated": cfg.gated}, dtype),
-    }
+    zeros = lambda: {"scale": torch.zeros(  # noqa: E731
+        (e,), dtype=dtype, device=gen.device)}
+    if block.kind == "attn_mlp":
+        return {
+            f"b{i}_ln1": zeros(),
+            f"b{i}_attn": A.init_attention(gen, _attn_cfg(cfg), dtype),
+            f"b{i}_ln2": zeros(),
+            f"b{i}_mlp": F.init_mlp(
+                gen, {"embed": e, "ffn": cfg.d_ff, "gated": cfg.gated},
+                dtype),
+        }
+    if block.kind == "rwkv":
+        return {
+            f"b{i}_ln1": zeros(),
+            f"b{i}_tm": R.init_rwkv_time_mix(
+                gen, {"embed": e, "heads": cfg.heads,
+                      "head_dim": cfg.resolved_head_dim}, dtype),
+            f"b{i}_ln2": zeros(),
+            f"b{i}_cm": R.init_rwkv_channel_mix(
+                gen, {"embed": e, "ffn": cfg.d_ff}, dtype),
+        }
+    if block.kind in ("mamba", "shared_attn"):
+        # shared_attn reads its attention and mlp from the root "shared"
+        return {f"b{i}_ln1": zeros(),
+                f"b{i}_mamba": M.init_mamba2(gen, _mamba_cfg(cfg), dtype)}
+    raise NotImplementedError(f"block {block} is not ported yet")
+
+
+def _init_shared(gen, cfg: ModelConfig, dtype) -> dict:
+    """The hybrid family's weight-shared attention block (root scope)."""
+    e = cfg.d_model
+    zeros = lambda: {"scale": torch.zeros(  # noqa: E731
+        (e,), dtype=dtype, device=gen.device)}
+    return {"ln1": zeros(),
+            "attn": A.init_attention(gen, _attn_cfg(cfg), dtype),
+            "ln2": zeros(),
+            "mlp": F.init_mlp(gen, {"embed": e, "ffn": cfg.d_ff,
+                                    "gated": cfg.gated}, dtype)}
 
 
 def params_from_numpy(tree, device="cpu"):
@@ -122,6 +178,8 @@ class LM:
         params: dict = {"embed": E.init_embedding(
             gen, cfg.padded_vocab, cfg.d_model, self.pdtype,
             tied=cfg.tied_embeddings)}
+        if cfg.family == "hybrid":
+            params["shared"] = _init_shared(gen, cfg, self.pdtype)
         for g in self.groups:
             layers = []
             for _ in range(g.count):
@@ -135,15 +193,16 @@ class LM:
         return params
 
     def inference_params(self, params: dict) -> dict:
-        """``params`` with every projection matrix (``wq wk wv wo wi wg``)
-        cast to the activation dtype once.  The reference casts them per
-        call (``w.astype(x.dtype)``); the values are the same, without a
-        cast of every matrix at every step.  Norm scales and the embedding
-        table keep their dtype: rmsnorm and unembed read them in
-        float32."""
+        """``params`` with every parameter the layers cast per call (the
+        ``_CAST`` names: projections, the rwkv mixes and LoRA, the mamba
+        conv and skip) cast to the activation dtype once.  The reference
+        casts them per call (``w.astype(x.dtype)``); the values are the
+        same, without a cast of every matrix at every step.  Norm scales,
+        the embedding table and the parameters the layers read in float32
+        (``w0``, ``u``, ``a_log``, ``dt_bias``) keep their dtype."""
         def cast(tree):
             return {k: cast(v) if isinstance(v, dict)
-                    else v.to(self.dtype) if k in _PROJECTIONS else v
+                    else v.to(self.dtype) if k in _CAST else v
                     for k, v in tree.items()}
         return cast(params)
 
@@ -151,22 +210,62 @@ class LM:
     def _block_nodes(self, sub: Plan, x: str, i: int, blk: Block,
                      emit_kv: bool = False) -> str:
         cfg = self.cfg
-        if blk.kind != "attn_mlp" or blk.cross:
+        if blk.cross:
             raise NotImplementedError(f"block {blk} is not ported yet")
         pp = "b" + str(i)
-        h = sub.add("rmsnorm", [x], {"pp": (f"{pp}_ln1",)})
-        att = sub.add("attention", [h], {
-            "pp": (f"{pp}_attn",), **_attn_cfg(cfg),
-            "causal": blk.causal, "window": blk.window,
-            "rope_theta": cfg.rope_theta,
-            **({"emit_kv": True} if emit_kv else {})})
-        x = sub.add("residual_add", [x, att])
-        h = sub.add("rmsnorm", [x], {"pp": (f"{pp}_ln2",)})
-        m = sub.add("mlp", [h], {
-            "pp": (f"{pp}_mlp",), "ffn": cfg.d_ff,
-            "gated": cfg.gated, "act": cfg.act,
-            "embed": cfg.d_model})
-        return sub.add("residual_add", [x, m])
+
+        def norm(src, name):
+            return sub.add("rmsnorm", [src], {"pp": (f"{pp}_{name}",)})
+
+        if blk.kind == "attn_mlp":
+            h = norm(x, "ln1")
+            att = sub.add("attention", [h], {
+                "pp": (f"{pp}_attn",), **_attn_cfg(cfg),
+                "causal": blk.causal, "window": blk.window,
+                "rope_theta": cfg.rope_theta,
+                **({"emit_kv": True} if emit_kv else {})})
+            x = sub.add("residual_add", [x, att])
+            h = norm(x, "ln2")
+            m = sub.add("mlp", [h], {
+                "pp": (f"{pp}_mlp",), "ffn": cfg.d_ff,
+                "gated": cfg.gated, "act": cfg.act,
+                "embed": cfg.d_model})
+            return sub.add("residual_add", [x, m])
+        if blk.kind == "rwkv":
+            h = norm(x, "ln1")
+            tm = sub.add("wkv6", [h], {
+                "pp": (f"{pp}_tm",), "heads": cfg.heads,
+                "head_dim": cfg.resolved_head_dim})
+            x = sub.add("residual_add", [x, tm])
+            h = norm(x, "ln2")
+            cm = sub.add("rwkv_channel_mix", [h],
+                         {"pp": (f"{pp}_cm",), "ffn": cfg.d_ff})
+            return sub.add("residual_add", [x, cm])
+        if blk.kind in ("mamba", "shared_attn"):
+            h = norm(x, "ln1")
+            mb = sub.add("ssd", [h], {
+                "pp": (f"{pp}_mamba",), "heads":
+                    cfg.expand * cfg.d_model // cfg.mamba_head_dim,
+                "head_dim": cfg.mamba_head_dim, "state": cfg.ssm_state,
+                "expand": cfg.expand, "embed": cfg.d_model})
+            x = sub.add("residual_add", [x, mb])
+            if blk.kind == "shared_attn":
+                h = sub.add("rmsnorm", [x], {"pp": ("shared", "ln1"),
+                                             "shared": True})
+                att = sub.add("attention", [h], {
+                    "pp": ("shared", "attn"), "shared": True,
+                    **_attn_cfg(cfg), "causal": True, "window": 0,
+                    "rope_theta": cfg.rope_theta})
+                x = sub.add("residual_add", [x, att])
+                h = sub.add("rmsnorm", [x], {"pp": ("shared", "ln2"),
+                                             "shared": True})
+                m = sub.add("mlp", [h], {
+                    "pp": ("shared", "mlp"), "shared": True,
+                    "ffn": cfg.d_ff, "gated": cfg.gated, "act": cfg.act,
+                    "embed": cfg.d_model})
+                x = sub.add("residual_add", [x, m])
+            return x
+        raise NotImplementedError(f"block {blk} is not ported yet")
 
     def _group_subplan(self, g: Group, batch: int, seq: int,
                        emit_kv: bool = False) -> Plan:
@@ -182,7 +281,10 @@ class LM:
 
     def supports_prefill_kv(self) -> bool:
         """True when the whole serving cache is attention K/V — i.e. a
-        ``prefill_kv`` plan captures the entire decode state."""
+        ``prefill_kv`` plan captures the entire decode state.  The
+        recurrent families (rwkv, hybrid) carry state the planned forward
+        does not expose: the serving runtime rebuilds it by replaying the
+        prompt through the decode step."""
         return self.cfg.family in ("dense", "moe") and \
             self.cfg.frontend == "none"
 
@@ -198,7 +300,8 @@ class LM:
             raise ValueError(
                 f"prefill_kv plans need an attention-only decode state; "
                 f"{cfg.name} (family={cfg.family}, frontend={cfg.frontend}) "
-                f"carries recurrent/frontend state")
+                f"carries recurrent/frontend state — use mode='prefill' and "
+                f"decode replay")
         plan = Plan(name=f"{cfg.name}-{mode}")
         tokens = plan.add_input("tokens", TensorT((batch, seq), "int32",
                                                   ("batch", "seq")))

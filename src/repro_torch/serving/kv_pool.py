@@ -17,8 +17,9 @@ logical page ``j`` — which keeps every per-request cache region contiguous
 (attention needs no gather) while still giving the admission side a
 token-granular occupancy signal: with ``page_budget`` below ``n_slots *
 pages_per_slot`` the pool refuses joins on memory pressure even when slots
-are free.  ``adopt`` (the replay fallback of recurrent families) waits for
-the rwkv slice.
+are free.  The recurrent families' slots hold their rwkv / mamba state
+beside any K/V; ``adopt`` (the replay fallback) writes a whole batch-1
+decode cache into a slot.
 """
 from __future__ import annotations
 
@@ -154,6 +155,29 @@ class PagedKVPool:
                 for key, val in ((f"b{bi}_k", k), (f"b{bi}_v", v)):
                     leaf = gc[key]
                     leaf[:, pt.slot, :val.shape[2]] = val[:, 0].to(leaf.dtype)
+        return pt.slot
+
+    @torch.inference_mode()
+    def adopt(self, request_id, cache1) -> int:
+        """Write a batch-1 decode cache (the replay fallback's: the prompt
+        replayed through the decode step) into the request's slot, in
+        place: every leaf — K/V and recurrent state alike — so nothing of
+        the slot's earlier occupant or of a warm-up step survives.  Returns
+        the slot."""
+        pt = self._tables[request_id]
+        for g, gc in self.cache.items():
+            src = cache1[g]
+            if src.keys() != gc.keys():
+                raise ValueError(f"adopt: cache group {g} has leaves "
+                                 f"{sorted(src)}, the pool {sorted(gc)}")
+            for key, leaf in gc.items():
+                if src[key].shape[1] != 1 or \
+                        src[key].shape[2:] != leaf.shape[2:]:
+                    raise ValueError(
+                        f"adopt: {g}/{key} is {tuple(src[key].shape)}, the "
+                        f"pool's slot needs {(leaf.shape[0], 1)} + "
+                        f"{tuple(leaf.shape[2:])}")
+                leaf[:, pt.slot] = src[key][:, 0].to(leaf.dtype)
         return pt.slot
 
     def occupancy(self) -> dict:

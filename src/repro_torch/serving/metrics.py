@@ -33,6 +33,8 @@ class RequestMetrics:
     finished_at: float = 0.0
     plan_ms: float = 0.0             # plan fetch/compile (cache hit ≈ free)
     prefill_ms: float = 0.0
+    replay_ms: float = 0.0           # replay fallback: prompt replay ...
+    adopt_ms: float = 0.0            # ... and its write into the slot
 
     @property
     def queue_wait_s(self) -> float:

@@ -9,27 +9,36 @@ The port of the language-model part of the reference's
     ``max_batch``) whose slots requests join and leave at token boundaries;
   * a :class:`~repro_torch.serving.kv_pool.PagedKVPool` seeded **directly
     from the planned prefill's per-layer K/V outputs** (``mode=
-    "prefill_kv"``) — no decode replay of the prompt;
+    "prefill_kv"``) — no decode replay of the prompt — where the whole
+    decode state is attention K/V (``kv_mode``);
+  * the **replay fallback** for the recurrent families (rwkv, hybrid),
+    whose rwkv / mamba state no planned forward exposes: a planned
+    ``mode="prefill"`` forward gives the first token, then the prompt is
+    replayed through a batch-1 decode step over one reused batch-1 cache
+    (zeroed in place per request) and that cache is written into the
+    request's slot (``PagedKVPool.adopt``);
   * an asyncio event loop that interleaves admission, planned prefill of
     incoming requests and decode of in-flight ones at token boundaries.
 
-Same-bucket waiting requests prefill together: the bucket's batch-1 plan
-runs on a ``(w, bucket)`` token batch (every impl is batch-polymorphic),
-which is what the reference's ``vmap`` of the planned forward computes.
+In ``kv_mode``, same-bucket waiting requests prefill together: the
+bucket's batch-1 plan runs on a ``(w, bucket)`` token batch (every impl is
+batch-polymorphic), which is what the reference's ``vmap`` of the planned
+forward computes.
 The runtime holds the parameters with their projection matrices cast to
 the activation dtype once (``LM.inference_params``), where the reference
 casts them per call: the same numbers.
 
 The engines default to ``("xla", "pallas")``: the planner's kernel slot,
-which on this slice puts the flash-attention kernel in every prefill (the
-reference defaults to ``("xla",)``).  The runtime runs on the card unless
-``device="cpu"`` is passed, and raises without one.  No ``try`` wraps a
-prefill or a decode tick: a kernel or launch error surfaces to the caller.
+which puts the flash-attention, WKV6 and SSD kernels in the prefills it
+prices cheaper (the reference defaults to ``("xla",)``).  The runtime runs
+on the card unless ``device="cpu"`` is passed, and raises without one.  No
+``try`` wraps a prefill or a decode tick: a kernel or launch error surfaces
+to the caller.
 
 Not ported yet (ROADMAP §1): fault injection and retries, deadlines,
 degraded-mode replanning, the memory ledger and flight recorder, the
-sub-plan cache and the analytical requests, and the decode-replay fallback
-of recurrent families; their constructor arguments are absent.
+sub-plan cache and the analytical requests; their constructor arguments
+are absent.
 """
 from __future__ import annotations
 
@@ -96,10 +105,6 @@ class AsyncServingRuntime:
                  admission: Optional[AdmissionController] = None,
                  registry: Optional[MetricsRegistry] = None,
                  prefill_batch: int = 4, device=None):
-        if not model.supports_prefill_kv():
-            raise NotImplementedError(
-                f"{model.cfg.name}: serving needs a prefill_kv plan; the "
-                f"replay fallback of recurrent families is not ported yet")
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
@@ -114,6 +119,7 @@ class AsyncServingRuntime:
         self.plan_cache_dir = plan_cache_dir
         if plan_cache_dir:
             load_plan_cache(plan_cache_dir, self.pc)   # warm start
+        self.kv_mode = model.supports_prefill_kv()
         self.registry = registry if registry is not None else \
             MetricsRegistry()
         self.pool = PagedKVPool(model, max_batch, max_seq,
@@ -128,6 +134,11 @@ class AsyncServingRuntime:
         self._decode = (DecodeGraph(model, self.params, self.pool.cache,
                                     max_batch)
                         if self.device.type == "cuda" else None)
+        # replay mode: one batch-1 cache every request's prompt replays
+        # into (zeroed first), and its step, built on first use (warmup)
+        self._cache1 = None if self.kv_mode else init_cache(
+            model, 1, max_seq, device=self.device)
+        self._replay = None
         self._results: dict = {}
         self._t0 = time.perf_counter()
         # up to ``prefill_batch`` same-bucket waiting requests prefill as
@@ -145,11 +156,13 @@ class AsyncServingRuntime:
         return bucket in self._prefill_fns
 
     def _plan_prefill(self, bucket: int):
-        """Fetch (or plan, on a cold bucket) the bucket's ``prefill_kv``
-        forward through the plan cache.  Returns (planned fn, plan ms)."""
+        """Fetch (or plan, on a cold bucket) the bucket's prefill forward
+        through the plan cache: ``prefill_kv`` in kv_mode, else
+        ``prefill`` (logits only).  Returns (planned fn, plan ms)."""
         t0 = time.perf_counter()
         hits0 = self.pc.hits
-        plan = self.model.build_plan(1, bucket, mode="prefill_kv")
+        mode = "prefill_kv" if self.kv_mode else "prefill"
+        plan = self.model.build_plan(1, bucket, mode=mode)
         fwd = plan_and_compile(plan, CATALOG, self.syscat,
                                engines=self.engines, cache=self.pc,
                                device=self.device)
@@ -163,18 +176,24 @@ class AsyncServingRuntime:
         ``lm.prefill_forwards``."""
         outs = fwd(self.params, {"tokens": torch.from_numpy(toks).to(
             self.device)})
-        firsts = _first_tokens(outs[0], torch.from_numpy(ns).to(
+        logits = outs[0] if isinstance(outs, tuple) else outs
+        firsts = _first_tokens(logits, torch.from_numpy(ns).to(
             self.device).long(), self.cfg.vocab)
         self.registry.count("lm.prefill_forwards")
         return outs, firsts.cpu().numpy()
 
     def warmup(self, prompt_lens: Sequence[int]) -> None:
         """Plan every bucket the trace will touch and run its prefill once
-        (batch 1 and, with batched prefill, the bucket's one batched width)
-        and the batched decode step, so serving-time work is plan-cache
-        hits and execution."""
+        (batch 1 and, in kv_mode with batched prefill, the bucket's one
+        batched width), the batched decode step and, in replay mode, the
+        batch-1 replay step, so serving-time work is plan-cache hits and
+        execution."""
         for n in sorted({self.bucket_of(n) for n in prompt_lens}):
             fwd, _ = self._plan_prefill(n)
+            if not self.kv_mode:
+                self._prefill(fwd, np.zeros((1, n), np.int32),
+                              np.full((1,), n, np.int32))
+                continue
             widths = [1]
             if self.prefill_batch > 1:
                 widths.append(min(self.prefill_batch, self.max_batch))
@@ -187,9 +206,30 @@ class AsyncServingRuntime:
                     self.pool.seed("__warmup__",
                                    _row(outs[1:], 0), n)
                     self.pool.free("__warmup__")
-        # position 0 of every slot gets token 0's K/V; any join overwrites
+        # position 0 of every slot gets token 0's K/V (and every recurrent
+        # state a step); any join overwrites the slot
         self._decode_step(np.zeros((self.max_batch, 1), np.int64),
                           np.zeros((self.max_batch,), np.int64))
+        if not self.kv_mode:
+            # the replay step too (on the card: its CUDA graph is built);
+            # every request zeroes the replay cache before its replay
+            zero = torch.zeros((1,), dtype=torch.long, device=self.device)
+            self._replay_step(zero[:, None], zero)
+
+    def _replay_step(self, tokens, indices):
+        """The batch-1 decode step over the replay cache: the CUDA graph on
+        the card (built at the first call), the eager step on the CPU."""
+        if self.device.type != "cuda":
+            return decode_step_batched(self.model, self.params, self._cache1,
+                                       tokens, indices)[0]
+        if self._replay is None:
+            self._replay = DecodeGraph(self.model, self.params, self._cache1,
+                                       1)
+        return self._replay(tokens, indices)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _decode_step(self, toks: np.ndarray, idxs: np.ndarray):
         """The batched decode step over the pool: the CUDA graph on the
@@ -235,8 +275,9 @@ class AsyncServingRuntime:
     def _join(self, req: ServeRequest, bucket: int, enqueued_at: float,
               kv_groups, first: int, plan_ms: float,
               prefill_ms: float) -> None:
-        """Seed the request's slot from its prefill K/V and join the decode
-        batch with its first token."""
+        """Seed the request's slot (from its prefill K/V in kv_mode, by
+        replaying its prompt otherwise) and join the decode batch with its
+        first token."""
         rm = RequestMetrics(req.rid, bucket=bucket,
                             prompt_len=req.prompt_len, gen=req.gen,
                             submitted_at=enqueued_at)
@@ -244,7 +285,10 @@ class AsyncServingRuntime:
         # reserve prompt + the first decode write (position prompt_len is
         # written by the first tick, before extend() is consulted)
         self.pool.alloc(req.rid, req.prompt_len + 1)
-        self.pool.seed(req.rid, kv_groups, req.prompt_len)
+        if self.kv_mode:
+            self.pool.seed(req.rid, kv_groups, req.prompt_len)
+        else:
+            self._replay_and_adopt(req, rm)
         now = self._now()
         rm.joined_at = rm.first_token_at = now
         st = self.scheduler.join(req, pos=req.prompt_len, tok=first,
@@ -254,6 +298,27 @@ class AsyncServingRuntime:
         if st.done:                          # gen == 1: prefill was enough
             self._finish(st, "ok")
 
+    def _replay_and_adopt(self, req: ServeRequest, rm) -> None:
+        """The replay fallback: zero the batch-1 cache in place, replay the
+        prompt through the batch-1 decode step, write the cache into the
+        request's slot.  ``rm.replay_ms`` / ``rm.adopt_ms``: host clock
+        around each, ending in a device sync."""
+        t0 = time.perf_counter()
+        for leaf in (x for gc in self._cache1.values() for x in gc.values()):
+            leaf.zero_()
+        toks = torch.tensor(req.prompt, dtype=torch.long,
+                            device=self.device)[None, :]
+        pos = torch.zeros((1,), dtype=torch.long, device=self.device)
+        for t in range(req.prompt_len):
+            self._replay_step(toks[:, t:t + 1], pos.fill_(t))
+        self.registry.count("lm.replay_steps", req.prompt_len)
+        self._sync()
+        t1 = time.perf_counter()
+        self.pool.adopt(req.rid, self._cache1)
+        self._sync()
+        rm.replay_ms = (t1 - t0) * 1e3
+        rm.adopt_ms = (time.perf_counter() - t1) * 1e3
+
     def _prefill_and_join(self, req: ServeRequest, bucket: int,
                           enqueued_at: float) -> None:
         fwd, plan_ms = self._plan_prefill(bucket)
@@ -262,7 +327,8 @@ class AsyncServingRuntime:
         toks[0, :req.prompt_len] = req.prompt
         outs, firsts = self._prefill(fwd, toks,
                                      np.array([req.prompt_len], np.int32))
-        self._join(req, bucket, enqueued_at, outs[1:], int(firsts[0]),
+        self._join(req, bucket, enqueued_at,
+                   outs[1:] if self.kv_mode else None, int(firsts[0]),
                    plan_ms, (time.perf_counter() - t0) * 1e3)
 
     def _pop_prefill_batch(self, w) -> list:
@@ -270,7 +336,7 @@ class AsyncServingRuntime:
         same-bucket waiting requests that the decode batch and KV pool can
         conservatively absorb together.  Returns [(req, enqueued_at), ...]."""
         batch = [(self.scheduler.pop(w), w.enqueued_at)]
-        if self.prefill_batch <= 1:
+        if not self.kv_mode or self.prefill_batch <= 1:
             return batch
         q = self.scheduler.queues.get(w.bucket)
         pending_pages = self.pool.pages_for(batch[0][0].prompt_len + 1)

@@ -81,9 +81,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.graph_kernels\n"
         "import repro_torch.kernels.build\n"
         "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.wkv6, repro_torch.kernels.ssd\n"
         "import repro_torch.configs, repro_torch.configs.qwen3_0_6b\n"
+        "import repro_torch.configs.rwkv6_3b, repro_torch.configs.zamba2_7b\n"
         "import repro_torch.layers.common, repro_torch.layers.embedding\n"
         "import repro_torch.layers.mlp, repro_torch.layers.attention\n"
+        "import repro_torch.layers.rwkv, repro_torch.layers.mamba\n"
         "import repro_torch.models, repro_torch.models.lm\n"
         "import repro_torch.models.decode\n"
         "import repro_torch.serving, repro_torch.serving.admission\n"

@@ -118,12 +118,66 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      float32 parameters, so its card-against-CPU check stays with the CPU
      tests at SMOKE width (``tests/test_torch_recurrent_*.py``);
 
- 23. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+  ``dbrx_serve`` (dbrx-132b served by the async runtime through its
+  planned ``prefill_kv``, slice 5), after the recurrent models are freed:
+
+ 23. data     — dbrx-132b at full width (d_model 6144, 48 / 8 heads of
+     128, 16 experts top-4 of d_ff 10752, vocab 100,352; bfloat16
+     activations, float32 parameters from ``he_init`` on a seeded generator
+     on the card) and **2 of its 40 layers**: every dbrx layer is MoE, so 2
+     layers are 2 whole periods of its pattern; the float32 tree holds 31.0
+     GB at 2 layers and 44.0 GB at 3, where the runtime's bf16 copies of
+     the projections and experts add 19.6 GB, so a third layer does not fit
+     the card's 80 GB beside the activations of a width-4 prefill at 2048.
+     Parameter count (the tree's, and ``param_count()`` without the norm
+     scales), bytes, seconds, peak memory;
+ 24. serve    — ``AsyncServingRuntime`` (engines xla + pallas, 4 decode
+     slots, max_seq 2048, page size 16; ``prefill_kv`` mode) on 8 requests
+     of 100 / 500 / 1000 / 2000 prompt tokens, 16 generated each: warmup,
+     then serve with the launch counts set to 0 just before it, the gmm and
+     flash arguments recorded at each bucket, and each prefill's dropped
+     MoE assignments (``~keep``, of prompt tokens and of all tokens) and
+     host time; chosen impls per bucket (``moe_gmm_pallas``,
+     ``attn_flash_pallas``), TTFT, decode and total tokens/s, plan-cache
+     hits, pool occupancy;
+ 25. serve-kernel — gmm against its plain version (a float32 einsum) on
+     the card on the very arguments each bucket's planned prefill gave it,
+     in both shapes (``wi`` / ``wg``: (16, C, 6144) @ (16, 6144, 10752);
+     ``wo``: (16, C, 10752) @ (16, 10752, 6144); C = width x capacity), and
+     at edge cases (float32; C, D and F no multiple of a tile: 20, 12, 28;
+     E = 1; all-zero capacity rows; a weight view at an offset in a stacked
+     tree; a non-contiguous x); CUDA-event medians (5 launches where one
+     takes over 50 ms) of the kernel, the plain version and ``torch.bmm``
+     (timed only, never called by the port) beside the bound, which counts
+     every capacity slot (E x C rows) the kernel computes.  Flash attention
+     on the arguments dbrx's prefills gave it (GQA 48 / 8, head_dim 128),
+     timed beside ``scaled_dot_product_attention``;
+ 26. check    — gmm launches = 3 x 2 MoE layers x the prefill forwards and
+     flash launches = 2 x them, exactly; 100 % plan-cache hits after
+     warmup; a float32 sub-trace (prompts 100 and 500, 8 generated)
+     through the runtime token for token equal to ``serve_sequential``
+     for every request whose prefill dropped no prompt token's assignment
+     (the runtime seeds K/V from its capacity-dispatched prefill, the
+     sequential path replays the prompt through the decode step, which
+     never drops); otherwise first tokens equal and the first-token logits
+     of the two planned forwards (``prefill_kv``, ``prefill``) within
+     ``2e-3``; ``moe_gmm`` against
+     ``moe_dense`` at capacity factor 2.0 on layer 0's recorded float32 MoE
+     input at bucket 512 (the same dispatch: ``keep`` and ``dest`` equal,
+     outputs within the float32 tolerance); the CUDA-graph decode step,
+     with the capacity dispatch inside it, bitwise equal to the eager
+     step on random caches.  A card-against-CPU check at
+     full width would need 31 GB of float32 parameters on the host and is
+     left out; the CPU tests hold the port against the reference at SMOKE
+     width (``tests/test_torch_moe_*.py``);
+
+ 27. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 With ``--profile`` it also runs each path's default plan (a second serve
-of the qwen3 trace; for each recurrent family a serve of one request of
-100 prompt tokens) once under ``torch.profiler`` and prints the device
-time of the 15 costliest kernels and the device's idle share of that run.
+of the qwen3 and dbrx traces; for each recurrent family a serve of one
+request of 100 prompt tokens) once under ``torch.profiler`` and prints the
+device time of the 15 costliest kernels and the device's idle share of
+that run.
 
 Tolerances: counts, ids and top-k order exact; float sums
 ``rtol=1e-5, atol=1e-6`` (atomics add in a run-dependent order).  Flash
@@ -144,11 +198,16 @@ plain versions: ``1e-4`` absolute and relative in float32 (one float32
 sum order against another over up to 2048 steps: the kernel sums a
 column's terms in index order, the plain version through einsum), ``1e-2``
 in bfloat16 (both round one float32 result to bfloat16: one ulp apart at
-most, 2^-8 relative).
+most, 2^-8 relative).  gmm against its plain version: ``1e-4`` absolute
+and relative in float32 (the kernel's FMA sums over up to 10,752 terms in
+ascending order against cuBLAS's order) and ``1e-2`` in bfloat16 (both
+round one float32 sum to bfloat16: one ulp apart at most); ``moe_gmm``
+against ``moe_dense`` in float32: ``1e-4``, the same sums again.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -188,8 +247,10 @@ from repro_torch.kernels.ssd import ssd, ssd_reference  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_reference  # noqa: E402
 from repro_torch.layers import attention as attention_layer  # noqa: E402
 from repro_torch.layers import mamba as mamba_layer  # noqa: E402
+from repro_torch.layers import moe as moe_layer  # noqa: E402
 from repro_torch.layers import rwkv as rwkv_layer  # noqa: E402
 from repro_torch.layers.common import rope  # noqa: E402
+from repro_torch.kernels.moe_gmm import gmm, gmm_reference  # noqa: E402
 from repro_torch.kernels.masked_kernels import (  # noqa: E402
     compact_prefix, compact_prefix_plain, join_probe, join_probe_plain,
     masked_segment_agg, masked_segment_agg_plain, masked_tfidf,
@@ -238,6 +299,17 @@ RSERVE = {"requests": 4, "prompt_lens": (100, 500, 1000, 2000), "gen": 16,
 RSUB = {"prompt_lens": (100, 500), "gen": 8, "engine_bucket": 512}
 RCPU = {"prompt_lens": (48,), "gen": 4, "max_seq": 256}
 RECURRENT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# dbrx_serve: dbrx-132b at full width, 2 of its 40 layers; the served
+# trace, the float32 sub-trace and the bucket of the moe_gmm / moe_dense
+# comparison
+DBRX = {"arch": "dbrx-132b", "n_layers": 2, "requests": 8,
+        "prompt_lens": (100, 500, 1000, 2000), "gen": 16, "max_batch": 4,
+        "max_seq": 2048,
+        "cut": "n_layers 40 -> 2: float32 parameters 31.0 GB at 2 layers, "
+               "44.0 GB at 3, with 19.6 GB of bf16 expert copies: 3 do not "
+               "fit 80 GB"}
+DSUB = {"prompt_lens": (100, 500), "gen": 8, "moe_bucket": 512}
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 RECURRENT = {
     "rwkv6-3b": {
         "name": "wkv6", "path": "rwkv6_serve", "kernel": wkv6,
@@ -317,6 +389,14 @@ def cuda_ms(fn, reps=REPS, warmup=3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def free_memory():
+    """Collect a path's dead objects (a runtime whose methods were wrapped
+    in ``timed`` sits in a reference cycle and holds its cast parameters)
+    and return the cached blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def bound(nbytes, nops, ops_rate):
@@ -1326,15 +1406,15 @@ def cpu_subtrace(cfg, model32, params, syscat, dev, reqs, max_seq) -> dict:
 
 
 @contextlib.contextmanager
-def recording_shapes(module, name, calls):
+def recording_shapes(module, name, calls, arg=0):
     """Keep in ``calls`` the arguments of the first call of ``module.name``
-    (a kernel wrapper, under the name the layer calls it by) at each new
-    shape of its first argument: one planned prefill's arguments per
+    (a kernel wrapper or layer, under the name its caller uses) at each new
+    shape of its argument ``arg``: one planned prefill's arguments per
     bucket, without holding every layer's."""
     wrapped = getattr(module, name)
 
     def record(*args, **kwargs):
-        key = tuple(args[0].shape)
+        key = tuple(args[arg].shape)
         if key not in calls:
             calls[key] = (args, kwargs)
         return wrapped(*args, **kwargs)
@@ -1463,10 +1543,10 @@ def check_recurrence(dev, gen, cfg, spec, calls) -> dict:
     return record
 
 
-def check_flash_calls(calls) -> dict:
-    """flash_attention on the arguments zamba2's planned prefill gave it
-    at each bucket (timed, beside scaled_dot_product_attention); returns
-    its JSON record (the largest bucket)."""
+def check_flash_calls(calls, path) -> dict:
+    """flash_attention on the arguments a served model's planned prefill
+    gave it at each bucket (timed, beside scaled_dot_product_attention);
+    returns its JSON record (the largest bucket)."""
     err, record = 0.0, None
     for _shape, (args, kwargs) in sorted(calls.items(),
                                          key=lambda kv: kv[0][1]):
@@ -1487,7 +1567,7 @@ def check_flash_calls(calls) -> dict:
         nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kvh * d)
         nops = 4 * b * h * d * attention_pairs(s, s, causal, window)
         bound_ms, bound_by = bound(nbytes, nops, BF16_FLOPS)
-        phase("zamba2_serve-kernel", name="flash_attention", b=b, seq=s,
+        phase(f"{path}-kernel", name="flash_attention", b=b, seq=s,
               heads=h, kv_heads=kvh, head_dim=d,
               dtype=str(q.dtype).split(".")[1], max_abs_err=e, ms=ms,
               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
@@ -1497,7 +1577,7 @@ def check_flash_calls(calls) -> dict:
                   "replaces": "src/repro/kernels/flash_attention/ops.py:110",
                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_by": bound_by, "library_ms": lib_ms}
-    check(record is not None, "zamba2: no flash_attention call recorded")
+    check(record is not None, f"{path}: no flash_attention call recorded")
     record["max_abs_err"] = err
     return record
 
@@ -1648,7 +1728,7 @@ def recurrent_path(args, dev, syscat, arch) -> list:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     records = [check_recurrence(dev, gen, cfg, spec, calls)]
     if flash_calls:
-        records.append(check_flash_calls(flash_calls))
+        records.append(check_flash_calls(flash_calls, path))
     for rec in records:
         rec["launches"] = counted[rec["name"]]
         rec["path"] = path
@@ -1696,6 +1776,381 @@ def recurrent_path(args, dev, syscat, arch) -> list:
     return records
 
 
+# -- phases 23-26: dbrx-132b served ---------------------------------------
+
+
+def gmm_inputs(gen, dev, e, c, d, f, dtype):
+    """x (E, C, D) and w (E, D, F), unit normal, in ``dtype``."""
+    return (torch.randn(e, c, d, generator=gen, device=dev).to(dtype),
+            torch.randn(e, d, f, generator=gen, device=dev).to(dtype))
+
+
+def gmm_edge_cases(gen, dev):
+    """(name, x, w): float32, ragged C / D / F, E = 1, all-zero capacity
+    rows, a weight view at an offset in a stacked tree and a
+    non-contiguous x (bfloat16 too, where the kernel takes its
+    element-wise loads)."""
+    cases = [("float32 4 x 20 x 12 x 28",
+              *gmm_inputs(gen, dev, 4, 20, 12, 28, torch.float32)),
+             ("bfloat16 4 x 20 x 12 x 28",
+              *gmm_inputs(gen, dev, 4, 20, 12, 28, torch.bfloat16)),
+             ("E = 1, 33 x 40 x 17",
+              *gmm_inputs(gen, dev, 1, 33, 40, 17, torch.bfloat16)),
+             ("float32 16 x 300 x 6144 x 200",
+              *gmm_inputs(gen, dev, 16, 300, 6144, 200, torch.float32))]
+    x, w = gmm_inputs(gen, dev, 16, 256, 512, 384, torch.bfloat16)
+    x[:, 100:] = 0.0
+    cases.append(("all-zero capacity rows", x, w))
+    for dt in (torch.float32, torch.bfloat16):
+        stacked = torch.randn(2, 4, 256, 400, generator=gen,
+                              device=dev).to(dt)
+        w = stacked[1, :, :, 8:392]                  # a view at an offset
+        x = torch.randn(4, 256, 300, generator=gen, device=dev).to(dt)
+        x = x.transpose(1, 2)[:, :250]               # (4, 250, 256) strided
+        cases.append((f"{str(dt).split('.')[1]} strided x, w view", x, w))
+    return cases
+
+
+def gmm_compare(x, w):
+    """The kernel against its plain version on the same inputs, within the
+    dtype's tolerance, one expert at a time (float32 copies of a whole
+    served output would take 2.8 GB each); returns the max abs error."""
+    got = gmm(x, w)
+    want = gmm_reference(x, w)
+    check(got.dtype == x.dtype
+          and got.shape == (x.shape[0], x.shape[1], w.shape[2]),
+          "gmm: wrong output dtype or shape")
+    tol, err = GMM_TOL[x.dtype], 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def slow_ms(fn) -> float:
+    """CUDA-event median of ``fn``: REPS launches, or 5 where one launch
+    takes over 50 ms."""
+    first = cuda_ms(fn, reps=1, warmup=1)
+    return cuda_ms(fn, reps=5 if first > 50 else REPS, warmup=0)
+
+
+def check_gmm(dev, gen, calls) -> dict:
+    """gmm on the arguments each planned prefill gave it, in both shapes
+    (``wi`` / ``wg`` and ``wo``; timed beside the plain version and
+    ``torch.bmm``), and at the edge cases; returns its JSON record (``wi``
+    at the largest bucket)."""
+    err = 0.0
+    for name, x, w in gmm_edge_cases(gen, dev):
+        e = gmm_compare(x, w)
+        err = max(err, e)
+        phase("dbrx_serve-kernel", case=json.dumps(name),
+              x=json.dumps(list(x.shape)), w=json.dumps(list(w.shape)),
+              dtype=str(x.dtype).split(".")[1], max_abs_err=e)
+    record = None
+    for shape, (args, _kw) in sorted(calls.items(),
+                                     key=lambda kv: (kv[0][1], kv[0][2])):
+        x, w = args
+        e = gmm_compare(x, w)
+        err = max(err, e)
+        ms = slow_ms(lambda: gmm(x, w))
+        plain_ms = slow_ms(lambda: gmm_reference(x, w))
+        lib_ms = slow_ms(lambda: torch.bmm(x, w))
+        ne, c, d = x.shape
+        f = w.shape[2]
+        nbytes = x.element_size() * (ne * c * d + ne * d * f + ne * c * f)
+        nops = 2 * ne * c * d * f
+        rate = BF16_FLOPS if x.dtype == torch.bfloat16 else FP32_FLOPS
+        bound_ms, bound_by = bound(nbytes, nops, rate)
+        phase("dbrx_serve-kernel", name="gmm", shape="served",
+              x=json.dumps(list(x.shape)), w=json.dumps(list(w.shape)),
+              w_strides=json.dumps(list(w.stride())),
+              dtype=str(x.dtype).split(".")[1], max_abs_err=e, ms=ms,
+              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+              bound_by=bound_by, share_of_bound=bound_ms / ms,
+              tflops=nops / ms / 1e9, gb=nbytes / 1e9)
+        if d < f:                                  # wi / wg
+            record = {"name": "gmm", "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+                      "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:49",
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": lib_ms}
+        del x, w, args
+        torch.cuda.empty_cache()
+    check(record is not None, "dbrx_serve: no gmm call recorded")
+    record["max_abs_err"] = err
+    return record
+
+
+@contextlib.contextmanager
+def prefill_drops(rt, drops):
+    """Append to ``drops`` one entry per planned prefill: its bucket,
+    width and host time, and the assignments its MoE layers dropped
+    (``~keep``) of prompt tokens and of every token (pad rows and pad
+    tails included).  The ``keep`` masks are summed once the run is
+    over."""
+    slots, prefill, keeps = moe_layer.capacity_slots, rt._prefill, []
+
+    def record(flat_i, experts, cap):
+        keep, dest = slots(flat_i, experts, cap)
+        keeps.append(keep)
+        return keep, dest
+
+    def run(fwd, toks, ns):
+        keeps.clear()
+        t0 = time.perf_counter()
+        out = prefill(fwd, toks, ns)        # ends in a copy to the host
+        drops.append((toks.shape, ns.copy(), list(keeps),
+                      (time.perf_counter() - t0) * 1e3))
+        return out
+
+    moe_layer.capacity_slots, rt._prefill = record, run
+    try:
+        yield
+    finally:
+        moe_layer.capacity_slots = slots
+        del rt._prefill
+        for i, (shape, ns, ks, ms) in enumerate(drops):
+            real = (torch.arange(shape[1])[None, :]
+                    < torch.from_numpy(ns)[:, None]).to(ks[0].device)
+            per = [(~k.reshape(shape[0], shape[1], -1)) for k in ks]
+            drops[i] = {"bucket": shape[1], "width": shape[0],
+                        "prefill_ms": round(ms, 2),
+                        "prompt_drops": sum(int((d & real[..., None]).sum())
+                                            for d in per),
+                        "all_drops": sum(int(d.sum()) for d in per)}
+
+
+def first_logits_agree(model32, params, syscat, dev, req) -> float:
+    """The last prompt position's logits of the float32 planned
+    ``prefill_kv`` forward (the runtime's first token) and ``prefill``
+    forward (``serve_sequential``'s) on one request, within LOGIT_TOL;
+    returns the max abs error."""
+    bucket = bucket_len(req.prompt_len, hi=DBRX["max_seq"])
+    toks = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+    toks[0, :req.prompt_len] = torch.tensor(req.prompt)
+    last = []
+    for mode in ("prefill_kv", "prefill"):
+        fwd = plan_and_compile(model32.build_plan(1, bucket, mode=mode),
+                               CATALOG, syscat, engines=("xla", "pallas"),
+                               cache=False, device=dev)
+        out = fwd(params, {"tokens": toks})
+        logits = out[0] if isinstance(out, tuple) else out
+        last.append(logits[0, req.prompt_len - 1].float())
+        del out, logits
+    torch.testing.assert_close(last[0], last[1], atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)
+    return float((last[0] - last[1]).abs().max())
+
+
+def moe_impls_agree(calls) -> dict:
+    """``moe_gmm`` (the kernel) against ``moe_dense`` at capacity factor
+    2.0 on layer 0's float32 MoE input at the sub-trace's bucket 512: the
+    same dispatch, so ``keep`` and ``dest`` equal and the outputs within
+    the float32 tolerance (the kernel's FMA sums against cuBLAS's)."""
+    (args, kw), = [v for k, v in calls.items() if k[1] == DSUB["moe_bucket"]]
+    p, x = args
+    slots = {}
+    for fn in (moe_layer.moe_gmm, moe_layer.moe_dense):
+        got = []
+        with recording(moe_layer, "capacity_slots", got):
+            y = fn(p, x, **kw)
+        slots[fn.__name__] = (moe_layer.capacity_slots(*got[0]), y)
+    (kg, dg), yg = slots["moe_gmm"]
+    (kd, dd), yd = slots["moe_dense"]
+    check(torch.equal(kg, kd) and torch.equal(dg, dd),
+          "moe_gmm and moe_dense dispatch differently")
+    tol = GMM_TOL[torch.float32]
+    torch.testing.assert_close(yg, yd, atol=tol, rtol=tol)
+    return {"moe_gmm_vs_dense_max_abs_err": float((yg - yd).abs().max()),
+            "moe_gmm_vs_dense_drops": int((~kg).sum())}
+
+
+def dbrx_path(args, dev, syscat) -> list:
+    """Phases 23-26: dbrx-132b served at full width, 2 of its 40 layers.
+    Returns its kernels' records."""
+    path = "dbrx_serve"
+    t_path = time.perf_counter()
+    # 23. data: the model at full width from a seeded generator on the card
+    cfg = get_config(DBRX["arch"]).replace(n_layers=DBRX["n_layers"])
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [t for _k, t in _leaves(params)]
+    n_params = sum(int(t.numel()) for t in leaves)
+    phase("data", path=path, arch=cfg.name, family=cfg.family,
+          layers=cfg.n_layers, cut=json.dumps(DBRX["cut"]),
+          d_model=cfg.d_model, heads=cfg.heads, kv_heads=cfg.kv_heads,
+          head_dim=cfg.resolved_head_dim, experts=cfg.experts,
+          top_k=cfg.top_k, d_ff=cfg.d_ff, vocab=cfg.vocab, dtype=cfg.dtype,
+          param_dtype=cfg.param_dtype, params=n_params,
+          config_param_count=cfg.param_count(),   # without the norm scales
+          param_gb=round(sum(stored_bytes(t) for t in leaves) / 1e9, 3),
+          seconds=round(init_s, 3),
+          init_peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    del leaves
+
+    # 24. serve: the runtime through its entry points, the kernels'
+    # arguments and each prefill's drops recorded
+    t0 = time.perf_counter()
+    reqs = serve_trace(cfg, DBRX["prompt_lens"], DBRX["requests"],
+                       DBRX["gen"])
+    rt = serve_runtime(model, params, syscat, dev,
+                       max_batch=DBRX["max_batch"], max_seq=DBRX["max_seq"])
+    check(rt.kv_mode, "dbrx: the runtime is not in prefill_kv mode")
+    phase("data", path=path, after="inference_params",
+          mem_gb=round(torch.cuda.memory_allocated() / 1e9, 3),
+          peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    rt.warmup([r.prompt_len for r in reqs])
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    for bucket, fwd in sorted(rt._prefill_fns.items()):
+        outer, inner = bucket_impls(fwd)
+        check(inner["moe_gmm_pallas"] == 1
+              and inner["attn_flash_pallas"] == 1
+              and not {"moe_dropping", "moe_dense_onehot", "sdpa_xla"}
+              & set(inner), f"bucket {bucket}: impls {dict(inner)}")
+        phase("serve", path=path, bucket=bucket, plan_id=fwd.plan_id[:12],
+              impls=json.dumps(dict(outer)),
+              layer_impls=json.dumps(dict(inner)))
+    s0 = rt.pc.stats()
+    fwd0 = rt.registry.count("lm.prefill_forwards", 0)
+    secs = {"prefill": 0.0, "decode": 0.0}
+    rt._try_join = timed(rt._try_join, secs, "prefill")
+    rt._decode_tick = timed(rt._decode_tick, secs, "decode")
+    calls, flash_calls, drops = {}, {}, []
+    torch.cuda.reset_peak_memory_stats()
+    with recording_shapes(moe_layer, "grouped_matmul", calls), \
+            recording_shapes(attention_layer, "flash_attention",
+                             flash_calls), prefill_drops(rt, drops):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = rt.serve(reqs, timeout_s=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = kernels.launches()
+    forwards = rt.registry.count("lm.prefill_forwards", 0) - fwd0
+    s1 = rt.pc.stats()
+    hits, misses = s1["hits"] - s0["hits"], s1["misses"] - s0["misses"]
+    check([r.status for r in res] == ["ok"] * len(reqs),
+          f"dbrx serve statuses {[r.status for r in res]}")
+    check(all(len(r.tokens) == DBRX["gen"] for r in res),
+          "dbrx: a request generated the wrong number of tokens")
+    tokens = sum(len(r.tokens) for r in res)
+    occ = rt.pool.occupancy()
+    phase("serve", path=path, requests=len(reqs), wall_s=round(wall, 4),
+          warmup_s=round(warmup_s, 3), prefill_forwards=forwards,
+          launches=json.dumps({k: v for k, v in counted.items() if v}),
+          tokens=tokens, total_tok_s=tokens / wall,
+          decode_tok_s=sum(len(r.tokens) - 1 for r in res) / secs["decode"],
+          prefill_s=round(secs["prefill"], 4),
+          decode_s=round(secs["decode"], 4), ticks=rt.metrics.ticks,
+          ttft_ms=json.dumps([round(r.metrics.ttft_s * 1e3, 2)
+                              for r in res]),
+          prefill_ms=json.dumps([round(r.metrics.prefill_ms, 2)
+                                 for r in res]),
+          tpot_ms=json.dumps([round(r.metrics.tpot_s * 1e3, 3)
+                              for r in res]),
+          plan_hits_after_warmup=hits, plan_misses_after_warmup=misses,
+          pool_after=json.dumps(occ),
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
+          seconds=round(time.perf_counter() - t_path, 1))
+    phase("serve", path=path, prefills=json.dumps(drops))
+    # each prefill forward: 3 gmm launches in each MoE layer, one flash in
+    # each layer
+    moe_layers = cfg.n_layers // cfg.moe_every
+    expected = launch_counts(gmm=3 * moe_layers * forwards,
+                             flash_attention=cfg.n_layers * forwards)
+    check(counted == expected, f"dbrx launches {counted} != {expected}")
+    check(misses == 0 and hits >= len(reqs),
+          f"plan cache after warmup: {hits} hits, {misses} misses")
+    check(occ["slots_used"] == 0 and occ["pages_used"] == 0,
+          f"pool not drained: {occ}")
+    del rt, res
+    free_memory()
+    if args.profile:
+        rt = serve_runtime(model, params, syscat, dev,
+                           max_batch=DBRX["max_batch"],
+                           max_seq=DBRX["max_seq"])
+        rt.warmup([r.prompt_len for r in reqs])
+        profile_call(lambda: rt.serve(reqs, timeout_s=900), path)
+        del rt
+        free_memory()
+
+    # 25. kernel: against its plain version on the recorded arguments and
+    # at edge cases; flash on dbrx's (GQA 6, head_dim 128)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    records = [check_gmm(dev, gen, calls)]
+    del calls
+    torch.cuda.empty_cache()
+    records.append(check_flash_calls(flash_calls, path))
+    for rec in records:
+        rec["launches"] = counted[rec["name"]]
+        rec["path"] = path
+    del flash_calls
+    torch.cuda.empty_cache()
+    phase(f"{path}-kernel", seconds=round(time.perf_counter() - t0, 1))
+
+    # 26. check: a float32 sub-trace through the runtime against
+    # serve_sequential where its prefills dropped no prompt token;
+    # moe_gmm against moe_dense on layer 0's recorded input
+    t0 = time.perf_counter()
+    model32 = build_model(cfg.replace(dtype="float32"))
+    sub = serve_trace(cfg, DSUB["prompt_lens"], len(DSUB["prompt_lens"]),
+                      DSUB["gen"])
+    rt32 = serve_runtime(model32, params, syscat, dev,
+                         max_batch=DBRX["max_batch"],
+                         max_seq=DBRX["max_seq"])
+    rt32.warmup([r.prompt_len for r in sub])
+    moe_calls, sub_drops = {}, []
+    with recording_shapes(moe_layer, "moe_gmm", moe_calls, arg=1), \
+            prefill_drops(rt32, sub_drops):
+        res32 = rt32.serve(sub, timeout_s=900)
+    del rt32
+    free_memory()
+    seq = serve_sequential(model32, params, sub, max_seq=DBRX["max_seq"],
+                           engines=("xla", "pallas"), syscat=syscat,
+                           plan_cache=PlanCache(), device=dev)
+    check([r.status for r in res32] == ["ok"] * len(sub),
+          "dbrx float32 serve failed")
+    check(len(sub_drops) == len(sub), f"{len(sub_drops)} prefills for "
+                                      f"{len(sub)} requests")
+    # each request prefills alone, in its own bucket
+    compared = {}
+    for req, r, q in zip(sub, res32, seq):
+        (d,) = [d for d in sub_drops if d["bucket"] == r.metrics.bucket]
+        if d["prompt_drops"] == 0:
+            check(r.tokens == q.tokens, f"request {r.rid}: float32 runtime "
+                  f"and serve_sequential differ with no prompt drops")
+            compared[r.rid] = "tokens"
+        else:
+            err = first_logits_agree(model32, params, syscat, dev, req)
+            check(r.tokens[0] == q.tokens[0], f"request {r.rid}: first "
+                  f"tokens differ")
+            compared[r.rid] = f"first-token logits ({err})"
+    f32_s = time.perf_counter() - t0
+    agree = moe_impls_agree(moe_calls)
+    del moe_calls
+    torch.cuda.empty_cache()
+    graph_ms = check_decode_graph(model, params, dev, DBRX["max_batch"])
+    torch.cuda.empty_cache()
+    phase("check", path=path, launches_equal_layers_x_forwards=True,
+          decode_graph_bitwise_eager=True, **graph_ms,
+          plan_hit_rate_after_warmup=hits / (hits + misses),
+          f32_sub_drops=json.dumps(sub_drops),
+          f32_runtime_vs_sequential=json.dumps(compared),
+          f32_s=round(f32_s, 3), **agree,
+          cpu_check="left out: 31 GB of float32 parameters on the host",
+          seconds=round(time.perf_counter() - t0, 1))
+    del params, model, model32
+    torch.cuda.empty_cache()
+    return records
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1735,13 +2190,14 @@ def main(argv=None) -> int:
              ("qwen3_serve", serve_path)]
     paths += [(spec["path"], lambda a, d, s, arch=arch: recurrent_path(
         a, d, s, arch)) for arch, spec in RECURRENT.items()]
+    paths.append(("dbrx_serve", dbrx_path))
     for path, run in paths:
         t0 = time.perf_counter()
         records += run(args, dev, syscat)
-        torch.cuda.empty_cache()
+        free_memory()
         phase("time", path=path, seconds=round(time.perf_counter() - t0, 1))
 
-    # 15. results
+    # 27. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -6,12 +6,16 @@ execution context, the impl table over the port's own engine registry (the
 generic and the language-model impls live here; the store impls register
 from ``repro_torch.stores.runtime``), the fast ``run_plan`` path, and
 :class:`PlannedFunction`, the staged plan bound to a device.  The LM impls
-cover the dense, rwkv and hybrid families' prefill: ``scan_layers_xla``
-runs its subplan in a Python loop over the stacked per-layer parameters
-under ``torch.inference_mode()`` (``remat`` means nothing without a
-backward); ``attn_flash_pallas``, ``wkv6_pallas`` and ``ssd_pallas`` are the
-flash-attention, WKV6 and SSD kernels, ``wkv6_scan_xla`` and
-``ssd_chunked_xla`` the recurrences' chunked plain forms.  Planning is the
+cover the dense, moe, rwkv and hybrid families' prefill:
+``scan_layers_xla`` runs its subplan in a Python loop over the stacked
+per-layer parameters under ``torch.inference_mode()`` (``remat`` means
+nothing without a backward); ``attn_flash_pallas``, ``moe_gmm_pallas``,
+``wkv6_pallas`` and ``ssd_pallas`` are the flash-attention, grouped expert
+matmul, WKV6 and SSD kernels, ``moe_dense_onehot`` and ``moe_dropping``
+the capacity dispatch with einsum experts (cf 2.0 and 1.0),
+``wkv6_scan_xla`` and ``ssd_chunked_xla`` the recurrences' chunked plain
+forms.  The moe impls ignore the ``pin_moe`` attr: the reference's
+sharding constraints have no counterpart on one card.  Planning is the
 copied staged pipeline, so a plan id here equals the reference package's
 for the same analysis and catalogs.
 
@@ -35,6 +39,7 @@ from ..layers import attention as A
 from ..layers import embedding as E
 from ..layers import mamba as M
 from ..layers import mlp as F
+from ..layers import moe as X
 from ..layers import rwkv as R
 from ..layers.common import layer_slice, rmsnorm, torch_dtype
 
@@ -253,6 +258,28 @@ def _i_mlp(ctx, args, node):
     return F.mlp_fused(ctx.params_for(node), args[0],
                        gated=node.attrs.get("gated", True),
                        act=node.attrs.get("act"))
+
+
+@impl("moe_dense_onehot")
+def _i_moe_dense(ctx, args, node):
+    a = node.attrs
+    return X.moe_dense(ctx.params_for(node), args[0], top_k=a["top_k"],
+                       experts=a["experts"], act=a.get("act", "silu"),
+                       capacity_factor=a.get("capacity_factor", 2.0))
+
+
+@impl("moe_dropping")
+def _i_moe_drop(ctx, args, node):
+    a = node.attrs
+    return X.moe_dropping(ctx.params_for(node), args[0], top_k=a["top_k"],
+                          experts=a["experts"], act=a.get("act", "silu"))
+
+
+@impl("moe_gmm_pallas", engine="pallas")
+def _i_moe_gmm(ctx, args, node):
+    a = node.attrs
+    return X.moe_gmm(ctx.params_for(node), args[0], top_k=a["top_k"],
+                     experts=a["experts"], act=a.get("act", "silu"))
 
 
 @impl("wkv6_scan_xla")

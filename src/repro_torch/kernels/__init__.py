@@ -18,7 +18,10 @@
     ``wkv6_pallas`` (``csrc/wkv6.cu``);
   * :func:`ssd.ssd` — the Mamba2 SSD scan, zamba2-7b's ``ssd_pallas``
     (``csrc/ssd.cu``).  The package attributes ``wkv6`` and ``ssd`` stay
-    the modules.
+    the modules;
+  * :func:`moe_gmm.gmm` — the grouped expert matmul, the MoE family's
+    ``moe_gmm_pallas`` (``csrc/moe_gmm.cu``); the package attribute
+    ``moe_gmm`` stays the module.
 
 Sources build with ``nvcc`` for ``sm_90a`` at first use (:mod:`.build`).
 """
@@ -29,12 +32,13 @@ from .masked_kernels import (compact_prefix, compact_prefix_plain, join_probe,
                              join_probe_plain, masked_segment_agg,
                              masked_segment_agg_plain, masked_tfidf,
                              masked_tfidf_plain)
+from . import moe_gmm as _moe_gmm
 from . import ssd as _ssd
 from . import wkv6 as _wkv6
 
 KERNELS = (scatter_add, masked_segment_agg, masked_tfidf, join_probe,
            compact_prefix, _flash_attention.flash_attention, _wkv6.wkv6,
-           _ssd.ssd)
+           _ssd.ssd, _moe_gmm.gmm)
 
 
 def reset_launches() -> None:

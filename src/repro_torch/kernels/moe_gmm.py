@@ -1,0 +1,93 @@
+"""Grouped expert matmul: the CUDA kernel and its plain version.
+
+After the MoE capacity dispatch the tokens are grouped by expert, x (E, C,
+D), and each expert has its weight w (E, D, F):
+
+    out[e] = x[e] @ w[e]            (E, C, F), in x's dtype
+
+with a float32 sum rounded once to x's dtype.
+
+  * :func:`gmm` — the kernel ``csrc/moe_gmm.cu`` (it replaces the
+    reference's Pallas ``gmm``; its source note gives the design and the
+    bound).  CUDA tensors only: anything else raises.  It takes the true
+    C, D and F and the operands' strides: nothing is padded or copied, so
+    a layer's slice of the stacked weight tree is read in place.
+  * :func:`gmm_reference` — the plain version (the reference's
+    ``ref.gmm_reference``): a float32 einsum cast back to x's dtype.
+  * :func:`grouped_matmul` — the dispatch the MoE layer calls (the
+    reference's ``ops.grouped_matmul``): the kernel for CUDA tensors,
+    :func:`gmm_reference` for CPU tensors.
+
+No gradient yet: the reference's backward is the VJP of
+``gmm_reference`` and comes with the training slice.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def gmm_reference(x, w):
+    """x (E, C, D) @ w (E, D, F) -> (E, C, F): float32 einsum, cast back to
+    x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def _kernel(lib):
+    fn = lib.gmm_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, w):
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError("gmm: x and w must lie on one CUDA device, got "
+                         f"{x.device} and {w.device}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError("gmm: needs float32 or bfloat16 x and w of one "
+                        f"dtype, got {x.dtype} and {w.dtype}")
+    if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
+            or w.shape[1] != x.shape[2]:
+        raise ValueError(f"gmm: needs x (E, C, D) and w (E, D, F), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.shape[0] > 65535:
+        raise ValueError(f"gmm: {x.shape[0]} experts above 65535")
+
+
+def gmm(x, w):
+    """x (E, C, D) @ w (E, D, F) -> (E, C, F) in x's dtype: the CUDA
+    kernel.  Raises on anything but CUDA tensors of one float32 or
+    bfloat16 dtype."""
+    _check(x, w)
+    e, c, d = x.shape
+    f = w.shape[2]
+    out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = _kernel(build.load("moe_gmm"))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                   _DTYPES[x.dtype], e, c, d, f, *x.stride(), *w.stride(),
+                   stream), "gmm")
+    gmm.launches += 1
+    return out
+
+
+gmm.launches = 0
+
+
+def grouped_matmul(x, w):
+    """The MoE layer's expert matmul: :func:`gmm` for CUDA tensors,
+    :func:`gmm_reference` for CPU tensors.  Unlike the reference's
+    ``ops.grouped_matmul`` nothing is padded: the kernel masks the true
+    sizes."""
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return gmm_reference(x, w)
+    return gmm(x, w)

@@ -13,6 +13,7 @@ CPU-scale demo:
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu \
       --requests 8 --gen 16 --max-batch 4
   python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch dbrx-132b --smoke --device cpu
 """
 from __future__ import annotations
 

@@ -1,16 +1,17 @@
 """Serving path: cache construction, single-token decode, and seeding a
 cache from a ``prefill_kv`` plan's outputs.
 
-The port of the reference's ``models/decode.py`` for attention, rwkv and
-mamba blocks.  The cache is a dict ``{group: {leaf: (count, B, ...)}}``,
-the reference's layout: attention K/V ``b{i}_k``, ``b{i}_v`` (count, B, S,
-KV, D) in the model's dtype; an rwkv block's float32 WKV state ``b{i}_state``
-(count, B, H, D, D) and last inputs ``b{i}_last_tm``, ``b{i}_last_cm``; a
-mamba block's float32 SSD state ``b{i}_state`` (count, B, heads, N, P) and
-conv inputs ``b{i}_conv`` (count, B, 3, inner + 2N).  Unlike the reference,
-whose JAX arrays are immutable, every function here writes the cache **in
-place** (``copy_`` into every leaf) and returns the same dict: a CUDA graph
-of the step (:class:`DecodeGraph`) replays into the same buffers.
+The port of the reference's ``models/decode.py`` for attention (with an
+mlp or a mixture-of-experts), rwkv and mamba blocks.  The cache is a dict
+``{group: {leaf: (count, B, ...)}}``, the reference's layout: attention
+K/V ``b{i}_k``, ``b{i}_v`` (count, B, S, KV, D) in the model's dtype; an
+rwkv block's float32 WKV state ``b{i}_state`` (count, B, H, D, D) and last
+inputs ``b{i}_last_tm``, ``b{i}_last_cm``; a mamba block's float32 SSD
+state ``b{i}_state`` (count, B, heads, N, P) and conv inputs ``b{i}_conv``
+(count, B, 3, inner + 2N).  Unlike the reference, whose JAX arrays are
+immutable, every function here writes the cache **in place** (``copy_``
+into every leaf) and returns the same dict: a CUDA graph of the step
+(:class:`DecodeGraph`) replays into the same buffers.
 Ring-buffer local caches, int8 KV and TP-replicated KV heads wait for the
 gemma3 slice.
 """
@@ -24,6 +25,7 @@ from ..layers import attention as A
 from ..layers import embedding as E
 from ..layers import mamba as M
 from ..layers import mlp as F
+from ..layers import moe as X
 from ..layers import rwkv as R
 from ..layers.common import layer_slice, rmsnorm, rope_apply, rope_tables
 from .lm import LM, Block, _mamba_cfg
@@ -110,11 +112,15 @@ def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, root, x, lc,
     ``root["shared"]``); ``lc`` the layer's cache leaves, each written in
     place."""
     pre = f"b{i}"
-    if blk.kind == "attn_mlp" and not blk.cross:
+    if blk.kind in ("attn_mlp", "attn_moe") and not blk.cross:
         h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
         x = x + _decode_attn(p[f"{pre}_attn"], h, lc[f"{pre}_k"],
                              lc[f"{pre}_v"], cfg, blk.window, step)
         h = rmsnorm(x, p[f"{pre}_ln2"]["scale"])
+        if blk.kind == "attn_moe":
+            # capacity dispatch at s = 1: cap 8 a row, never drops
+            return x + X.moe_dense(p[f"{pre}_moe"], h, top_k=cfg.top_k,
+                                   experts=cfg.experts, act=cfg.act)
         return x + F.mlp_fused(p[f"{pre}_mlp"], h, gated=cfg.gated,
                                act=cfg.act)
     if blk.kind == "rwkv":

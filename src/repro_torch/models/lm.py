@@ -2,6 +2,7 @@
 ``prefill_kv`` and training shapes) and its parameters.
 
 The port of the reference's ``models/lm.py`` for the ``dense`` (qwen3-0.6b),
+``moe`` (dbrx-132b, llama4-maverick: attention + mixture-of-experts blocks),
 ``rwkv`` (rwkv6-3b) and ``hybrid`` (zamba2-7b: mamba blocks and a
 weight-shared attention block) families.  The plan builders are the
 reference's node for node, so a plan's id equals the reference's under an
@@ -24,15 +25,18 @@ from ..layers import attention as A
 from ..layers import embedding as E
 from ..layers import mamba as M
 from ..layers import mlp as F
+from ..layers import moe as X
 from ..layers import rwkv as R
 from ..layers.common import stack_params, torch_dtype
 
 CATALOG = standard_catalog()
 # the parameters the layers cast to the activation dtype at every call
-# (``.astype(x.dtype)`` in the reference): attention and mlp projections,
-# the rwkv time and channel mixes' projections, decay LoRA and token-shift
-# mixes, the mamba block's projections, conv and skip.  ``w0``, ``u``,
-# ``a_log``, ``dt_bias`` and every norm scale are read in float32.
+# (``.astype(x.dtype)`` in the reference): attention and mlp projections
+# (the moe block's expert weights ``wi``, ``wg``, ``wo`` too), the rwkv
+# time and channel mixes' projections, decay LoRA and token-shift mixes,
+# the mamba block's projections, conv and skip.  ``w0``, ``u``, ``a_log``,
+# ``dt_bias``, the moe ``router`` and every norm scale are read in
+# float32.
 _CAST = frozenset(("wq", "wk", "wv", "wo", "wi", "wg",
                    "wr", "wA", "wB", "mu",
                    "w_in", "conv", "d_skip", "w_out"))
@@ -44,7 +48,7 @@ _CAST = frozenset(("wq", "wk", "wv", "wo", "wi", "wg",
 
 @dataclass(frozen=True)
 class Block:
-    kind: str              # attn_mlp | rwkv | mamba | shared_attn
+    kind: str              # attn_mlp | attn_moe | rwkv | mamba | shared_attn
     window: int = 0        # 0 = global attention
     causal: bool = True
     cross: bool = False    # decoder block with cross-attention
@@ -70,11 +74,21 @@ def layer_groups(cfg: ModelConfig) -> list:
         if rem:
             groups.append(Group("layers_1", rem, (Block("mamba"),)))
         return groups
+    if cfg.family == "moe":
+        if cfg.moe_every > 1:
+            sup = tuple([Block("attn_mlp")] * (cfg.moe_every - 1)
+                        + [Block("attn_moe")])
+            n_sup, rem = divmod(cfg.n_layers, cfg.moe_every)
+            groups = [Group("layers_0", n_sup, sup)]
+            if rem:
+                groups.append(Group("layers_1", rem, (Block("attn_mlp"),)))
+            return groups
+        return [Group("layers_0", cfg.n_layers, (Block("attn_moe"),))]
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"§1, the LM stack); the port runs the dense, rwkv and hybrid "
-            f"families")
+            f"§1, the LM stack); the port runs the dense, moe, rwkv and "
+            f"hybrid families")
     if cfg.local_ratio > 0:
         period = cfg.local_ratio + 1
         sup = tuple([Block("attn_mlp", window=cfg.window)] * cfg.local_ratio
@@ -109,15 +123,19 @@ def _init_block(gen, cfg: ModelConfig, block: Block, i: int, dtype):
     e = cfg.d_model
     zeros = lambda: {"scale": torch.zeros(  # noqa: E731
         (e,), dtype=dtype, device=gen.device)}
-    if block.kind == "attn_mlp":
-        return {
-            f"b{i}_ln1": zeros(),
-            f"b{i}_attn": A.init_attention(gen, _attn_cfg(cfg), dtype),
-            f"b{i}_ln2": zeros(),
-            f"b{i}_mlp": F.init_mlp(
+    if block.kind in ("attn_mlp", "attn_moe"):
+        p = {f"b{i}_ln1": zeros(),
+             f"b{i}_attn": A.init_attention(gen, _attn_cfg(cfg), dtype),
+             f"b{i}_ln2": zeros()}
+        if block.kind == "attn_moe":
+            p[f"b{i}_moe"] = X.init_moe(
+                gen, {"embed": e, "ffn": cfg.d_ff, "experts": cfg.experts},
+                dtype)
+        else:
+            p[f"b{i}_mlp"] = F.init_mlp(
                 gen, {"embed": e, "ffn": cfg.d_ff, "gated": cfg.gated},
-                dtype),
-        }
+                dtype)
+        return p
     if block.kind == "rwkv":
         return {
             f"b{i}_ln1": zeros(),
@@ -194,12 +212,13 @@ class LM:
 
     def inference_params(self, params: dict) -> dict:
         """``params`` with every parameter the layers cast per call (the
-        ``_CAST`` names: projections, the rwkv mixes and LoRA, the mamba
-        conv and skip) cast to the activation dtype once.  The reference
-        casts them per call (``w.astype(x.dtype)``); the values are the
-        same, without a cast of every matrix at every step.  Norm scales,
-        the embedding table and the parameters the layers read in float32
-        (``w0``, ``u``, ``a_log``, ``dt_bias``) keep their dtype."""
+        ``_CAST`` names: projections and expert weights, the rwkv mixes and
+        LoRA, the mamba conv and skip) cast to the activation dtype once.
+        The reference casts them per call (``w.astype(x.dtype)``); the
+        values are the same, without a cast of every matrix at every step.
+        Norm scales, the embedding table and the parameters the layers read
+        in float32 (``w0``, ``u``, ``a_log``, ``dt_bias``, the moe
+        ``router``) keep their dtype."""
         def cast(tree):
             return {k: cast(v) if isinstance(v, dict)
                     else v.to(self.dtype) if k in _CAST else v
@@ -217,7 +236,7 @@ class LM:
         def norm(src, name):
             return sub.add("rmsnorm", [src], {"pp": (f"{pp}_{name}",)})
 
-        if blk.kind == "attn_mlp":
+        if blk.kind in ("attn_mlp", "attn_moe"):
             h = norm(x, "ln1")
             att = sub.add("attention", [h], {
                 "pp": (f"{pp}_attn",), **_attn_cfg(cfg),
@@ -226,10 +245,17 @@ class LM:
                 **({"emit_kv": True} if emit_kv else {})})
             x = sub.add("residual_add", [x, att])
             h = norm(x, "ln2")
-            m = sub.add("mlp", [h], {
-                "pp": (f"{pp}_mlp",), "ffn": cfg.d_ff,
-                "gated": cfg.gated, "act": cfg.act,
-                "embed": cfg.d_model})
+            if blk.kind == "attn_moe":
+                m = sub.add("moe", [h], {
+                    "pp": (f"{pp}_moe",), "ffn": cfg.d_ff,
+                    "experts": cfg.experts, "top_k": cfg.top_k,
+                    "act": cfg.act, "embed": cfg.d_model,
+                    "pin_moe": cfg.pin_moe_layout})
+            else:
+                m = sub.add("mlp", [h], {
+                    "pp": (f"{pp}_mlp",), "ffn": cfg.d_ff,
+                    "gated": cfg.gated, "act": cfg.act,
+                    "embed": cfg.d_model})
             return sub.add("residual_add", [x, m])
         if blk.kind == "rwkv":
             h = norm(x, "ln1")

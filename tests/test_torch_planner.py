@@ -82,11 +82,15 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.build\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.wkv6, repro_torch.kernels.ssd\n"
+        "import repro_torch.kernels.moe_gmm\n"
         "import repro_torch.configs, repro_torch.configs.qwen3_0_6b\n"
         "import repro_torch.configs.rwkv6_3b, repro_torch.configs.zamba2_7b\n"
+        "import repro_torch.configs.dbrx_132b\n"
+        "import repro_torch.configs.llama4_maverick_400b_a17b\n"
         "import repro_torch.layers.common, repro_torch.layers.embedding\n"
         "import repro_torch.layers.mlp, repro_torch.layers.attention\n"
         "import repro_torch.layers.rwkv, repro_torch.layers.mamba\n"
+        "import repro_torch.layers.moe\n"
         "import repro_torch.models, repro_torch.models.lm\n"
         "import repro_torch.models.decode\n"
         "import repro_torch.serving, repro_torch.serving.admission\n"

@@ -12,7 +12,10 @@ package.  Phases, one line each; any failure raises and exits non-zero:
   1. device   — the card's name and power limit (``nvidia-smi``), PyTorch
      and CUDA versions; fails without a card;
   2. build    — every CUDA kernel of ``src/repro_torch/kernels/csrc``, one
-     ``nvcc`` each, all started together;
+     ``nvcc`` each, all started together; ``ptxas -v``'s registers, and
+     the count of HGMMA (``wgmma``) instructions in each library's SASS
+     (``cuobjdump -sass``): flash_attention and moe_gmm must have some and
+     no spills;
 
   ``hashtag_pulse`` (tri-model analysis, slice 1):
 
@@ -61,9 +64,12 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      the prompts' pad tails built as the runtime builds them, and batch 1,
      the shape warmup also runs) and at edge cases
      (float32, non-causal, window, ragged lengths, q_len < kv_len, MQA,
-     fully-masked rows, the heads-major entry); CUDA-event medians of the
-     kernel, the plain version and ``scaled_dot_product_attention`` (timed
-     only, never called by the port), beside the bound;
+     fully-masked rows, the heads-major entry, head_dim 160 and 256 in
+     both dtypes, 72 and 112 with GQA 6 in bfloat16); CUDA-event medians
+     of the kernel, the plain version and ``scaled_dot_product_attention``
+     (timed only, never called by the port), beside the bound; also
+     stablelm-12b's prefill shape (4 x 2048, 32 / 8 heads of 160), which
+     no path here serves;
  13. serve    — ``AsyncServingRuntime`` (engines xla + pallas, 4 decode
      slots, max_seq 2048, page size 16) on 8 requests of 100 / 500 / 1000 /
      2000 prompt tokens, 32 generated each: warmup, then serve with the
@@ -144,9 +150,11 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      the card on the very arguments each bucket's planned prefill gave it,
      in both shapes (``wi`` / ``wg``: (16, C, 6144) @ (16, 6144, 10752);
      ``wo``: (16, C, 10752) @ (16, 10752, 6144); C = width x capacity), and
-     at edge cases (float32; C, D and F no multiple of a tile: 20, 12, 28;
-     E = 1; all-zero capacity rows; a weight view at an offset in a stacked
-     tree; a non-contiguous x); CUDA-event medians (5 launches where one
+     at edge cases (float32; C, D and F no multiple of a tile: 20, 12, 28
+     and 300, 1000, 600; E = 1; C = 1; all-zero capacity rows; a weight
+     view at an offset in a stacked tree, read in place, and one 8 bytes
+     off the TMA alignment, copied first; a non-contiguous x); CUDA-event
+     medians (5 launches where one
      takes over 50 ms) of the kernel, the plain version and ``torch.bmm``
      (timed only, never called by the port) beside the bound, which counts
      every capacity slot (E x C rows) the kernel computes.  Flash attention
@@ -174,10 +182,10 @@ package.  Phases, one line each; any failure raises and exits non-zero:
  27. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 With ``--profile`` it also runs each path's default plan (a second serve
-of the qwen3 and dbrx traces; for each recurrent family a serve of one
-request of 100 prompt tokens) once under ``torch.profiler`` and prints the
-device time of the 15 costliest kernels and the device's idle share of
-that run.
+of the qwen3 and dbrx traces on the same runtime; for each recurrent
+family a serve of one request of 100 prompt tokens) once under
+``torch.profiler`` and prints the device time of the 15 costliest kernels
+and the device's idle share of that run.
 
 Tolerances: counts, ids and top-k order exact; float sums
 ``rtol=1e-5, atol=1e-6`` (atomics add in a run-dependent order).  Flash
@@ -189,7 +197,10 @@ v an output row over n keys has a spread of about sqrt(e / n), 0.05 at
 n = 2048, so 0.16 would pass a kernel that drops a key tile or reads
 another row's K/V.  Both sides round one float32 result to bfloat16, so
 they differ by about one bfloat16 ulp (0.0039 at |x| ~ 1), which 1e-2
-still clears.
+still clears; the tensor-core kernel's one further rounding (P to
+bfloat16 before P V) moves the float32 result by at most ~2e-3 at the
+served shape (``tests/test_torch_flash_attention.py::
+test_p_rounding_stays_inside_bfloat16_tolerance``).
 Logits card against CPU: ``2e-3`` absolute and relative (float32 end to
 end; cuBLAS and the kernel against MKL and the plain softmax, summed in
 other orders through 28 layers); the same for the kernel's prefill
@@ -209,6 +220,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -362,6 +374,27 @@ WINDOW_PLANS = {
         "graph_expand_pallas": 1, "residual_add_xla": 1, "store": 1}),
         launch_counts(scatter_add=2)),
 }
+
+
+# the kernels whose bfloat16 path runs on wgmma: their SASS must hold
+# HGMMA instructions and ptxas must report no spills
+TENSOR_CORE_KERNELS = ("flash_attention", "moe_gmm")
+
+
+def sass_counts(opcode) -> dict:
+    """How often ``opcode`` appears in each built library's SASS, from the
+    toolkit's ``cuobjdump -sass`` (or Triton's copy of it)."""
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        import triton
+        tool = Path(triton.__file__).parent / "backends/nvidia/bin/cuobjdump"
+    out = {}
+    for name in build.sources():
+        sass = subprocess.run([str(tool), "-sass", str(build.lib_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        out[name] = len(re.findall(rf"\b{opcode}\b", sass))
+    return out
 
 
 def check(cond, msg):
@@ -1073,7 +1106,21 @@ FLASH_EDGES = (
      False),
     ("heads-major entry", 2, 300, 300, 16, 8, 128, torch.bfloat16, True, 0,
      True),
+    # the head dims the tensor-core kernel pads: 160 -> 192, 256, 72 -> 128
+    # (a depth that is no multiple of 16), 112 -> 128 with GQA 6
+    ("head_dim 160", 1, 300, 300, 8, 2, 160, torch.bfloat16, True, 0, False),
+    ("head_dim 160 float32", 1, 300, 300, 8, 2, 160, torch.float32, True, 0,
+     False),
+    ("head_dim 256", 1, 300, 300, 8, 2, 256, torch.bfloat16, True, 0, False),
+    ("head_dim 256 float32 window", 1, 300, 300, 8, 2, 256, torch.float32,
+     True, 40, False),
+    ("head_dim 72", 1, 300, 300, 4, 2, 72, torch.bfloat16, True, 0, False),
+    ("head_dim 112 GQA 6", 1, 300, 300, 12, 2, 112, torch.bfloat16, True, 0,
+     False),
 )
+# stablelm-12b's prefill at width 4 and bucket 2048 (32 / 8 heads of 160):
+# timed beside SDPA, not served here
+STABLELM_FLASH = (4, 2048, 32, 8, 160)
 
 
 def check_flash(dev, gen, cfg, batched_width) -> dict:
@@ -1138,6 +1185,24 @@ def check_flash(dev, gen, cfg, batched_width) -> dict:
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": lib_ms}
             del q, k, v, qh, kh, vh
+    b, s, h, kvh, d = STABLELM_FLASH
+    q, k, v = flash_inputs(gen, dev, b, s, s, h, kvh, d, torch.bfloat16)
+    e = flash_compare(q, k, v)
+    err = max(err, e)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True))
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True))
+    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d)
+    nops = 4 * b * h * d * attention_pairs(s, s, True, 0)
+    bound_ms, bound_by = bound(nbytes, nops, BF16_FLOPS)
+    phase("serve-kernel", name="flash_attention", shape="stablelm-12b", b=b,
+          seq=s, heads=h, kv_heads=kvh, head_dim=d, dtype="bfloat16",
+          causal=True, max_abs_err=e, ms=ms, plain_ms=plain_ms,
+          library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+          share_of_bound=bound_ms / ms, tflops=nops / ms / 1e9)
+    del q, k, v, qh, kh, vh
     record["max_abs_err"] = err
     return record
 
@@ -1260,12 +1325,8 @@ def serve_path(args, dev, syscat) -> list:
     record["launches"] = counted["flash_attention"]
     record["path"] = "qwen3_serve"
     if args.profile:
-        rt2 = serve_runtime(model, params, syscat, dev,
-                            max_batch=SERVE["max_batch"],
-                            max_seq=SERVE["max_seq"])
-        rt2.warmup([r.prompt_len for r in reqs])
-        profile_call(lambda: rt2.serve(reqs, timeout_s=600), "qwen3_serve")
-        del rt2
+        # the same runtime serves the trace again (its requests are reset)
+        profile_call(lambda: rt.serve(reqs, timeout_s=600), "qwen3_serve")
 
     # 14. checks
     check(counted == launch_counts(flash_attention=cfg.n_layers * forwards),
@@ -1709,15 +1770,10 @@ def recurrent_path(args, dev, syscat, arch) -> list:
     check(occ["slots_used"] == 0 and occ["pages_used"] == 0,
           f"pool not drained: {occ}")
     if args.profile:
-        # one request (prompt 100): the full trace's ~3,600 replayed steps
-        # of thousands of kernels each would swamp the profiler
-        del rt
-        torch.cuda.empty_cache()
+        # one request (prompt 100) on the same runtime: the full trace's
+        # ~3,600 replayed steps of thousands of kernels each would swamp
+        # the profiler
         one = serve_trace(cfg, RSERVE["prompt_lens"][:1], 1, RSERVE["gen"])
-        rt = serve_runtime(model, params, syscat, dev,
-                           max_batch=RSERVE["max_batch"],
-                           max_seq=RSERVE["max_seq"])
-        rt.warmup([r.prompt_len for r in one])
         profile_call(lambda: rt.serve(one, timeout_s=900), path)
     del rt, res
     torch.cuda.empty_cache()
@@ -1786,10 +1842,11 @@ def gmm_inputs(gen, dev, e, c, d, f, dtype):
 
 
 def gmm_edge_cases(gen, dev):
-    """(name, x, w): float32, ragged C / D / F, E = 1, all-zero capacity
-    rows, a weight view at an offset in a stacked tree and a
-    non-contiguous x (bfloat16 too, where the kernel takes its
-    element-wise loads)."""
+    """(name, x, w): float32, ragged C / D / F (no multiple of the bfloat16
+    kernel's 128 / 64 / 256 tiles), E = 1, C = 1, all-zero capacity rows,
+    a weight view at an offset in a stacked tree (at 8 elements, read in
+    place; at 4, 8 bytes off the TMA alignment, copied first) and a
+    non-contiguous x (copied first in bfloat16)."""
     cases = [("float32 4 x 20 x 12 x 28",
               *gmm_inputs(gen, dev, 4, 20, 12, 28, torch.float32)),
              ("bfloat16 4 x 20 x 12 x 28",
@@ -1797,7 +1854,17 @@ def gmm_edge_cases(gen, dev):
              ("E = 1, 33 x 40 x 17",
               *gmm_inputs(gen, dev, 1, 33, 40, 17, torch.bfloat16)),
              ("float32 16 x 300 x 6144 x 200",
-              *gmm_inputs(gen, dev, 16, 300, 6144, 200, torch.float32))]
+              *gmm_inputs(gen, dev, 16, 300, 6144, 200, torch.float32)),
+             ("bfloat16 16 x 300 x 1000 x 600",
+              *gmm_inputs(gen, dev, 16, 300, 1000, 600, torch.bfloat16)),
+             ("C = 1, 3 x 1 x 256 x 520",
+              *gmm_inputs(gen, dev, 3, 1, 256, 520, torch.bfloat16))]
+    stacked = torch.randn(2, 4, 264, 400, generator=gen,
+                          device=dev).to(torch.bfloat16)
+    x = torch.randn(4, 130, 264, generator=gen, device=dev).to(
+        torch.bfloat16)
+    cases.append(("bfloat16 w view at 4 (copied)", x,
+                  stacked[1, :, :, 4:388]))
     x, w = gmm_inputs(gen, dev, 16, 256, 512, 384, torch.bfloat16)
     x[:, 100:] = 0.0
     cases.append(("all-zero capacity rows", x, w))
@@ -2069,16 +2136,11 @@ def dbrx_path(args, dev, syscat) -> list:
           f"plan cache after warmup: {hits} hits, {misses} misses")
     check(occ["slots_used"] == 0 and occ["pages_used"] == 0,
           f"pool not drained: {occ}")
+    if args.profile:
+        # the same runtime serves the trace again (its requests are reset)
+        profile_call(lambda: rt.serve(reqs, timeout_s=900), path)
     del rt, res
     free_memory()
-    if args.profile:
-        rt = serve_runtime(model, params, syscat, dev,
-                           max_batch=DBRX["max_batch"],
-                           max_seq=DBRX["max_seq"])
-        rt.warmup([r.prompt_len for r in reqs])
-        profile_call(lambda: rt.serve(reqs, timeout_s=900), path)
-        del rt
-        free_memory()
 
     # 25. kernel: against its plain version on the recorded arguments and
     # at edge cases; flash on dbrx's (GQA 6, head_dim 128)
@@ -2182,6 +2244,15 @@ def main(argv=None) -> int:
             for ln in log.splitlines() if "registers" in ln]
     phase("build", seconds=round(built["seconds"], 3),
           kernels=",".join(built["logs"]), ptxas=json.dumps(regs))
+    hgmma = sass_counts("HGMMA")
+    phase("build", hgmma=json.dumps(hgmma))
+    for lib in TENSOR_CORE_KERNELS:
+        check(hgmma[lib] > 0, f"{lib}: no HGMMA instruction in its SASS")
+        spills = [ln.strip() for ln in built["logs"][lib].splitlines()
+                  if "spill" in ln and not ln.strip().startswith(
+                      "0 bytes stack frame, 0 bytes spill stores, "
+                      "0 bytes spill loads")]
+        check(not spills, f"{lib}: ptxas reports spills {spills}")
 
     syscat = SystemCatalog(hardware=hardware_for_device(name))
     records = []

@@ -46,7 +46,9 @@ def nvcc_path() -> str:
                        "to build the port's CUDA kernels")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """The library file of kernel ``name``: its name carries the hash of
+    the source, the shared headers and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + headers +
@@ -56,7 +58,7 @@ def _lib_path(name: str) -> Path:
 
 def _start(name: str):
     """Start the nvcc of one kernel; None when its library is built."""
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -95,7 +97,7 @@ def load(name: str) -> ctypes.CDLL:
             job = _start(name)
             if job is not None:
                 _finish(name, job)
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name)))
             _LIBS[name] = lib
         return lib
 

@@ -1,9 +1,12 @@
 """Flash attention: blocked online-softmax attention with causal, sliding
 window and GQA masks.
 
-Two entry points launch the one CUDA kernel ``csrc/flash_attention.cu``
-(which replaces the reference's Pallas ``_attn_kernel``; its source note
-gives the design and the bound):
+Two entry points launch the CUDA kernels of ``csrc/flash_attention.cu``
+(which replace the reference's Pallas ``_attn_kernel``; the source note
+gives the design and the bound): bfloat16 runs on the tensor cores
+(``wgmma`` with TMA tile loads), float32 on exact SIMT FMAs.  Any head_dim
+that is a multiple of 8 up to :data:`MAX_HEAD_DIM` = 256 is taken in both
+dtypes:
 
   * :func:`flash_attention_hmajor` takes the heads-major layout, q (B, H,
     Sq, D) against k, v (B, K, Skv, D) — the reference's
@@ -38,7 +41,7 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 def attention_mask(q_len: int, kv_len: int, *, causal: bool, window: int,
@@ -88,7 +91,8 @@ def _kernel(lib):
 
 
 def _aligned(t):
-    """A tensor the kernel reads in 16-byte rows of 8 elements: unit
+    """A tensor the kernel reads in 16-byte rows of 8 elements (and the
+    bfloat16 kernel through TMA tensor maps, which need the same): unit
     stride on the head dim, every other stride a multiple of 8 elements,
     a 16-byte-aligned base; else a contiguous copy."""
     ok = (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
@@ -100,10 +104,6 @@ def _launch(qh, kh, vh, oh, *, causal, window, sm_scale) -> None:
     """Launch the kernel on heads-major views: qh/oh (B, H, Sq, D), kh/vh
     (B, K, Skv, D), any strides with a unit head-dim stride."""
     tensors = (qh, kh, vh, oh)
-    dev = qh.device
-    if any(t.device != dev for t in tensors) or dev.type != "cuda":
-        raise ValueError("flash_attention: q, k, v must lie on one CUDA "
-                         f"device, got {[str(t.device) for t in tensors]}")
     if qh.dtype not in _DTYPES or any(t.dtype != qh.dtype for t in tensors):
         raise TypeError("flash_attention: needs float32 or bfloat16 q, k, v "
                         f"of one dtype, got {[t.dtype for t in tensors]}")
@@ -111,12 +111,17 @@ def _launch(qh, kh, vh, oh, *, causal, window, sm_scale) -> None:
     bk, kvh, skv, dk = kh.shape
     if (bk != b or dk != d or vh.shape != kh.shape or h % kvh
             or d % 8 or not 8 <= d <= MAX_HEAD_DIM or sq < 1 or skv < 1
-            or b * h > 65535):
+            or sq > 65535 * 64):
         raise ValueError(
             f"flash_attention: unsupported shapes q {tuple(qh.shape)}, k "
             f"{tuple(kh.shape)}, v {tuple(vh.shape)} (heads-major; needs "
             f"head_dim a multiple of 8 up to {MAX_HEAD_DIM}, kv heads "
-            f"dividing heads, non-empty sequences)")
+            f"dividing heads, non-empty sequences, at most {65535 * 64} "
+            f"queries)")
+    dev = qh.device
+    if any(t.device != dev for t in tensors) or dev.type != "cuda":
+        raise ValueError("flash_attention: q, k, v must lie on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
     scale = float(sm_scale) if sm_scale is not None else d ** -0.5
     fn = _kernel(build.load("flash_attention"))
     stream = torch.cuda.current_stream(dev).cuda_stream

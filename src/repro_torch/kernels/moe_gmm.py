@@ -9,9 +9,17 @@ with a float32 sum rounded once to x's dtype.
 
   * :func:`gmm` — the kernel ``csrc/moe_gmm.cu`` (it replaces the
     reference's Pallas ``gmm``; its source note gives the design and the
-    bound).  CUDA tensors only: anything else raises.  It takes the true
-    C, D and F and the operands' strides: nothing is padded or copied, so
-    a layer's slice of the stacked weight tree is read in place.
+    bound): bfloat16 on the tensor cores (``wgmma`` fed by TMA), float32
+    on exact SIMT FMAs.  CUDA tensors only: anything else raises.  It
+    takes the true C, D and F and the operands' strides: nothing is
+    padded, so a layer's slice of the stacked weight tree is read in
+    place.  The bfloat16 kernel reads x and w through TMA tensor maps,
+    which need a unit inner stride and a 16-byte aligned base and outer
+    strides: an operand that has not (a transposed view, a row of 12
+    elements) is first copied into a buffer whose rows are padded to a
+    multiple of 8 (:func:`_tma_ready`).  The MoE layer's operands qualify
+    as they are: ``expert_in`` comes out of a reshape and ``wi`` / ``wg``
+    / ``wo`` are the cast copies.
   * :func:`gmm_reference` — the plain version (the reference's
     ``ref.gmm_reference``): a float32 einsum cast back to x's dtype.
   * :func:`grouped_matmul` — the dispatch the MoE layer calls (the
@@ -61,6 +69,22 @@ def _check(x, w):
         raise ValueError(f"gmm: {x.shape[0]} experts above 65535")
 
 
+def _tma_ready(t):
+    """``t`` itself if a TMA tensor map can read it (unit inner stride,
+    16-byte aligned base, the strides of the dimensions above 1 multiples
+    of 8 elements), else a copy whose rows are padded to a multiple of 8
+    elements, viewed at ``t``'s shape."""
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(st % 8 == 0 for st, n in zip(t.stride()[:-1],
+                                               t.shape[:-1]) if n > 1))
+    if ok:
+        return t
+    n = t.shape[-1]
+    buf = t.new_empty((*t.shape[:-1], -(-n // 8) * 8))
+    buf[..., :n] = t
+    return buf[..., :n]
+
+
 def gmm(x, w):
     """x (E, C, D) @ w (E, D, F) -> (E, C, F) in x's dtype: the CUDA
     kernel.  Raises on anything but CUDA tensors of one float32 or
@@ -68,9 +92,13 @@ def gmm(x, w):
     _check(x, w)
     e, c, d = x.shape
     f = w.shape[2]
+    if d == 0:
+        return torch.zeros((e, c, f), dtype=x.dtype, device=x.device)
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    if x.dtype == torch.bfloat16:
+        x, w = _tma_ready(x), _tma_ready(w)
     fn = _kernel(build.load("moe_gmm"))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     build.check(fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),

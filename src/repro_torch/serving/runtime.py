@@ -470,13 +470,23 @@ class AsyncServingRuntime:
                   timeout_s: float = 300.0) -> list:
         """Serve a trace of requests; returns ServeResults in input order.
         A loop timeout resolves the outstanding requests (freeing their KV
-        slots) instead of raising out of the loop."""
+        slots) instead of raising out of the loop.  The loop ends when
+        every request of this call is resolved, so one runtime serves any
+        number of traces in turn; a request id that an earlier call
+        resolved is reset (its old result dropped, the request served
+        anew), and an id given twice in one call raises ``ValueError``
+        (the reference counts results instead, so its second call returns
+        early)."""
+        rids = [r.rid for r in requests]
+        if len(set(rids)) != len(rids):
+            raise ValueError("run: a request id appears twice in one call")
+        for rid in rids:
+            self._results.pop(rid, None)
         self._t0 = time.perf_counter()
         pending = sorted(requests, key=lambda r: r.arrival)
-        n_expected = len(pending)
         submitter = asyncio.ensure_future(self._submit_all(pending))
         try:
-            while len(self._results) < n_expected:
+            while any(rid not in self._results for rid in rids):
                 if self._now() > timeout_s:
                     self._fail_outstanding(requests, timeout_s)
                     break

@@ -4,9 +4,12 @@ On the CPU both entries (``flash_attention`` in (B, S, H, D) and
 ``flash_attention_hmajor`` heads-major) run the plain PyTorch version, so
 these tests hold it against the reference kernel in interpret mode and
 against ``mha_reference``, on the same numpy inputs, at the shapes of the
-reference's own kernel tests.  Tolerance: the reference's own float32
-tolerance, ``8 * 2e-5`` (blocked online softmax and the dense softmax sum
-in other orders).
+reference's own kernel tests and at the wide head dims (160, 256) the
+kernel takes.  Tolerance: the reference's own float32 tolerance, ``8 *
+2e-5`` (blocked online softmax and the dense softmax sum in other orders).
+One test models, in plain PyTorch, the single rounding the card's
+bfloat16 tensor-core kernel adds (P to bfloat16 before P V) and holds it
+within the chip check's unchanged bfloat16 tolerance.
 """
 import numpy as np
 import pytest
@@ -141,3 +144,91 @@ def test_non_cpu_tensors_never_take_the_plain_version(rng):
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_hmajor(q, k, v)
     assert kernels.launches()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 16)])
+def test_flash_attention_wide_heads_match_reference(rng, d, causal, window):
+    """head_dim 160 (stablelm-12b) and 256, the widest the kernel takes,
+    GQA 4 / 2 over 40 positions: the plain version against the reference
+    kernel in interpret mode and ``mha_reference``, float32."""
+    q, k, v = _qkv(rng, 1, 40, 40, 4, 2, d)
+    got = tfa.flash_attention(*_t(q, k, v), causal=causal, window=window)
+    assert got.shape == (1, 40, 4, d) and got.dtype == torch.float32
+    kern = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal, window=window, interpret=True)
+    ref = mha_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("d,match", [(160, "CUDA"), (256, "CUDA"),
+                                     (264, "unsupported shapes"),
+                                     (100, "unsupported shapes")])
+def test_head_dim_limits_on_meta_tensors(d, match):
+    """Head dims that are multiples of 8 up to 256 pass the wrappers'
+    shape checks (meta tensors then meet the CUDA refusal); 264 (above
+    256) and 100 (no multiple of 8) are refused as shapes."""
+    kernels.reset_launches()
+    q = torch.empty(2, 24, 4, d, device="meta")
+    kv = torch.empty(2, 24, 2, d, device="meta")
+    with pytest.raises(ValueError, match=match):
+        tfa.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match=match):
+        tfa.flash_attention_hmajor(q.transpose(1, 2), kv.transpose(1, 2),
+                                   kv.transpose(1, 2))
+    assert kernels.launches()["flash_attention"] == 0
+
+
+def _tensor_core_model(q, k, v, block_k=128):
+    """The bfloat16 kernel's arithmetic in plain PyTorch, causal: float32
+    logits of the bfloat16 inputs (their products are exact in float32),
+    an online softmax over key tiles of ``block_k`` with the probabilities
+    P rounded to bfloat16 before P V (the tensor core's A operand) and
+    float32 sums.  Returns the float32 output before the kernel's one
+    rounding of it.  q (B, S, H, D), k, v (B, S, K, D)."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    qf = q.float().transpose(1, 2)                              # B H S D
+    kf = k.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    logits = (qf @ kf.transpose(-1, -2)) * d ** -0.5
+    logits = logits.masked_fill(~tfa.attention_mask(s, s, causal=True,
+                                                     window=0), -torch.inf)
+    m = torch.full((b, h, s, 1), -torch.inf)
+    l = torch.zeros((b, h, s, 1))
+    o = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, block_k):
+        x = logits[..., k0:k0 + block_k]
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new).nan_to_num(0.0)
+        p = torch.exp(x - m_new).nan_to_num(0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + block_k]
+        m = m_new
+    return (o / l).transpose(1, 2)
+
+
+def test_p_rounding_stays_inside_bfloat16_tolerance(rng):
+    """Why the chip check's bfloat16 tolerance (1e-2 absolute and
+    relative) stays as it was for the tensor-core kernel.  Its one new
+    rounding, P to bfloat16 (relative 2^-9 per probability), moves the
+    float32 output by at most ~2e-3 at 1 x 2048, 2 / 1 heads of 128,
+    unit-normal bfloat16 inputs, causal (the served prefill's shape, one
+    head pair; the largest moves are the first rows, whose few
+    probabilities are near 1); after the output's own rounding the kernel
+    and the plain version then differ by at most one bfloat16 ulp (0.0078
+    at |x| < 2), inside 1e-2."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(rng, 1, 2048, 2048, 2, 1, 128))
+    model = _tensor_core_model(q, k, v)
+    plain32 = tfa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal=True)
+    moved = float((model - plain32).abs().max())
+    assert 0 < moved < 5e-3
+    plain = tfa.flash_attention_plain(q, k, v, causal=True)
+    np.testing.assert_allclose(model.to(torch.bfloat16).float().numpy(),
+                               plain.float().numpy(), atol=1e-2, rtol=1e-2)

@@ -10,7 +10,9 @@ and a non-contiguous x.  Tolerances: float32 ``atol = rtol = 1e-4`` (one
 float32 sum order against another over D terms); bfloat16 ``1e-2`` (both
 sides round one float32 sum to bfloat16: one ulp, 2^-8 relative, apart at
 most).  Also: the kernel entry ``gmm`` refuses CPU and meta tensors (no
-card here) instead of computing plainly, and counts no launch.
+card here) instead of computing plainly, and counts no launch; and the
+bfloat16 kernel's operand check (``_tma_ready``) keeps the operands its
+TMA tensor maps can read and pads a copy of the others.
 """
 import numpy as np
 import pytest
@@ -24,8 +26,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.moe_gmm.ops import grouped_matmul as jgmm  # noqa: E402
 from repro.kernels.moe_gmm.ref import gmm_reference as jgmm_ref  # noqa
 from repro_torch import kernels  # noqa: E402
-from repro_torch.kernels.moe_gmm import (gmm, gmm_reference,  # noqa: E402
-                                         grouped_matmul)
+from repro_torch.kernels.moe_gmm import (_tma_ready, gmm,  # noqa: E402
+                                         gmm_reference, grouped_matmul)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=1e-2, rtol=1e-2)
@@ -104,3 +106,34 @@ def test_kernel_entry_never_takes_the_plain_version(rng):
         grouped_matmul(x.to("meta"), w.to("meta"))
     assert kernels.launches()["gmm"] == 0
     assert "gmm" in kernels.launches()
+
+
+def _stacked(rng, lo, hi):
+    stacked = torch.from_numpy(rng.randn(2, 4, 64, 400).astype(np.float32))
+    return stacked.to(torch.bfloat16)[1, :, :, lo:hi]
+
+
+@pytest.mark.parametrize("name,make,kept", [
+    ("contiguous", lambda rng: torch.zeros(4, 20, 16, dtype=torch.bfloat16),
+     True),
+    ("layer slice at 8", lambda rng: _stacked(rng, 8, 392), True),
+    ("E = 1, C = 1", lambda rng: torch.zeros(1, 1, 40, dtype=torch.bfloat16),
+     True),
+    ("rows of 12", lambda rng: torch.zeros(4, 20, 12, dtype=torch.bfloat16),
+     False),
+    ("layer slice at 4", lambda rng: _stacked(rng, 4, 388), False),
+    ("transposed", lambda rng: torch.zeros(4, 64, 24, dtype=torch.bfloat16)
+     .transpose(1, 2), False),
+])
+def test_tma_ready_keeps_or_pads(rng, name, make, kept):
+    """What the bfloat16 kernel's TMA tensor maps read in place (unit inner
+    stride, 16-byte aligned base, outer strides of the dimensions above 1
+    multiples of 8 elements) is passed as it is; anything else becomes a
+    copy with rows padded to a multiple of 8, equal in value."""
+    t = make(rng)
+    got = _tma_ready(t)
+    assert (got is t) == kept
+    assert got.shape == t.shape and torch.equal(got, t)
+    assert got.stride(-1) == 1 and got.data_ptr() % 16 == 0
+    assert all(st % 8 == 0 for st, n in zip(got.stride()[:-1],
+                                            got.shape[:-1]) if n > 1)

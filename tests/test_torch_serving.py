@@ -217,6 +217,32 @@ def test_batched_prefill_identical_token_streams(smoke):
     assert [r.tokens for r in res_b] == [r.tokens for r in res_s]
 
 
+def test_runtime_serves_trace_after_trace(smoke):
+    """One runtime serves two traces in turn: each call returns its own
+    requests' tokens (those of serve_sequential), a request id that an
+    earlier call resolved is served anew, and an id given twice in one
+    call is refused."""
+    cfg, tm, tparams, _, _ = smoke
+    first = [ServeRequest(*r) for r in _trace(cfg, [5, 12, 8], 6, seed=7)]
+    second = [ServeRequest(i + 10, p, g) for i, p, g in
+              _trace(cfg, [9, 4, 16, 7], 5, seed=8)]
+    rt = AsyncServingRuntime(tm, tparams, max_batch=2, max_seq=64,
+                             plan_cache=PlanCache(), device="cpu")
+    rt.warmup([len(r.prompt) for r in first + second])
+    for trace in (first, second, first):
+        res = rt.serve(trace, timeout_s=120)
+        seq = serve_sequential(tm, tparams, trace, max_seq=64,
+                               plan_cache=PlanCache(), device="cpu")
+        assert [r.rid for r in res] == [r.rid for r in trace]
+        assert [r.status for r in res] == ["ok"] * len(trace)
+        assert [r.tokens for r in res] == [r.tokens for r in seq]
+        assert all(len(r.tokens) == trace[0].gen for r in res)
+    with pytest.raises(ValueError, match="twice"):
+        rt.serve(first + first[:1], timeout_s=120)
+    occ = rt.pool.occupancy()
+    assert occ["slots_used"] == 0 and occ["pages_used"] == 0
+
+
 def test_runtime_page_pressure_queues_instead_of_truncating(smoke):
     cfg, tm, tparams, _, _ = smoke
     trace = _trace(cfg, [24, 8], 8, seed=5)

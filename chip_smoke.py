@@ -22,9 +22,12 @@ package.  Phases, one line each; any failure raises and exits non-zero:
   3. data     — the example's tweets / co-mention graph / corpus at full
      size from seed 0, and their copy to the card (set-up time);
   4. kernel   — scatter_add and masked_segment_agg against their plain
-     PyTorch versions on the card, at the path's shapes and at edge cases;
-     CUDA-event medians of the kernel, the plain version and one PyTorch
-     library call, beside the byte bound at 3.35 TB/s;
+     PyTorch versions on the card, at the path's shapes and at edge cases
+     (scatter_add: one line each, ``[kernel-edge]``); CUDA-event medians
+     of the kernel, the plain version and one PyTorch library call, beside
+     the byte bound at 3.35 TB/s.  scatter_add is timed on the
+     dst-ordered edge copy the path hands it and on the same SpMV in CSR
+     order (``csr_*``), with ``index_add_`` on each;
   5. main     — ``hashtag_pulse`` compiled through ``repro_torch.compile``
      and run through the planned function: the chosen impls, the kernel
      launches of one run (counts set to 0 just before it), the median wall
@@ -41,7 +44,13 @@ package.  Phases, one line each; any failure raises and exits non-zero:
   8. kernel   — masked_tfidf, join_probe and compact_prefix against their
      plain versions on the card, at the path's shapes and at edge cases, as
      in phase 4; scatter_add and masked_segment_agg again, on the very
-     arguments one run of the default plan gives them;
+     arguments one run of the default plan gives them.  For scatter_add,
+     masked_tfidf, join_probe and compact_prefix ``ms`` is the call as a
+     path sees it (one event pair around one call, host dispatch
+     included) and ``device_ms`` the card's work alone: 64 calls captured
+     in one CUDA graph, replayed between an event pair, over 64 (where a
+     call cannot be captured, its kernels' time under ``torch.profiler``,
+     and the line says so); the library call gets both too;
   9. pushdown — the analysis compiled with the default pipeline, without
      ``fuse_store_ops`` and without pushdown (``UNPUSHED_PIPELINE``): each
      plan's impls and kernel launches of one run (counts set to 0 just
@@ -292,6 +301,7 @@ BF16_FLOPS = 989e12             # H100 SXM data sheet, dense tensor cores
 RTOL, ATOL = 1e-5, 1e-6
 REPS = 21
 RUNS = 5
+GRAPH_CALLS = 64       # calls captured in one CUDA graph for device_ms
 TOPK_IMPLS = ("text_topk_inv", "text_topk_skip_inv", "text_topk_masked_pallas",
               "masked_topk_xla")
 # the table's float columns: what the compaction kernel may carry
@@ -424,6 +434,75 @@ def cuda_ms(fn, reps=REPS, warmup=3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls=GRAPH_CALLS, reps=5, capture=True):
+    """Device time of one call of ``fn`` in milliseconds, without its host
+    dispatch: ``calls`` calls captured in one CUDA graph, replayed between
+    an event pair (median of ``reps`` replays), over ``calls``.  Warmed up
+    first on a side stream, so one-time set-up (a kernel's shared-memory
+    attribute, a library's handles) runs outside the capture.  Where the
+    call cannot be captured (``capture=False``: it synchronizes, or the
+    capture fails), the CUDA kernels' device time of ``calls`` calls under
+    ``torch.profiler``, over ``calls``.  Returns ``(ms, via)``, ``via``
+    "graph" or "profiler"."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    if capture:
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(calls):
+                    fn()
+        except RuntimeError as exc:
+            phase("device-ms", via="profiler",
+                  reason=json.dumps(str(exc).splitlines()[0][:120]))
+        else:
+            graph.replay()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                graph.replay()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            del graph
+            return statistics.median(times) / calls, "graph"
+        del graph
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+            t = getattr(ev, "self_device_time_total", None)
+            us += t if t is not None else getattr(ev, "self_cuda_time_total",
+                                                   0)
+    return us / 1e3 / calls, "profiler"
+
+
+def timings(kernel, library, capture_library=True) -> dict:
+    """The call and device times of a kernel's wrapper and of its library
+    call, on the same inputs: ``ms`` / ``library_ms`` are CUDA-event
+    medians of one call each (host dispatch included, as a path sees it);
+    ``device_ms`` / ``library_device_ms`` are from :func:`device_ms`."""
+    out = {"ms": cuda_ms(kernel), "library_ms": cuda_ms(library)}
+    out["device_ms"], out["device_ms_via"] = device_ms(kernel)
+    out["library_device_ms"], out["library_device_ms_via"] = device_ms(
+        library, capture=capture_library)
+    return out
+
+
 def free_memory():
     """Collect a path's dead objects (a runtime whose methods were wrapped
     in ``timed`` sits in a reference cycle and holds its cast parameters)
@@ -442,41 +521,93 @@ def bound(nbytes, nops, ops_rate):
 # -- phase 4: kernels against their plain versions ------------------------
 
 
-def check_scatter(dev, gen, calls):
+def scatter_edges(dev, gen) -> list:
+    """scatter_add's edge cases: ``(case, vals, dst, n_nodes)``."""
+    def rand(e):
+        return torch.rand(e, generator=gen, device=dev)
+
+    def ints(lo, hi, e):
+        return torch.randint(lo, hi, (e,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def ordered(lo, hi, e):
+        return torch.sort(ints(lo, hi, e)).values
+
+    # padding: -1 at the front, both -1 and >= N inside a run, >= N at the
+    # end; the run of node 500 goes on after its padding
+    pad = ordered(0, 1000, 100_003)
+    pad[:100] = -1
+    run = torch.nonzero(pad == 500).flatten()
+    pad[int(run[len(run) // 3])] = -1
+    pad[int(run[len(run) // 2])] = 1000
+    pad[-77:] = 1000
+    big = ints(-1, 1002, 6_000)
+    v5m = rand(5_000_000)
+    d_aligned = ordered(0, 300, 10_001)
+    v_aligned = rand(10_001)
+    return [
+        ("no edges", rand(0), ints(0, 1000, 0), 1000),
+        ("random -1 and >= N padding", rand(5000), ints(-1, 1002, 5000),
+         1000),
+        ("random, N 131,073", rand(777), ints(-1, 131_075, 777), 131_073),
+        ("every edge on one node, E 5M", v5m,
+         torch.full((5_000_000,), 7, dtype=torch.int32, device=dev), 1000),
+        ("sorted, padding at front / inside a run / at the end",
+         rand(100_003), pad, 1000),
+        ("sorted, E % 2048 and E % 4 != 0", rand(3 * 2048 + 3),
+         ordered(0, 50, 3 * 2048 + 3), 50),
+        ("misaligned views vals[1:], dst[1:]", v_aligned[1:],
+         d_aligned[1:], 300),
+        ("E < 32", rand(17), ordered(-1, 5, 17), 4),
+        ("random unsorted", rand(6000), big, 1000),
+        ("sorted, N 131,073", rand(300_000), ordered(0, 131_073, 300_000),
+         131_073),
+    ]
+
+
+def check_scatter(dev, gen, calls, unordered=None):
     """scatter_add on each of ``calls``, the ``(vals, dst, n_nodes)`` the
-    path gives it, and at the edge cases; the first call is timed.
-    Returns its JSON record."""
+    path gives it (the dst-ordered edge copy), and at the edge cases; the
+    first call is timed, and so is ``unordered``, the same SpMV's arguments
+    in CSR (source) order, where given.  Returns its JSON record."""
     err = 0.0
-    for vals, dst, n_nodes in calls:
+    for vals, dst, n_nodes in calls + ([unordered] if unordered else []):
         got, want = scatter_add(vals, dst, n_nodes), scatter_add_plain(
             vals, dst, n_nodes)
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
         err = max(err, float((got - want).abs().max()))
+    for case, v, d, n in scatter_edges(dev, gen):
+        got, want = scatter_add(v, d, n), scatter_add_plain(v, d, n)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        phase("kernel-edge", name="scatter_add", case=json.dumps(case),
+              E=int(d.shape[0]), N=n,
+              max_abs_err=float((got - want).abs().max()))
     vals, dst, n_nodes = calls[0]
-    # edge cases: no edges; -1 and out-of-range padding; N % 128 != 0
-    for e, n in ((0, 1000), (5000, 1000), (777, 131_073)):
-        v = torch.rand(e, generator=gen, device=dev)
-        d = torch.randint(-1, n + 2, (e,), generator=gen, device=dev,
-                          dtype=torch.int32)
-        torch.testing.assert_close(scatter_add(v, d, n),
-                                   scatter_add_plain(v, d, n),
-                                   rtol=RTOL, atol=ATOL)
-    ms = cuda_ms(lambda: scatter_add(vals, dst, n_nodes))
+    t = timings(lambda: scatter_add(vals, dst, n_nodes),
+                lambda: torch.zeros(n_nodes, device=dev).index_add_(
+                    0, dst, vals))
     plain_ms = cuda_ms(lambda: scatter_add_plain(vals, dst, n_nodes))
-    lib_ms = cuda_ms(lambda: torch.zeros(n_nodes, device=dev).index_add_(
-        0, dst, vals))
     e = int(dst.shape[0])
     landed = int(((dst >= 0) & (dst < n_nodes)).sum())
+    runs = int((dst[1:] != dst[:-1]).sum()) + 1 if e else 0
     bound_ms, bound_by = bound(4 * e + 4 * landed + 4 * n_nodes, landed,
                                FP64_FLOPS)
-    phase("kernel", name="scatter_add", E=e, N=n_nodes, calls=len(calls),
-          max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-          bound_ms=bound_ms, share_of_bound=bound_ms / ms)
+    csr = {}
+    if unordered:
+        uv, ud, un = unordered
+        csr = {f"csr_{k}": v for k, v in timings(
+            lambda: scatter_add(uv, ud, un),
+            lambda: torch.zeros(un, device=dev).index_add_(0, ud, uv)
+        ).items()}
+    phase("kernel", name="scatter_add", E=e, N=n_nodes, runs=runs,
+          calls=len(calls), max_abs_err=err, plain_ms=plain_ms,
+          bound_ms=bound_ms, share_of_bound=bound_ms / t["device_ms"], **t,
+          **csr)
     return {"name": "scatter_add", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/scatter_add.cu",
             "replaces": "src/repro/stores/graph_kernels.py:69",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": err, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, **t, **csr}
 
 
 def check_segment_agg(dev, gen, calls):
@@ -654,7 +785,6 @@ def check_masked_tfidf(dev, cx, q, doc_mask):
         check(torch.equal(g2, masked_tfidf_plain(*a)),
               f"masked_tfidf edge case ({docs}, {terms_hi}, {keep}) differs")
         check(keep > 0 or not bool(g2.any()), "all-masked corpus scored")
-    ms = cuda_ms(lambda: masked_tfidf(*args))
     plain_ms = cuda_ms(lambda: masked_tfidf_plain(*args))
     # one library call over pre-gathered, pre-masked contributions
     docs_of = cx["doc_ids"].long()
@@ -662,8 +792,9 @@ def check_masked_tfidf(dev, cx, q, doc_mask):
                           w[cx["term_ids"]] * cx["tf"] / cx["doc_len"][docs_of],
                           torch.zeros((), device=dev))
     offsets = cx["doc_ptr"].long()
-    lib_ms = cuda_ms(lambda: torch.segment_reduce(
-        contrib, "sum", offsets=offsets, unsafe=True))
+    t = timings(lambda: masked_tfidf(*args),
+                lambda: torch.segment_reduce(contrib, "sum", offsets=offsets,
+                                             unsafe=True))
     del contrib, docs_of, offsets
     d, v = int(doc_mask.shape[0]), int(w.shape[0])
     kept = int(doc_mask.sum())
@@ -675,13 +806,13 @@ def check_masked_tfidf(dev, cx, q, doc_mask):
                                3 * e_kept, FP32_FLOPS)
     phase("kernel", name="masked_tfidf", D=d, D_kept=kept,
           E=int(cx["term_ids"].shape[0]), E_kept=e_kept, max_abs_err=err,
-          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-          share_of_bound=bound_ms / ms)
+          plain_ms=plain_ms, bound_ms=bound_ms,
+          share_of_bound=bound_ms / t["device_ms"], **t)
     return {"name": "masked_tfidf", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/masked_tfidf.cu",
             "replaces": "src/repro/stores/masked_kernels.py:94",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": err, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, **t}
 
 
 def check_join_probe(dev, gen, lkeys, rkeys, rvalid):
@@ -696,7 +827,8 @@ def check_join_probe(dev, gen, lkeys, rkeys, rvalid):
     # largest build side the planner admits; sizes % 128 != 0
     for p, nr, share in ((0, 64, 1.0), (1000, 0, 1.0), (5000, 130, 0.5),
                          (777, 4096, 0.7), (131_073, 1, 1.0),
-                         (100_000, 300, 0.0)):
+                         (100_000, 300, 0.0), (1, 64, 1.0),
+                         (200_001, 64, 1.0)):
         rk = torch.randperm(4 * nr + 8, generator=gen, device=dev)[:nr].to(
             torch.int32)
         rv = torch.rand(nr, generator=gen, device=dev) < share
@@ -706,23 +838,28 @@ def check_join_probe(dev, gen, lkeys, rkeys, rvalid):
         check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
               f"join_probe edge case ({p}, {nr}, {share}) differs")
         check(share > 0 or not bool(a[1].any()), "an invalid row matched")
-    ms = cuda_ms(lambda: join_probe(lkeys, rkeys, rvalid))
+    # a probe side at a 4-byte offset (scalar loads)
+    lk = lkeys.repeat(2)[1:lkeys.shape[0] + 1]
+    a, b = join_probe(lk, rkeys, rvalid), join_probe_plain(lk, rkeys, rvalid)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "join_probe on a misaligned probe side differs")
     plain_ms = cuda_ms(lambda: join_probe_plain(lkeys, rkeys, rvalid))
     sorted_keys = torch.sort(rkeys[rvalid]).values
-    lib_ms = cuda_ms(lambda: torch.searchsorted(sorted_keys, lkeys))
+    t = timings(lambda: join_probe(lkeys, rkeys, rvalid),
+                lambda: torch.searchsorted(sorted_keys, lkeys))
     p, nr = int(lkeys.shape[0]), int(rkeys.shape[0])
     # bytes: probe key in, index + flag out per probe row; key + validity
     # per build row; one hash and one compare per probe row
     bound_ms, bound_by = bound(9 * p + 5 * nr, 2 * p, FP32_FLOPS)
     phase("kernel", name="join_probe", P=p, NR=nr,
           NR_valid=int(rvalid.sum()), matched=int(gm.sum()),
-          max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-          bound_ms=bound_ms, share_of_bound=bound_ms / ms)
+          max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
+          share_of_bound=bound_ms / t["device_ms"], **t)
     return {"name": "join_probe", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/join_probe.cu",
             "replaces": "src/repro/stores/masked_kernels.py:233",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": err, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, **t}
 
 
 def check_compact(dev, window, cap):
@@ -760,21 +897,22 @@ def check_compact(dev, window, cap):
         check(torch.equal(a, compact_prefix_plain(v, ps, kf, cp)),
               f"compact_prefix edge case ({c}, {r}, {share}, {cp}) differs")
         check(share > 0 or not bool(a.any()), "an all-masked input moved")
-    ms = cuda_ms(lambda: compact_prefix(vals, pos, keep, cap))
     plain_ms = cuda_ms(lambda: compact_prefix_plain(vals, pos, keep, cap))
-    lib_ms = cuda_ms(lambda: vals[:, valid][:, :cap])
+    # the boolean gather synchronizes (its row count), so no graph holds it
+    t = timings(lambda: compact_prefix(vals, pos, keep, cap),
+                lambda: vals[:, valid][:, :cap], capture_library=False)
     c, r = int(vals.shape[0]), int(vals.shape[1])
     # bytes: keep per row; pos and C values per kept row; the output once
     bound_ms, bound_by = bound(4 * r + 4 * kept + 4 * c * kept + 4 * c * cap,
                                0, FP32_FLOPS)
     phase("kernel", name="compact_prefix", C=c, R=r, R_kept=kept, cap=cap,
-          max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-          bound_ms=bound_ms, share_of_bound=bound_ms / ms)
+          max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
+          share_of_bound=bound_ms / t["device_ms"], **t)
     return {"name": "compact_prefix", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/compact_prefix.cu",
             "replaces": "src/repro/stores/masked_kernels.py:173",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": err, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, **t}
 
 
 def compact_impl(dev, window, cap) -> dict:
@@ -830,8 +968,9 @@ def pulse_path(args, dev, syscat) -> list:
     keys, eng = rel.cols["hashtag"], rel.cols["engagement"]
     mw = (eng >= 30.0).to(torch.float32)
     records = [
-        check_scatter(dev, gen, [((x[g["src"]] * g["weights"]).contiguous(),
-                                  g["indices"], n)]),
+        check_scatter(dev, gen, [(x[g["dst_src"]] * g["dst_w"],
+                                  g["dst_dst"], n)],
+                      unordered=(x[g["src"]] * g["weights"], g["indices"], n)),
         check_segment_agg(dev, gen, [(eng, keys, mw, n), (mw, keys, mw, n)])]
     del x, mw
 
@@ -2271,7 +2410,11 @@ def main(argv=None) -> int:
     # 27. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+    # device_ms / library_device_ms: the tri-store kernels' times without
+    # host dispatch (device_ms), null where not measured
+    extra = ("device_ms", "library_device_ms")
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
+                                   **{k: r.get(k) for k in extra}}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

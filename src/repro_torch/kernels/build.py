@@ -7,6 +7,8 @@ every shared header (``csrc/*.cuh``) and of the flags, so an edited kernel
 is rebuilt and a stale one never loaded.
 Builds go to ``kernels/_build/`` beside this file (ignored by git), at
 first use; :func:`build_all` starts one ``nvcc`` per source, all at once.
+:func:`entry` hands the wrappers each C entry typed for ``ctypes`` once,
+so a launch pays no lock and no re-typing.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -22,12 +24,15 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+_ENTRIES: dict = {}
 _LOCK = threading.Lock()
 
 
@@ -100,6 +105,27 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(lib_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def entry(name: str, symbol: str, *argtypes):
+    """The C entry ``symbol`` of kernel ``name`` (built at first use),
+    typed for ctypes at its first call and cached by ``(name, symbol)``;
+    every entry returns ``cudaGetLastError()``."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream of ``device`` (the
+    current device where it names no index)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def check(rc: int, what: str) -> None:

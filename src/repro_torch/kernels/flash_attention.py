@@ -80,14 +80,11 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, sm_scale=None):
     return out.to(q.dtype)
 
 
-def _kernel(lib):
-    fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _kernel():
+    return build.entry("flash_attention", "flash_attention_fwd",
+                       *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 7,
+                       *[ctypes.c_longlong] * 12, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def _aligned(t):
@@ -123,8 +120,7 @@ def _launch(qh, kh, vh, oh, *, causal, window, sm_scale) -> None:
         raise ValueError("flash_attention: q, k, v must lie on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
     scale = float(sm_scale) if sm_scale is not None else d ** -0.5
-    fn = _kernel(build.load("flash_attention"))
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn, stream = _kernel(), build.stream(dev)
     strides = [s for t in tensors for s in t.stride()[:3]]
     build.check(fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), oh.data_ptr(),
                    _DTYPES[qh.dtype], b, h, kvh, sq, skv, d, *strides,

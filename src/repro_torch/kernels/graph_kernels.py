@@ -11,7 +11,9 @@ against.
 
 Convention (the reference's): edges whose ``dst`` lies outside
 ``[0, num_nodes)`` — the padding ``dst = -1`` — match no node; zero edges
-give zeros.
+give zeros.  The kernel takes edges in any order; it is fastest when equal
+``dst`` lie next to each other (the graph payload's dst-ordered copy),
+since it adds each such run with one atomic.
 """
 from __future__ import annotations
 
@@ -37,21 +39,23 @@ def scatter_add_plain(vals: torch.Tensor, dst: torch.Tensor,
     return acc[:n].to(torch.float32)
 
 
-def _kernel(lib):
-    fn = lib.scatter_add_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_P = ctypes.c_void_p
+
+
+def _kernel():
+    """The C entry, typed once (see :func:`build.entry`)."""
+    return build.entry("scatter_add", "scatter_add_f32",
+                       _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P)
 
 
 def scatter_add(vals: torch.Tensor, dst: torch.Tensor,
                 num_nodes: int) -> torch.Tensor:
     """``y[n] = Σ_{e: dst[e]=n} vals[e]`` for ``n < num_nodes``: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
-    if vals.device.type == "cpu" and dst.device.type == "cpu":
+    dev = vals.device
+    if dst.device == dev and dev.type == "cpu":
         return scatter_add_plain(vals, dst, num_nodes)
-    if vals.device.type != "cuda" or dst.device != vals.device:
+    if dev.type != "cuda" or dst.device != dev:
         raise ValueError(f"scatter_add: vals on {vals.device}, dst on "
                          f"{dst.device}; both must be on one CUDA device")
     if vals.dtype != torch.float32 or dst.dtype != torch.int32:
@@ -68,12 +72,11 @@ def scatter_add(vals: torch.Tensor, dst: torch.Tensor,
     # float64 scratch: the kernel sums into it and rounds into ``out``.  It
     # may be freed on return while the kernel runs: the caching allocator
     # hands its memory out again only in this stream's order.
-    acc = torch.zeros(n, dtype=torch.float64, device=vals.device)
-    out = torch.empty(n, dtype=torch.float32, device=vals.device)
-    fn = _kernel(build.load("scatter_add"))
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    build.check(fn(vals.data_ptr(), dst.data_ptr(), acc.data_ptr(),
-                   out.data_ptr(), e, n, stream), "scatter_add")
+    acc = torch.zeros(n, dtype=torch.float64, device=dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    build.check(_kernel()(vals.data_ptr(), dst.data_ptr(), acc.data_ptr(),
+                          out.data_ptr(), e, n, build.stream(dev)),
+                "scatter_add")
     scatter_add.launches += 1
     return out
 

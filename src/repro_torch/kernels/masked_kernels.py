@@ -38,38 +38,33 @@ def _plain_or_cuda(name: str, ts) -> bool:
     """True when every tensor lies on the CPU (the plain version runs);
     False when all lie on one CUDA device (the kernel launches); raises
     otherwise."""
-    if all(t.device.type == "cpu" for t in ts):
-        return True
-    if ts[0].device.type != "cuda" or any(t.device != ts[0].device
-                                          for t in ts):
-        raise ValueError(f"{name}: inputs must lie on one CUDA device (or "
-                         f"all on the CPU), got {[str(t.device) for t in ts]}")
-    return False
+    # plain loops: this runs on every launch, and generator expressions
+    # cost more than the comparisons
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev:
+            break
+    else:
+        if dev.type == "cpu":
+            return True
+        if dev.type == "cuda":
+            return False
+    raise ValueError(f"{name}: inputs must lie on one CUDA device (or all "
+                     f"on the CPU), got {[str(t.device) for t in ts]}")
 
 
 def _check(name: str, ts, dtypes) -> None:
     """Raise unless each tensor has its dtype and is contiguous."""
-    if any(t.dtype != dt for t, dt in zip(ts, dtypes)):
-        raise TypeError(f"{name}: needs dtypes {[str(d) for d in dtypes]}, "
-                        f"got {[str(t.dtype) for t in ts]}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{name}: needs contiguous inputs")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    for t, dt in zip(ts, dtypes):
+        if t.dtype != dt:
+            raise TypeError(f"{name}: needs dtypes "
+                            f"{[str(d) for d in dtypes]}, got "
+                            f"{[str(t.dtype) for t in ts]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous inputs")
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-
-
-def _entry(name: str, symbol: str, *argtypes):
-    """The C entry ``symbol`` of kernel ``name`` (built at first use), typed
-    for ctypes; every entry returns ``cudaGetLastError()``."""
-    fn = getattr(build.load(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def masked_segment_agg_plain(vals: torch.Tensor, keys: torch.Tensor,
@@ -109,11 +104,11 @@ def masked_segment_agg(vals: torch.Tensor, keys: torch.Tensor,
     # freeing it on return is safe in stream order, as in scatter_add
     acc = torch.zeros(2, g, dtype=torch.float64, device=vals.device)
     out = torch.empty(2, g, dtype=torch.float32, device=vals.device)
-    fn = _entry("masked_segment_agg", "masked_segment_agg_f32",
-                *[_P] * 5, _LL, _I, _P)
+    fn = build.entry("masked_segment_agg", "masked_segment_agg_f32",
+                     *[_P] * 5, _LL, _I, _P)
     build.check(fn(vals.data_ptr(), keys.data_ptr(), maskw.data_ptr(),
-                   acc.data_ptr(), out.data_ptr(), r, g, _stream(out)),
-                "masked_segment_agg")
+                   acc.data_ptr(), out.data_ptr(), r, g,
+                   build.stream(out.device)), "masked_segment_agg")
     masked_segment_agg.launches += 1
     return out[0], out[1]
 
@@ -181,9 +176,9 @@ def masked_tfidf(doc_ptr, term_ids, tf, doc_len, w, doc_mask,
     out = torch.empty(n, dtype=torch.float32, device=doc_len.device)
     if n == 0:
         return out
-    fn = _entry("masked_tfidf", "masked_tfidf_f32", *[_P] * 7, _I, _P)
+    fn = build.entry("masked_tfidf", "masked_tfidf_f32", *[_P] * 7, _I, _P)
     build.check(fn(*(t.data_ptr() for t in ts), out.data_ptr(), n,
-                   _stream(out)), "masked_tfidf")
+                   build.stream(out.device)), "masked_tfidf")
     masked_tfidf.launches += 1
     return out
 
@@ -224,7 +219,7 @@ def join_probe(lkeys, rkeys, rvalid):
         return join_probe_plain(*ts)
     _check("join_probe", ts, (torch.int32, torch.int32, torch.bool))
     p, nr = int(lkeys.shape[0]), int(rkeys.shape[0])
-    if (any(t.dim() != 1 for t in ts) or rvalid.shape != rkeys.shape
+    if (lkeys.dim() != 1 or rkeys.dim() != 1 or rvalid.shape != rkeys.shape
             or nr > JOIN_PROBE_MAX_BUILD):
         raise ValueError("join_probe: needs 1-D keys and a build side of at "
                          f"most {JOIN_PROBE_MAX_BUILD} rows, got "
@@ -235,10 +230,10 @@ def join_probe(lkeys, rkeys, rvalid):
     # the kernel writes every probe row's index and flag
     idx = torch.empty(p, dtype=torch.int32, device=lkeys.device)
     matched = torch.empty(p, dtype=torch.bool, device=lkeys.device)
-    fn = _entry("join_probe", "join_probe_i32", *[_P] * 5, _LL, _I, _P)
+    fn = build.entry("join_probe", "join_probe_i32", *[_P] * 5, _LL, _I, _P)
     build.check(fn(lkeys.data_ptr(), rkeys.data_ptr(), rvalid.data_ptr(),
-                   idx.data_ptr(), matched.data_ptr(), p, nr, _stream(idx)),
-                "join_probe")
+                   idx.data_ptr(), matched.data_ptr(), p, nr,
+                   build.stream(idx.device)), "join_probe")
     join_probe.launches += 1
     return idx, matched
 
@@ -280,10 +275,10 @@ def compact_prefix(vals, pos, keep, out_capacity: int) -> torch.Tensor:
     out = torch.zeros(c, cap, dtype=torch.float32, device=vals.device)
     if r == 0 or cap == 0 or c == 0:
         return out
-    fn = _entry("compact_prefix", "compact_prefix_u32", *[_P] * 4, _I, _LL,
-                _LL, _P)
+    fn = build.entry("compact_prefix", "compact_prefix_u32", *[_P] * 4, _I,
+                     _LL, _LL, _P)
     build.check(fn(vals.data_ptr(), pos.data_ptr(), keep.data_ptr(),
-                   out.data_ptr(), c, r, cap, _stream(out)),
+                   out.data_ptr(), c, r, cap, build.stream(out.device)),
                 "compact_prefix")
     compact_prefix.launches += 1
     return out

@@ -46,12 +46,10 @@ def gmm_reference(x, w):
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
-def _kernel(lib):
-    fn = lib.gmm_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _kernel():
+    return build.entry("moe_gmm", "gmm_fwd", *[ctypes.c_void_p] * 3,
+                       *[ctypes.c_int] * 5, *[ctypes.c_longlong] * 6,
+                       ctypes.c_void_p)
 
 
 def _check(x, w):
@@ -99,8 +97,7 @@ def gmm(x, w):
         return out
     if x.dtype == torch.bfloat16:
         x, w = _tma_ready(x), _tma_ready(w)
-    fn = _kernel(build.load("moe_gmm"))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn, stream = _kernel(), build.stream(x.device)
     build.check(fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                    _DTYPES[x.dtype], e, c, d, f, *x.stride(), *w.stride(),
                    stream), "gmm")

@@ -95,12 +95,9 @@ def ssd_chunked(x, a, b, c, *, chunk=128):
     return y.to(x.dtype), s
 
 
-def _kernel(lib):
-    fn = lib.ssd_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _kernel():
+    return build.entry("ssd", "ssd_fwd", *[ctypes.c_void_p] * 5,
+                       *[ctypes.c_int] * 6, ctypes.c_void_p, ctypes.c_void_p)
 
 
 def _check(x, a, b, c):
@@ -141,8 +138,7 @@ def ssd(x, a, b, c):
         return y
     strides = (ctypes.c_longlong * 20)(
         *x.stride(), *a.stride(), 0, *b.stride(), *c.stride(), *y.stride())
-    fn = _kernel(build.load("ssd"))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn, stream = _kernel(), build.stream(x.device)
     build.check(fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                    y.data_ptr(), _DTYPES[x.dtype], bs, t, h, p, b.shape[-1],
                    ctypes.addressof(strides), stream), "ssd")

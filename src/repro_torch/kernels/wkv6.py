@@ -101,12 +101,9 @@ def wkv6_chunked(r, k, v, w, u, *, chunk=32, clamp=60.0):
     return y.to(r.dtype), s
 
 
-def _kernel(lib):
-    fn = lib.wkv6_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _kernel():
+    return build.entry("wkv6", "wkv6_fwd", *[ctypes.c_void_p] * 6,
+                       *[ctypes.c_int] * 5, ctypes.c_void_p, ctypes.c_void_p)
 
 
 def _check(r, k, v, w, u):
@@ -145,8 +142,7 @@ def wkv6(r, k, v, w, u):
     u32 = u.float().contiguous()
     strides = (ctypes.c_longlong * 20)(
         *[s for x in (r, k, v, w, y) for s in x.stride()])
-    fn = _kernel(build.load("wkv6"))
-    stream = torch.cuda.current_stream(r.device).cuda_stream
+    fn, stream = _kernel(), build.stream(r.device)
     build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                    u32.data_ptr(), y.data_ptr(), _DTYPES[r.dtype], b, t, h, d,
                    ctypes.addressof(strides), stream), "wkv6")

@@ -6,6 +6,10 @@ reference package, read out as numpy arrays (``np.asarray`` of each
 relation column, ``valid`` and ``count``, or of each leaf of a graph or
 corpus payload dict), becomes the port's payload on ``device`` here, so
 both packages can compute on identical data.
+
+A graph payload's dst-ordered edge copy (``dst_src``, ``dst_dst``,
+``dst_w``; see :mod:`.graph_store`) is not carried: the reference's five
+CSR arrays are, and the copy is derived from them on ``device``.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 from ..core.executor import resolve_device
 from ..core.ir import ValidationError
 from .bounded import BoundedRel
+from .graph_store import with_dst_order
 from .text_store import text_payload
 
 _GRAPH_KEYS = ("indptr", "indices", "src", "weights", "out_deg")
@@ -31,7 +36,8 @@ def payload_from_numpy(kind: str, arrays: dict, device="cuda"):
     * ``kind="table"``: ``arrays = {"cols": {name: array}, "valid": array,
       "count": scalar, "overflow": scalar (optional)}`` -> BoundedRel;
     * ``kind="graph"``: the five arrays of a CSR payload
-      (``indptr``, ``indices``, ``src``, ``weights``, ``out_deg``);
+      (``indptr``, ``indices``, ``src``, ``weights``, ``out_deg``); the
+      dst-ordered edge copy is added on ``device``;
     * ``kind="corpus"``: the five arrays of a corpus payload
       (``doc_ids``, ``term_ids``, ``tf``, ``doc_len``, ``idf``), postings
       sorted by document.
@@ -49,7 +55,8 @@ def payload_from_numpy(kind: str, arrays: dict, device="cuda"):
         missing = [k for k in _GRAPH_KEYS if k not in arrays]
         if missing:
             raise ValidationError(f"graph payload lacks {missing}")
-        return {k: _tensor(arrays[k], dev) for k in _GRAPH_KEYS}
+        return with_dst_order({k: _tensor(arrays[k], dev)
+                               for k in _GRAPH_KEYS})
     if kind == "corpus":
         missing = [k for k in _TEXT_KEYS if k not in arrays]
         if missing:

@@ -12,6 +12,16 @@ PyTorch scatter (any engine) or the hand-written CUDA kernel
 (:func:`repro_torch.kernels.graph_kernels.scatter_add`), which the planner
 offers as the ``pallas`` candidate.
 
+The payload also holds a dst-ordered copy of the edge list (``dst_src``,
+``dst_dst``, ``dst_w``: ``src``, ``indices`` and ``weights`` permuted by a
+stable sort of ``indices``), built on the payload's device by
+:func:`with_dst_order`.  The kernel path's SpMV reads it: the kernel sums
+each run of equal ``dst`` in registers and adds it with one atomic, so a
+hub node's millions of edges cost a few thousand atomics instead of one
+each.  The sort is stable, so every node's contributions keep their CSR
+order.  The copy costs 12 bytes an edge (209 MB at 17.4M edges).  The
+plain path and the block-skipping SpMV read the CSR order.
+
 Frontier ops built on the SpMV:
 
   * :func:`expand_frontier` — k-hop expansion of a weighted frontier;
@@ -26,7 +36,7 @@ variants are bitwise equal to the dense ones.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -83,17 +93,29 @@ class GraphStore:
                       partitioning=None)
 
     def payload(self, device="cuda") -> dict:
-        """The CSR on ``device`` (the card unless the caller asks for the
-        CPU)."""
+        """The CSR and its dst-ordered edge copy on ``device`` (the card
+        unless the caller asks for the CPU)."""
         dev = resolve_device(device)
         out_deg = np.maximum(np.diff(self.indptr), 1).astype(np.float32)
-        return {
+        return with_dst_order({
             "indptr": torch.from_numpy(self.indptr).to(dev),
             "indices": torch.from_numpy(self.indices).to(dev),  # dst / edge
             "src": torch.from_numpy(self.src).to(dev),          # src / edge
             "weights": torch.from_numpy(self.weights).to(dev),
             "out_deg": torch.from_numpy(out_deg).to(dev),
-        }
+        })
+
+
+def with_dst_order(g: dict) -> dict:
+    """Add the dst-ordered copy of the edge list to the CSR payload ``g``
+    (in place; returns ``g``): ``dst_src``, ``dst_dst`` and ``dst_w`` are
+    ``src``, ``indices`` and ``weights`` permuted by a stable sort of
+    ``indices``, computed on the payload's device."""
+    dst, order = torch.sort(g["indices"], stable=True)
+    g["dst_src"] = g["src"][order]
+    g["dst_dst"] = dst
+    g["dst_w"] = g["weights"][order]
+    return g
 
 
 # --------------------------------------------------------------------------
@@ -101,24 +123,28 @@ class GraphStore:
 # --------------------------------------------------------------------------
 
 
-def _spmv(g: dict, x: torch.Tensor, scatter: Callable) -> torch.Tensor:
+def _spmv(g: dict, x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+    """One SpMV: the kernel over the dst-ordered edge copy, or the plain
+    scatter over the CSR order.  Both add each node's contributions in
+    the same order."""
     n = g["indptr"].shape[0] - 1
-    vals = x[g["src"]] * g["weights"]
-    return scatter(vals, g["indices"], n)
-
-
-def _scatter(use_kernel: bool) -> Callable:
-    return scatter_add if use_kernel else scatter_add_plain
+    if not use_kernel:
+        return scatter_add_plain(x[g["src"]] * g["weights"], g["indices"], n)
+    if "dst_dst" not in g:
+        raise ValidationError(
+            "graph payload lacks the dst-ordered edge copy (dst_src, "
+            "dst_dst, dst_w) the scatter kernel reads: build it with "
+            "GraphStore.payload, payload_from_numpy or with_dst_order")
+    return scatter_add(x[g["dst_src"]] * g["dst_w"], g["dst_dst"], n)
 
 
 def expand_frontier(g: dict, frontier: torch.Tensor, hops: int = 1,
                     use_kernel: bool = False) -> torch.Tensor:
     """k-hop expansion: propagate frontier weight along edges ``hops``
     times.  One hop is exactly one SpMV."""
-    scatter = _scatter(use_kernel)
     x = frontier.to(torch.float32)
     for _ in range(int(hops)):
-        x = _spmv(g, x, scatter)
+        x = _spmv(g, x, use_kernel)
     return x
 
 
@@ -166,7 +192,6 @@ def pagerank(g: dict, iters: int = 10, damping: float = 0.85,
     0's SpMV input is the normalized personalization, so with a sparse one
     it runs block-skipping (bitwise equal to the dense iteration); later
     iterations, whose rank vector is dense, stay dense."""
-    scatter = _scatter(use_kernel)
     n = g["indptr"].shape[0] - 1
     if personalization is None:
         p0 = torch.full((n,), 1.0 / n, dtype=torch.float32,
@@ -179,6 +204,6 @@ def pagerank(g: dict, iters: int = 10, damping: float = 0.85,
     for it in range(int(iters)):
         xs = r / g["out_deg"]
         y = (_spmv_blockskip(g, xs, block) if it == 0 and skip
-             else _spmv(g, xs, scatter))
+             else _spmv(g, xs, use_kernel))
         r = (1.0 - damping) * p0 + damping * y
     return r

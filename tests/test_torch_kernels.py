@@ -102,6 +102,8 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     dst = torch.zeros(8, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         scatter_add(vals, dst, 4)
+    with pytest.raises(ValueError):   # vals on the CPU, dst off it
+        scatter_add(torch.zeros(8), dst, 4)
     with pytest.raises(ValueError):
         masked_segment_agg(vals, dst, vals, 4)
     assert scatter_add.launches == 0 and masked_segment_agg.launches == 0

@@ -13,9 +13,9 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      and CUDA versions; fails without a card;
   2. build    — every CUDA kernel of ``src/repro_torch/kernels/csrc``, one
      ``nvcc`` each, all started together; ``ptxas -v``'s registers, and
-     the count of HGMMA (``wgmma``) instructions in each library's SASS
-     (``cuobjdump -sass``): flash_attention and moe_gmm must have some and
-     no spills;
+     the count of HGMMA (``wgmma``) and HMMA (``mma.sync``) instructions
+     in each library's SASS (``cuobjdump -sass``): flash_attention and
+     moe_gmm must have HGMMA, ssd and wkv6 HMMA, and none of them spills;
 
   ``hashtag_pulse`` (tri-model analysis, slice 1):
 
@@ -112,12 +112,20 @@ package.  Phases, one line each; any failure raises and exits non-zero:
  17./21. kernel — wkv6 / ssd against its plain version (the sequential
      recurrence) on the card on the very arguments each bucket's planned
      prefill gave it, and at edge cases (T = 1, T = 300, B = 2, float32 and
-     bfloat16, decay 1.0 exactly and 1e-6, ssd's b and c shared over heads
-     with stride 0 and per head); CUDA-event medians of the kernel and the
-     plain version beside the bound (no single PyTorch call computes either
-     recurrence: ``library_ms`` is null).  zamba2-7b: flash attention at
-     head_dim 112 on the arguments its prefills gave it, timed beside
-     ``scaled_dot_product_attention``;
+     bfloat16, decay 1.0 exactly, 1e-6 and mixed per channel / per head,
+     T around the kernels' chunk of 64 and sub-chunk of 16 (63, 65, 33),
+     inputs as views 2 bytes past 16-byte alignment, ssd's b and c shared
+     over heads with stride 0 and per head); at each bucket the call's
+     CUDA-event median (``ms``, host dispatch included), its device time
+     (``device_ms``, 64 calls in one CUDA graph) and the plain version's,
+     beside the bound: bytes at 3.35 TB/s against the chunked form's
+     matrix products at the tensor-core rate of the operands' type plus
+     its other operations at the float32 rate (``seq_bound_ms``: the
+     sequential form's operations at the float32 rate, the bound before
+     the kernels moved to the tensor cores).  No single PyTorch call
+     computes either recurrence: ``library_ms`` is null.  zamba2-7b:
+     flash attention at head_dim 112 on the arguments its prefills gave
+     it, timed beside ``scaled_dot_product_attention``;
  18./22. check — wkv6 launches = 32 x the prefill forwards, ssd launches =
      81 x, flash launches = 13 x the zamba2 forwards whose plan picked
      ``attn_flash_pallas``; 100 % plan-cache hits after warmup; a float32
@@ -386,14 +394,17 @@ WINDOW_PLANS = {
 }
 
 
-# the kernels whose bfloat16 path runs on wgmma: their SASS must hold
-# HGMMA instructions and ptxas must report no spills
-TENSOR_CORE_KERNELS = ("flash_attention", "moe_gmm")
+# the kernels whose bfloat16 path runs on the tensor cores, and the SASS
+# opcode it must hold (HGMMA: wgmma; HMMA: mma.sync); ptxas must report no
+# spills for them
+TENSOR_CORE_KERNELS = {"flash_attention": "HGMMA", "moe_gmm": "HGMMA",
+                       "ssd": "HMMA", "wkv6": "HMMA"}
 
 
-def sass_counts(opcode) -> dict:
-    """How often ``opcode`` appears in each built library's SASS, from the
-    toolkit's ``cuobjdump -sass`` (or Triton's copy of it)."""
+def sass_counts(opcodes) -> dict:
+    """How often each of ``opcodes`` appears in each built library's SASS
+    (``{library: {opcode: count}}``), from the toolkit's
+    ``cuobjdump -sass`` (or Triton's copy of it)."""
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     if not tool.exists():
         import triton
@@ -403,7 +414,8 @@ def sass_counts(opcode) -> dict:
         sass = subprocess.run([str(tool), "-sass", str(build.lib_path(name))],
                               capture_output=True, text=True, check=True,
                               timeout=120).stdout
-        out[name] = len(re.findall(rf"\b{opcode}\b", sass))
+        out[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                     for op in opcodes}
     return out
 
 
@@ -1636,30 +1648,47 @@ def stored_bytes(t) -> int:
 
 
 def wkv6_inputs(gen, dev, b, t, h, d, dtype, decay=None):
-    """r, k, v (unit normal), w in (0.4, 0.99) or the constant ``decay``,
-    u: the kernel's arguments as ``rwkv_time_mix`` shapes them."""
+    """r, k, v (unit normal), w in (0.4, 0.99), the constant ``decay`` or,
+    for "mixed", exp(-exp(z)) with z ~ N(0, 1.5) per element (channels
+    below 1e-3 beside channels near 1 in one head), u: the kernel's
+    arguments as ``rwkv_time_mix`` shapes them."""
     r, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
                for _ in range(3))
-    w = (torch.rand(b, t, h, d, generator=gen, device=dev) * 0.59 + 0.4
-         if decay is None else torch.full((b, t, h, d), decay, device=dev))
+    if decay is None:
+        w = torch.rand(b, t, h, d, generator=gen, device=dev) * 0.59 + 0.4
+    elif decay == "mixed":
+        w = torch.exp(-torch.exp(1.5 * torch.randn(
+            b, t, h, d, generator=gen, device=dev)))
+    else:
+        w = torch.full((b, t, h, d), decay, device=dev)
     u = torch.randn(h, d, generator=gen, device=dev)
     return (r, k, v, w.to(dtype), u), {}
 
 
 def ssd_inputs(gen, dev, b, t, h, p, n, dtype, decay=None, shared=True):
-    """x, a in (0.5, 0.99) or the constant ``decay``, and b, c as the
-    mamba block passes them (one (B, T, N) matrix expanded over heads,
-    stride 0) or materialized per head."""
+    """x, a in (0.5, 0.99), the constant ``decay`` or, for "mixed",
+    exp(-exp(z)) with z ~ N(0, 1.5) per head plus N(0, 0.5) per step (some
+    heads' decays near 0, others' near 1), and b, c as the mamba block
+    passes them (one (B, T, N) matrix expanded over heads, stride 0) or
+    materialized per head."""
     x = torch.randn(b, t, h, p, generator=gen, device=dev).to(dtype)
-    a = (torch.rand(b, t, h, generator=gen, device=dev) * 0.49 + 0.5
-         if decay is None else torch.full((b, t, h), decay, device=dev))
+    if decay is None:
+        a = torch.rand(b, t, h, generator=gen, device=dev) * 0.49 + 0.5
+    elif decay == "mixed":
+        a = torch.exp(-torch.exp(
+            1.5 * torch.randn(1, 1, h, generator=gen, device=dev)
+            + 0.5 * torch.randn(b, t, h, generator=gen, device=dev)))
+    else:
+        a = torch.full((b, t, h), decay, device=dev)
     hh = 1 if shared else h
     bb, cc = (torch.randn(b, t, hh, n, generator=gen, device=dev).to(dtype)
               .expand(b, t, h, n) for _ in range(2))
     return (x, a.to(dtype), bb, cc), {}
 
 
-# (name, b, t, dtype, decay, ssd's b/c shared over heads)
+# (name, b, t, dtype, decay, ssd's b/c shared over heads); the bfloat16
+# kernels work in chunks of CHUNK steps, wkv6's in sub-chunks of SUB_CHUNK
+CHUNK, SUB_CHUNK = 64, 16
 RECURRENT_EDGES = (
     ("T = 1", 1, 1, torch.bfloat16, None, True),
     ("T = 300, float32", 1, 300, torch.float32, None, True),
@@ -1668,7 +1697,35 @@ RECURRENT_EDGES = (
     ("decay near 0", 1, 300, torch.float32, 1e-6, True),
     ("B = 2, T = 77 (ssd: b, c per head)", 2, 77, torch.float32, None,
      False),
+    ("decay 1.0, bfloat16", 1, 300, torch.bfloat16, 1.0, True),
+    ("decay near 0, bfloat16", 1, 300, torch.bfloat16, 1e-6, True),
+    ("B = 2, T = 77, bfloat16 (ssd: b, c per head)", 2, 77, torch.bfloat16,
+     None, False),
+    ("mixed decays", 1, 300, torch.bfloat16, "mixed", True),
+    ("mixed decays, float32", 1, 300, torch.float32, "mixed", True),
+    *((f"T = {name} = {t}{tag}", 1, t, dt, None, True)
+      for name, t in (("L - 1", CHUNK - 1), ("L + 1", CHUNK + 1),
+                      ("2 L_sub + 1", 2 * SUB_CHUNK + 1))
+      for dt, tag in ((torch.bfloat16, ""), (torch.float32, ", float32"))),
 )
+
+
+# the same inputs as views whose rows start 2 bytes past a 16-byte
+# boundary: the kernels' element-load path in place of cp.async
+UNALIGNED_EDGE = ("unaligned views, bfloat16", 1, 100, torch.bfloat16, None,
+                  True)
+
+
+def unaligned(t):
+    """``t``'s values as a view one element into a wider buffer (a head
+    dimension of stride 0 kept so); 3-d and smaller tensors as they are."""
+    if t.dim() < 4:
+        return t
+    src = t[:, :, :1] if t.stride(2) == 0 else t
+    buf = torch.zeros(*src.shape[:-1], src.shape[-1] + 1, dtype=src.dtype,
+                      device=src.device)
+    buf[..., 1:] = src
+    return buf[..., 1:].expand(t.shape)
 
 
 def recurrence_compare(spec, args, kwargs):
@@ -1683,18 +1740,65 @@ def recurrence_compare(spec, args, kwargs):
     return float((got.float() - want.float()).abs().max())
 
 
-def recurrence_work(spec, args) -> tuple:
-    """(bytes, operations) the recurrence needs on these arguments: each
-    input's stored bytes once, the output once; 5 D² + 3 D (wkv6: r·S,
-    the state update and the bonus scalar Σ r u k) or 5 N P (ssd: the
-    state update and c·H) operations a step and head."""
+def recurrence_work(spec, args) -> dict:
+    """What the recurrence needs on these arguments: ``bytes``, each
+    input's stored bytes once and the output once; ``products`` and
+    ``other``, the operations of the chunked form the bfloat16 kernels
+    compute (chunks of CHUNK steps, the last one partial; per chunk of l
+    steps and head), its matrix products and the rest:
+
+      ssd:  G = C Bᵀ, l (l + 1) N (causal; once per batch where b and c
+            are shared over heads), M X, l (l + 1) P, C H_in and the state
+            update, 2 l N P each; other: the decays of M, l (l + 1), the
+            scalings of Y and X, 2 l P, H's decay, N P;
+      wkv6: A's pairs in different sub-chunks, 2 D each, A V over the
+            l (l + 1) / 2 pairs s <= t, 2 D each, q S_in and the state
+            update, 2 l D² each; other: the pairs inside a sub-chunk, 3 D
+            each (a power of two, a product, a sum), the operands' decays
+            and the cumsum, 8 l D, S's decay, D²;
+
+    and ``sequential``, the sequential form's operations: 5 D² + 3 D
+    (wkv6: r·S, the state update and the bonus scalar Σ r u k) or 5 N P
+    (ssd: the state update and c·H) a step and head."""
     out = args[0]
     nbytes = sum(stored_bytes(t) for t in args) + stored_bytes(out)
+    b, t, h, d = out.shape
+    lens = [min(CHUNK, t - t0) for t0 in range(0, t, CHUNK)]
     if spec["name"] == "wkv6":
-        b, t, h, d = out.shape
-        return nbytes, (5 * d * d + 3 * d) * b * t * h
-    b, t, h, p = out.shape
-    return nbytes, 5 * args[2].shape[-1] * p * b * t * h
+        def inside(n):        # pairs s <= t inside one chunk's sub-chunks
+            subs = [min(SUB_CHUNK, n - s0) for s0 in range(0, n, SUB_CHUNK)]
+            return sum(m * (m + 1) // 2 for m in subs)
+        products = sum(2 * d * (n * (n + 1) // 2 - inside(n))
+                       + 2 * d * n * (n + 1) // 2 + 4 * n * d * d
+                       for n in lens) * b * h
+        other = sum(3 * d * inside(n) + 8 * n * d + d * d
+                    for n in lens) * b * h
+        return {"bytes": nbytes, "products": products, "other": other,
+                "sequential": (5 * d * d + 3 * d) * b * t * h}
+    n_st = args[2].shape[-1]
+    g_copies = b if args[2].stride(2) == 0 and args[3].stride(2) == 0 \
+        else b * h
+    products = (sum(n * (n + 1) for n in lens) * n_st * g_copies
+                + sum(n * (n + 1) * d + 4 * n * n_st * d
+                      for n in lens) * b * h)
+    other = sum(n * (n + 1) + 2 * n * d + n_st * d for n in lens) * b * h
+    return {"bytes": nbytes, "products": products, "other": other,
+            "sequential": 5 * n_st * d * b * t * h}
+
+
+def recurrence_bound(work, dtype) -> tuple:
+    """The least time the card could take (ms) and what bounds it: bytes
+    at 3.35 TB/s against the chunked form's products at the tensor-core
+    rate of the type the kernel feeds them (bfloat16: 989 TFLOP/s) plus
+    its other operations at the float32 rate.  The float32 kernel computes
+    the sequential form: its operations at the float32 rate."""
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S
+    if dtype == torch.bfloat16:
+        t_ops = work["products"] / BF16_FLOPS + work["other"] / FP32_FLOPS
+    else:
+        t_ops = work["sequential"] / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_recurrence(dev, gen, cfg, spec, calls) -> dict:
@@ -1711,8 +1815,12 @@ def check_recurrence(dev, gen, cfg, spec, calls) -> dict:
         make = lambda b, t, dt, dc, sh: ssd_inputs(  # noqa: E731
             gen, dev, b, t, h, cfg.mamba_head_dim, cfg.ssm_state, dt, dc,
             sh)
-    for name, b, t, dt, decay, shared in RECURRENT_EDGES:
+    for name, b, t, dt, decay, shared in (*RECURRENT_EDGES, UNALIGNED_EDGE):
         args, kwargs = make(b, t, dt, decay, shared)
+        if name == UNALIGNED_EDGE[0]:
+            args = tuple(unaligned(a) for a in args)
+            check(all(a.storage_offset() % 8 for a in args if a.dim() == 4),
+                  "unaligned edge case: a view starts aligned")
         e = recurrence_compare(spec, args, kwargs)
         err = max(err, e)
         phase(f"{spec['path']}-kernel", case=json.dumps(name), b=b, t=t,
@@ -1723,21 +1831,29 @@ def check_recurrence(dev, gen, cfg, spec, calls) -> dict:
         e = recurrence_compare(spec, args, kwargs)
         err = max(err, e)
         ms = cuda_ms(lambda: spec["kernel"](*args, **kwargs))
+        dev_ms, via = device_ms(lambda: spec["kernel"](*args, **kwargs))
         plain_ms = cuda_ms(lambda: spec["plain"](*args, **kwargs), reps=3,
                            warmup=1)
-        nbytes, nops = recurrence_work(spec, args)
-        bound_ms, bound_by = bound(nbytes, nops, FP32_FLOPS)
+        work = recurrence_work(spec, args)
+        bound_ms, bound_by = recurrence_bound(work, args[0].dtype)
+        seq_bound_ms, seq_by = bound(work["bytes"], work["sequential"],
+                                     FP32_FLOPS)
         phase(f"{spec['path']}-kernel", name=spec["name"], shape="served",
               args=json.dumps([list(a.shape) for a in args]),
               strides=json.dumps([list(a.stride()) for a in args]),
               dtype=str(args[0].dtype).split(".")[1], max_abs_err=e, ms=ms,
-              plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-              bound_by=bound_by, share_of_bound=bound_ms / ms,
-              mb=nbytes / 1e6, gflop=nops / 1e9)
+              device_ms=dev_ms, device_ms_via=via, plain_ms=plain_ms,
+              library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+              share_of_bound=bound_ms / dev_ms, seq_bound_ms=seq_bound_ms,
+              seq_bound_by=seq_by, mb=work["bytes"] / 1e6,
+              product_gflop=work["products"] / 1e9,
+              other_gflop=work["other"] / 1e9,
+              seq_gflop=work["sequential"] / 1e9)
         record = {"name": spec["name"], "route": "cuda",
                   "source": spec["source"], "replaces": spec["replaces"],
-                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": bound_by, "library_ms": None}
+                  "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": None}
     check(record is not None, f"{spec['name']}: no call was recorded")
     record["max_abs_err"] = err
     return record
@@ -2383,10 +2499,10 @@ def main(argv=None) -> int:
             for ln in log.splitlines() if "registers" in ln]
     phase("build", seconds=round(built["seconds"], 3),
           kernels=",".join(built["logs"]), ptxas=json.dumps(regs))
-    hgmma = sass_counts("HGMMA")
-    phase("build", hgmma=json.dumps(hgmma))
-    for lib in TENSOR_CORE_KERNELS:
-        check(hgmma[lib] > 0, f"{lib}: no HGMMA instruction in its SASS")
+    sass = sass_counts(sorted(set(TENSOR_CORE_KERNELS.values())))
+    phase("build", sass=json.dumps(sass))
+    for lib, op in TENSOR_CORE_KERNELS.items():
+        check(sass[lib][op] > 0, f"{lib}: no {op} instruction in its SASS")
         spills = [ln.strip() for ln in built["logs"][lib].splitlines()
                   if "spill" in ln and not ln.strip().startswith(
                       "0 bytes stack frame, 0 bytes spill stores, "
@@ -2410,8 +2526,8 @@ def main(argv=None) -> int:
     # 27. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
-    # device_ms / library_device_ms: the tri-store kernels' times without
-    # host dispatch (device_ms), null where not measured
+    # device_ms / library_device_ms: the tri-store kernels' and the
+    # recurrences' times without host dispatch, null where not measured
     extra = ("device_ms", "library_device_ms")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r.get(k) for k in extra}}

@@ -11,7 +11,10 @@ Shapes: x (B, T, H, P), a (B, T, H), b, c (B, T, H, N).
 
   * :func:`ssd` — the kernel ``csrc/ssd.cu`` for CUDA tensors (it replaces
     the reference's Pallas ``ssd_hmajor``; its source note gives the design
-    and the bound), :func:`ssd_reference` for CPU tensors.  It takes the
+    and the bound), :func:`ssd_reference` for CPU tensors.  bfloat16 runs
+    the chunked form on the tensor cores (chunks of 64 steps, ``mma.sync``
+    with float32 operands split into two bfloat16 terms), float32 the
+    exact sequential recurrence; one launch either way.  It takes the
     framework layout with its strides: b and c may be the mamba block's one
     (B, T, N) matrix expanded over heads with stride 0, never copied per
     head.  The planner's ``ssd_pallas`` impl calls it.

@@ -10,9 +10,13 @@ with the data-dependent decay ``w_t`` in (0, 1) and the per-head bonus
 
   * :func:`wkv6` — the kernel ``csrc/wkv6.cu`` for CUDA tensors (it
     replaces the reference's Pallas ``wkv6_hmajor``; its source note gives
-    the design and the bound), :func:`wkv6_reference` for CPU tensors.  It
-    takes the (B, T, H, D) layout with its strides: nothing is transposed
-    or padded.  The planner's ``wkv6_pallas`` impl calls it.
+    the design and the bound), :func:`wkv6_reference` for CPU tensors.
+    bfloat16 runs the chunked form on the tensor cores (chunks of 64 steps,
+    sub-chunks of 16 whose boundaries keep every decay factor <= 1, no
+    clamp; ``mma.sync`` with float32 operands split into two bfloat16
+    terms), float32 the exact sequential recurrence; one launch either
+    way.  It takes the (B, T, H, D) layout with its strides: nothing is
+    transposed or padded.  The planner's ``wkv6_pallas`` impl calls it.
   * :func:`wkv6_reference` — the sequential recurrence with an initial
     state, returning ``(y, s_fin)``: the kernel's plain version and the
     decode step's one-token recurrence (the reference's ``ref.py``).

@@ -13,9 +13,11 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      and CUDA versions; fails without a card;
   2. build    — every CUDA kernel of ``src/repro_torch/kernels/csrc``, one
      ``nvcc`` each, all started together; ``ptxas -v``'s registers, and
-     the count of HGMMA (``wgmma``) and HMMA (``mma.sync``) instructions
-     in each library's SASS (``cuobjdump -sass``): flash_attention and
-     moe_gmm must have HGMMA, ssd and wkv6 HMMA, and none of them spills;
+     the count of HGMMA (``wgmma``), HMMA (``mma.sync``), MATCH, ATOMS
+     and ATOMS.CAST.SPIN instructions in each library's SASS
+     (``cuobjdump -sass``): flash_attention and moe_gmm must have HGMMA,
+     ssd and wkv6 HMMA, masked_segment_agg MATCH and shared-memory ATOMS;
+     none of the five spills;
 
   ``hashtag_pulse`` (tri-model analysis, slice 1):
 
@@ -23,9 +25,15 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      size from seed 0, and their copy to the card (set-up time);
   4. kernel   — scatter_add and masked_segment_agg against their plain
      PyTorch versions on the card, at the path's shapes and at edge cases
-     (scatter_add: one line each, ``[kernel-edge]``); CUDA-event medians
-     of the kernel, the plain version and one PyTorch library call, beside
-     the byte bound at 3.35 TB/s.  scatter_add is timed on the
+     (one line each, ``[kernel-edge]``; the group-by's include every row
+     on one key, the path's keys at the top ids, uniform keys over 131,072
+     and 2^22 + 3 groups that overflow its CTA tables, G = 1, views off
+     16-byte alignment and dyadic weights); call and device times
+     (``ms``, ``device_ms``, as in phase 8) of the kernel and of one
+     PyTorch library call, the plain version's CUDA-event median, beside
+     the byte bound at 3.35 TB/s (the group-by also prints an estimate of
+     its traffic at 32-byte sectors, ``sectors_mb_est``, computed from
+     its inputs, not measured).  scatter_add is timed on the
      dst-ordered edge copy the path hands it and on the same SpMV in CSR
      order (``csr_*``), with ``index_add_`` on each;
   5. main     — ``hashtag_pulse`` compiled through ``repro_torch.compile``
@@ -44,10 +52,10 @@ package.  Phases, one line each; any failure raises and exits non-zero:
   8. kernel   — masked_tfidf, join_probe and compact_prefix against their
      plain versions on the card, at the path's shapes and at edge cases, as
      in phase 4; scatter_add and masked_segment_agg again, on the very
-     arguments one run of the default plan gives them.  For scatter_add,
-     masked_tfidf, join_probe and compact_prefix ``ms`` is the call as a
-     path sees it (one event pair around one call, host dispatch
-     included) and ``device_ms`` the card's work alone: 64 calls captured
+     arguments one run of the default plan gives them.  For the five
+     tri-store kernels ``ms`` is the call as a path sees it (one event
+     pair around one call, host dispatch included) and ``device_ms`` the
+     card's work alone: 64 calls captured
      in one CUDA graph, replayed between an event pair, over 64 (where a
      call cannot be captured, its kernels' time under ``torch.profiler``,
      and the line says so); the library call gets both too;
@@ -394,27 +402,33 @@ WINDOW_PLANS = {
 }
 
 
-# the kernels whose bfloat16 path runs on the tensor cores, and the SASS
-# opcode it must hold (HGMMA: wgmma; HMMA: mma.sync); ptxas must report no
-# spills for them
-TENSOR_CORE_KERNELS = {"flash_attention": "HGMMA", "moe_gmm": "HGMMA",
-                       "ssd": "HMMA", "wkv6": "HMMA"}
+# the SASS opcodes each library must hold: the tensor-core kernels'
+# bfloat16 path (HGMMA: wgmma; HMMA: mma.sync) and the group-by's on-chip
+# reduction (MATCH: the warp match; ATOMS: its shared-memory table); ptxas
+# must report no spills for them
+SASS_REQUIRED = {"flash_attention": ("HGMMA",), "moe_gmm": ("HGMMA",),
+                 "ssd": ("HMMA",), "wkv6": ("HMMA",),
+                 "masked_segment_agg": ("MATCH", "ATOMS")}
+# counted beside them, not required: the shared float64 add compiled as a
+# compare-and-swap loop (ATOMS.CAST.SPIN.64)
+SASS_COUNTED = ("ATOMS.CAST.SPIN",)
 
 
 def sass_counts(opcodes) -> dict:
-    """How often each of ``opcodes`` appears in each built library's SASS
-    (``{library: {opcode: count}}``), from the toolkit's
-    ``cuobjdump -sass`` (or Triton's copy of it)."""
+    """How often each of ``opcodes`` (an opcode, or its first modifiers:
+    ``ATOMS`` counts ``ATOMS.CAS`` too) appears in each built library's
+    SASS, from the toolkit's ``cuobjdump -sass`` (or Triton's copy of it):
+    ``{library: {opcode: count}}``."""
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     if not tool.exists():
         import triton
         tool = Path(triton.__file__).parent / "backends/nvidia/bin/cuobjdump"
     out = {}
     for name in build.sources():
-        sass = subprocess.run([str(tool), "-sass", str(build.lib_path(name))],
-                              capture_output=True, text=True, check=True,
-                              timeout=120).stdout
-        out[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+        text = subprocess.run(
+            [str(tool), "-sass", str(build.lib_path(name))],
+            capture_output=True, text=True, check=True, timeout=120).stdout
+        out[name] = {op: len(re.findall(rf"\b{re.escape(op)}\b", text))
                      for op in opcodes}
     return out
 
@@ -622,10 +636,70 @@ def check_scatter(dev, gen, calls, unordered=None):
             "bound_ms": bound_ms, "bound_by": bound_by, **t, **csr}
 
 
+def segment_agg_edges(dev, gen, call) -> list:
+    """masked_segment_agg's edge cases: ``(case, vals, keys, mw,
+    n_groups)``.  ``call``: the path's arguments, whose keys and values two
+    cases reuse.  Several break the kernel's CTA table: one key for every
+    row, hot keys at the top ids, more distinct keys a CTA than slots (the
+    rows spill to the global atomics), G = 1, views off mw's 16-byte
+    alignment (single rows before the first quad and after the last)."""
+    def rand(r):
+        return torch.rand(r, generator=gen, device=dev)
+
+    def ints(lo, hi, r):
+        return torch.randint(lo, hi, (r,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def mask(r, p):
+        return (rand(r) < p).to(torch.float32)
+
+    vals, keys, mw, n = call
+    big = 2 ** 22 + 3
+    vb, kb, wb = rand(100_004), ints(-1, 1002, 100_004), mask(100_004, 0.5)
+    dyadic = torch.tensor([0.0, 0.5, 1.0, 2.0], device=dev)[
+        ints(0, 4, min(300_000, int(keys.shape[0])))]
+    r_dy = int(dyadic.shape[0])
+    return [
+        ("no rows", rand(0), ints(0, 1000, 0), mask(0, 0.5), 1000),
+        ("random -1 and >= G padding", rand(5000), ints(-1, 1002, 5000),
+         mask(5000, 0.5), 1000),
+        ("all-zero mask", rand(5000), ints(-1, 1002, 5000),
+         mask(5000, 0.0), 1000),
+        ("G 131,073 (G % 128 != 0)", rand(777), ints(-1, 131_075, 777),
+         mask(777, 0.3), 131_073),
+        ("every row active on one key, R 5M", rand(5_000_000),
+         torch.full((5_000_000,), 7, dtype=torch.int32, device=dev),
+         mask(5_000_000, 1.0), 1000),
+        ("the path's keys at the top ids, G - 1 - k", vals,
+         (n - 1 - keys).to(torch.int32), mw, n),
+        ("uniform keys over G 131,072, R 4M", rand(4_000_000),
+         ints(0, 131_072, 4_000_000), mask(4_000_000, 0.5), 131_072),
+        ("uniform keys over G 2^22 + 3, R 4M", rand(4_000_000),
+         ints(0, big, 4_000_000), mask(4_000_000, 0.5), big),
+        ("G 1, keys -1 / 0 / 1", rand(5000), ints(-1, 2, 5000),
+         mask(5000, 0.5), 1),
+        ("misaligned views vals[1:], keys[1:], mw[1:], R % 4 == 3",
+         vb[1:], kb[1:], wb[1:], 1000),
+        ("views at rows 3 / 2 / 1, R 100,001 (R % 4 == 1)",
+         vb[3:100_004], kb[2:100_003], wb[1:100_002], 1000),
+        ("R 3, views at row 1", vb[1:4], kb[1:4], wb[1:4], 1000),
+        ("dyadic weights 0 / 0.5 / 1 / 2 on the path's keys", vals[:r_dy],
+         keys[:r_dy], dyadic, n),
+    ]
+
+
+def sector_bytes(t, rows) -> int:
+    """Bytes of the 32-byte DRAM sectors of 4-byte ``t`` that hold the
+    sorted ``rows``."""
+    sec = (t.data_ptr() % 32 + 4 * rows) // 32
+    return 32 * int(torch.unique_consecutive(sec).numel())
+
+
 def check_segment_agg(dev, gen, calls):
     """masked_segment_agg on each of ``calls``, the ``(vals, keys, mw,
-    n_groups)`` the path gives it, and at the edge cases; the first call is
-    timed.  Returns its JSON record."""
+    n_groups)`` the path gives it, and at the edge cases (one line each,
+    ``[kernel-edge]``); the first call is timed.  Returns its JSON
+    record."""
     err = 0.0
     for vals, keys, mw, n_groups in calls:
         s, c = masked_segment_agg(vals, keys, mw, n_groups)
@@ -633,44 +707,49 @@ def check_segment_agg(dev, gen, calls):
         torch.testing.assert_close(s, ps, rtol=RTOL, atol=ATOL)
         check(torch.equal(c, pc), "masked_segment_agg: counts differ")
         err = max(err, float((s - ps).abs().max()))
-    vals, keys, mw, n_groups = calls[0]
-    # edge cases: no rows; -1 and out-of-range keys; all-zero mask;
-    # G % 128 != 0
-    for r, gg, p in ((0, 1000, 0.5), (5000, 1000, 0.5), (5000, 1000, 0.0),
-                     (777, 131_073, 0.3)):
-        v = torch.rand(r, generator=gen, device=dev)
-        k = torch.randint(-1, gg + 2, (r,), generator=gen, device=dev,
-                          dtype=torch.int32)
-        w = (torch.rand(r, generator=gen, device=dev) < p).to(torch.float32)
+    for case, v, k, w, gg in segment_agg_edges(dev, gen, calls[0]):
         s2, c2 = masked_segment_agg(v, k, w, gg)
         ps2, pc2 = masked_segment_agg_plain(v, k, w, gg)
         torch.testing.assert_close(s2, ps2, rtol=RTOL, atol=ATOL)
-        check(torch.equal(c2, pc2), "masked_segment_agg: edge counts differ")
-        if p == 0.0:
+        check(torch.equal(c2, pc2),
+              f"masked_segment_agg: edge counts differ ({case})")
+        if not bool(w.any()):
             check(not bool(c2.any()), "all-zero mask gave counts")
-    ms = cuda_ms(lambda: masked_segment_agg(vals, keys, mw, n_groups))
-    plain_ms = cuda_ms(
-        lambda: masked_segment_agg_plain(vals, keys, mw, n_groups))
+        phase("kernel-edge", name="masked_segment_agg",
+              case=json.dumps(case), R=int(k.shape[0]), G=gg,
+              R_active=int((w != 0).sum()),
+              max_abs_err=float((s2 - ps2).abs().max()))
+    vals, keys, mw, n_groups = calls[0]
     vw = vals * mw
 
     def library():
         torch.zeros(n_groups, device=dev).index_add_(0, keys, vw)
         torch.zeros(n_groups, device=dev).index_add_(0, keys, mw)
 
-    lib_ms = cuda_ms(library)
+    t = timings(lambda: masked_segment_agg(vals, keys, mw, n_groups),
+                library)
+    plain_ms = cuda_ms(
+        lambda: masked_segment_agg_plain(vals, keys, mw, n_groups))
     r = int(keys.shape[0])
-    active = int((mw != 0).sum())
+    rows = torch.nonzero(mw != 0).flatten()
+    active = int(rows.numel())
     bound_ms, bound_by = bound(4 * r + 8 * active + 8 * n_groups,
                                3 * active, FP64_FLOPS)
+    # an estimate, computed and not measured: the same traffic at DRAM's
+    # 32-byte sectors (every sector of mw, the sectors of keys and vals
+    # that hold an active row, the outputs)
+    sectors_mb_est = (32 * ((mw.data_ptr() % 32 + 4 * r + 31) // 32)
+                      + sector_bytes(keys, rows) + sector_bytes(vals, rows)
+                      + 8 * n_groups) / 1e6
     phase("kernel", name="masked_segment_agg", R=r, R_active=active,
-          G=n_groups, calls=len(calls), max_abs_err=err, ms=ms,
-          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-          share_of_bound=bound_ms / ms)
+          G=n_groups, calls=len(calls), max_abs_err=err, plain_ms=plain_ms,
+          bound_ms=bound_ms, share_of_bound=bound_ms / t["device_ms"],
+          sectors_mb_est=sectors_mb_est, **t)
     return {"name": "masked_segment_agg", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/masked_segment_agg.cu",
             "replaces": "src/repro/stores/masked_kernels.py:311",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": err, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, **t}
 
 
 # -- phases 5-6: the main path --------------------------------------------
@@ -2499,10 +2578,14 @@ def main(argv=None) -> int:
             for ln in log.splitlines() if "registers" in ln]
     phase("build", seconds=round(built["seconds"], 3),
           kernels=",".join(built["logs"]), ptxas=json.dumps(regs))
-    sass = sass_counts(sorted(set(TENSOR_CORE_KERNELS.values())))
+    sass = sass_counts(sorted({op for ops in SASS_REQUIRED.values()
+                               for op in ops} | set(SASS_COUNTED)))
     phase("build", sass=json.dumps(sass))
-    for lib, op in TENSOR_CORE_KERNELS.items():
-        check(sass[lib][op] > 0, f"{lib}: no {op} instruction in its SASS")
+    for lib, ops in SASS_REQUIRED.items():
+        for op in ops:
+            check(sass[lib][op] > 0,
+                  f"{lib}: no {op} instruction in its SASS")
+    for lib in SASS_REQUIRED:
         spills = [ln.strip() for ln in built["logs"][lib].splitlines()
                   if "spill" in ln and not ln.strip().startswith(
                       "0 bytes stack frame, 0 bytes spill stores, "

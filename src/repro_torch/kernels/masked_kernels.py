@@ -100,9 +100,10 @@ def masked_segment_agg(vals: torch.Tensor, keys: torch.Tensor,
     if r == 0 or g == 0:
         out = torch.zeros(2, g, dtype=torch.float32, device=vals.device)
         return out[0], out[1]
-    # float64 scratch (sums, counts), rounded into ``out`` by the kernel;
-    # freeing it on return is safe in stream order, as in scatter_add
-    acc = torch.zeros(2, g, dtype=torch.float64, device=vals.device)
+    # float64 scratch (sums, counts), zeroed by the entry and rounded into
+    # ``out``; freeing it on return is safe in stream order, as in
+    # scatter_add
+    acc = torch.empty(2, g, dtype=torch.float64, device=vals.device)
     out = torch.empty(2, g, dtype=torch.float32, device=vals.device)
     fn = build.entry("masked_segment_agg", "masked_segment_agg_f32",
                      *[_P] * 5, _LL, _I, _P)

@@ -70,6 +70,46 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      unpushed (top-64 ids and scores bitwise); default against unfused
      (top-64 equal, output allclose); two card runs (top-64 bitwise);
 
+  ``tri_influence`` (the influencer rollup: the tri-model analysis with a
+  non-unique, capacity-bounded join, slice 10):
+
+ 10a. data    — ``benchmarks/tri_store_sharded.py``'s one-shard workload
+     from seed 0 (``repro_torch.examples.tri_influence``): 8M tweets (cut
+     from 10M: the join's ``capacity = tweets`` must stay below its 2^23
+     guard), 1M documents, 131,072 hashtags with 1,310,720 random pairs
+     made symmetric, 65,536 influencer rows with non-unique ``user`` keys;
+     their copy to the card (set-up time);
+ 10b. main    — the analysis through ``repro_torch.compile``: the chosen
+     impls (the bounded join fused into a group-by chain,
+     ``rel_fused_agg_pallas``) and the kernel launches of one run, both
+     exact, and the median wall time of 5 runs, as in phase 5;
+ 10c. check   — the card against the port's plain path on the CPU at the
+     same size: the three per-hashtag rollups and the output allclose, the
+     top-64 doc ids exact, the bounded join (``hash_join_nonunique`` on the
+     plan's viral tweets and the influencer table) equal in every slot,
+     count and overflow; a second card run bitwise equal to the first;
+ 10d. kernel  — masked_segment_agg and scatter_add on the very arguments
+     one run gives them (the join-fed group-by first: R = 8M slots, the
+     join's ~3M matches a valid prefix), timed as in phase 8; their edge
+     cases ran in phases 4 and 8;
+ 10e. join-edge — ``hash_join_nonunique`` on the card equal to the CPU in
+     every slot: the path's join at capacity 2^20 (overflow, count =
+     capacity), 5,000 x 5,000 equal keys at capacity 1,000 (25M true
+     matches, past 2^24), an empty probe side, an empty build side, and
+     invalid build rows among equal keys;
+ 10f. append  — 80,000 tweets and 10,000 documents (1 %, seed 1) appended
+     on the host: versions bump, recompiling misses the plan cache with a
+     new plan id and then hits; the run over the appended stores bitwise
+     equal to the same analysis over stores built fresh from the
+     concatenated arrays (join capacity still 8M);
+ 10g. tricount — ``graph_tricount`` planned (``graph_tricount_csr``: one
+     dense float32 n x n product) on a symmetric random graph of 16,384
+     nodes, 10 pairs a node: exactly equal to the host's int64 count by
+     edge-list intersection, divided by 6 in float32; its time;
+ 10h. collections — an ADIL program that maps a one-op subplan (relu²)
+     over a ListT of 8 float32 vectors of 131,072 values, filters them by
+     their max and folds the kept ones: card bitwise equal to the CPU;
+
   ``qwen3_serve`` (qwen3-0.6b served by the async runtime, slice 3):
 
  11. data     — qwen3-0.6b at full width (28 layers, d_model 1024, 16 / 8
@@ -206,6 +246,7 @@ package.  Phases, one line each; any failure raises and exits non-zero:
 
  27. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
+``--paths a,b`` runs only the named paths (``[time]`` lines name them).
 With ``--profile`` it also runs each path's default plan (a second serve
 of the qwen3 and dbrx traces on the same runtime; for each recurrent
 family a serve of one request of 100 prompt tokens) once under
@@ -263,14 +304,17 @@ import torch  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.adil import Analysis  # noqa: E402
 from repro_torch.core.adil_parser import parse_adil  # noqa: E402
 from repro_torch.core.engines import dispatch  # noqa: E402
 from repro_torch.core.executor import (ExecContext,  # noqa: E402
                                        plan_and_compile, run_plan_subset)
-from repro_torch.core.ir import (SystemCatalog, hardware_for_device,  # noqa
+from repro_torch.core.ir import (ListT, Plan, SystemCatalog,  # noqa: E402
+                                 TensorT, hardware_for_device,
                                  standard_catalog)
 from repro_torch.core.rewrite import (DEFAULT_PIPELINE,  # noqa: E402
                                       UNPUSHED_PIPELINE)
+from repro_torch.examples import tri_influence  # noqa: E402
 from repro_torch.examples import windowed_ranking  # noqa: E402
 from repro_torch.examples.tri_model_analysis import (  # noqa: E402
     adil_script, build_social_data, inputs_for)
@@ -299,7 +343,10 @@ from repro_torch.models.decode import (DecodeGraph,  # noqa: E402
                                        decode_step_batched, init_cache)
 from repro_torch.serving import (AsyncServingRuntime,  # noqa: E402
                                  ServeRequest, bucket_len, serve_sequential)
-from repro_torch.stores import TextStore, graph_store, runtime  # noqa: E402
+from repro_torch.stores import (ColumnStore, GraphStore,  # noqa: E402
+                                TextStore, graph_store, runtime)
+from repro_torch.stores.column_store import (  # noqa: E402
+    hash_join_nonunique)
 from repro_torch.stores.text_store import tfidf_scores  # noqa: E402
 
 FULL = {"tweets": 10_000_000, "users": 500_000, "hashtags": 131_072,
@@ -309,6 +356,17 @@ FULL = {"tweets": 10_000_000, "users": 500_000, "hashtags": 131_072,
 WINDOW = {"tweets": 10_000_000, "hashtags": 131_072, "edges": 6_000_000,
           "vocab": 65_536, "terms_lo": 12, "terms_hi": 20}
 SELECTIVITY = 0.01
+# tri_influence: benchmarks/tri_store_sharded.py's one-shard workload at
+# the recipe's sizes (7.5 tweets a document, ~10 graph pairs a hashtag)
+INFLUENCE = {"tweets": 8_000_000, "docs": 1_000_000, "hashtags": 131_072,
+             "edges": 1_310_720, "vocab": 65_536, "terms_hi": 8, "iters": 3,
+             "influencers": 65_536,
+             "cut": "tweets 10M -> 8M: the join's capacity = tweets must "
+                    "stay below its 2^23 guard (8,388,608)"}
+APPEND = {"tweets": 80_000, "docs": 10_000, "seed": 1}
+JOIN_EDGE_CAP = 1 << 20       # below the path's ~3.0M matches: overflow
+TRICOUNT = {"nodes": 16_384, "pairs_per_node": 10}
+COLLECTION = {"vectors": 8, "length": 131_072}
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP64_FLOPS = 34e12              # H100 SXM data sheet, outside tensor cores
@@ -400,6 +458,18 @@ WINDOW_PLANS = {
         "graph_expand_pallas": 1, "residual_add_xla": 1, "store": 1}),
         launch_counts(scatter_add=2)),
 }
+
+
+# the influencer rollup's plan at 8M tweets: chosen impls (the bounded
+# join fused into a group-by chain, rel_fused_agg_pallas) and the kernel
+# launches of one run (2 expansion hops + 3 PageRank iterations; the
+# text join's and the bounded join's group-bys)
+INFLUENCE_IMPLS = Counter({
+    "rel_scan_col": 1, "rel_fused_col": 1, "rel_group_agg_col": 1,
+    "col_tensor_rel": 3, "xfer_pin": 6, "graph_expand_pallas": 1,
+    "graph_pagerank_pallas": 1, "text_topk_inv": 1,
+    "rel_fused_agg_pallas": 2, "residual_add_xla": 2, "store": 1})
+INFLUENCE_LAUNCHES = launch_counts(scatter_add=5, masked_segment_agg=2)
 
 
 # the SASS opcodes each library must hold: the tensor-core kernels'
@@ -591,18 +661,19 @@ def scatter_edges(dev, gen) -> list:
     ]
 
 
-def check_scatter(dev, gen, calls, unordered=None):
+def check_scatter(dev, gen, calls, unordered=None, edges=True):
     """scatter_add on each of ``calls``, the ``(vals, dst, n_nodes)`` the
-    path gives it (the dst-ordered edge copy), and at the edge cases; the
-    first call is timed, and so is ``unordered``, the same SpMV's arguments
-    in CSR (source) order, where given.  Returns its JSON record."""
+    path gives it (the dst-ordered edge copy), and at the edge cases unless
+    ``edges`` is false; the first call is timed, and so is ``unordered``,
+    the same SpMV's arguments in CSR (source) order, where given.  Returns
+    its JSON record."""
     err = 0.0
     for vals, dst, n_nodes in calls + ([unordered] if unordered else []):
         got, want = scatter_add(vals, dst, n_nodes), scatter_add_plain(
             vals, dst, n_nodes)
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
         err = max(err, float((got - want).abs().max()))
-    for case, v, d, n in scatter_edges(dev, gen):
+    for case, v, d, n in scatter_edges(dev, gen) if edges else ():
         got, want = scatter_add(v, d, n), scatter_add_plain(v, d, n)
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
         phase("kernel-edge", name="scatter_add", case=json.dumps(case),
@@ -695,11 +766,11 @@ def sector_bytes(t, rows) -> int:
     return 32 * int(torch.unique_consecutive(sec).numel())
 
 
-def check_segment_agg(dev, gen, calls):
+def check_segment_agg(dev, gen, calls, edges=True):
     """masked_segment_agg on each of ``calls``, the ``(vals, keys, mw,
-    n_groups)`` the path gives it, and at the edge cases (one line each,
-    ``[kernel-edge]``); the first call is timed.  Returns its JSON
-    record."""
+    n_groups)`` the path gives it, and at the edge cases unless ``edges``
+    is false (one line each, ``[kernel-edge]``); the first call is timed.
+    Returns its JSON record."""
     err = 0.0
     for vals, keys, mw, n_groups in calls:
         s, c = masked_segment_agg(vals, keys, mw, n_groups)
@@ -707,7 +778,8 @@ def check_segment_agg(dev, gen, calls):
         torch.testing.assert_close(s, ps, rtol=RTOL, atol=ATOL)
         check(torch.equal(c, pc), "masked_segment_agg: counts differ")
         err = max(err, float((s - ps).abs().max()))
-    for case, v, k, w, gg in segment_agg_edges(dev, gen, calls[0]):
+    for case, v, k, w, gg in (segment_agg_edges(dev, gen, calls[0])
+                              if edges else ()):
         s2, c2 = masked_segment_agg(v, k, w, gg)
         ps2, pc2 = masked_segment_agg_plain(v, k, w, gg)
         torch.testing.assert_close(s2, ps2, rtol=RTOL, atol=ATOL)
@@ -1256,6 +1328,366 @@ def window_path(args, dev, syscat) -> list:
           score_max_abs_err_cpu=float((score_a.cpu() - score_c).abs().max()),
           cpu_plain_s=round(t_cpu, 3))
     return [rec for _plan, rec in records]
+
+
+# -- phases 10a-10h: the influencer rollup ---------------------------------
+
+
+def influence_rollups(fn, env) -> list:
+    """The three per-hashtag rollups (seed counts, text relevance,
+    influence: the col_tensor nodes, in plan order) of one run."""
+    return [env[n.id] for n in fn.concrete.topo()
+            if n.impl == "col_tensor_rel"]
+
+
+def influence_outputs(fn, env) -> dict:
+    """What the check phase compares of one run: the plan output, the
+    three rollups, the top-64 doc ids and the viral tweets (the fused
+    filter chain's relation, the join's probe side)."""
+    hits, out = hits_and_score(fn, env)
+    return {"out": out, "rollups": influence_rollups(fn, env),
+            "hits": hits.cols["doc"],
+            "viral": node_out(fn, env, "rel_fused_col")}
+
+
+def same_join(got, want) -> bool:
+    """Two ``hash_join_nonunique`` results equal in every slot (placeholders
+    included), count and overflow."""
+    return all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
+
+
+def join_edges(dev, viral, infl) -> list:
+    """``hash_join_nonunique``'s cases on the card: ``(case, lkeys, lmask,
+    rkeys, rmask, capacity)``.  The build rows of the last case repeat 64
+    keys 50 times each, half of them invalid (~2.2M matches, no
+    overflow)."""
+    rng = np.random.RandomState(SEED)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    same = t(np.full(5000, 7, np.int32))
+    ones = t(np.ones(5000, bool))
+    e_k, e_m = t(np.zeros(0, np.int32)), t(np.zeros(0, bool))
+    rk = np.repeat(np.arange(64, dtype=np.int32), 50)
+    return [
+        ("the path's join at capacity 2^20 (overflow)", viral.cols["user"],
+         viral.valid, infl.cols["user"], infl.valid, JOIN_EDGE_CAP),
+        ("5,000 x 5,000 equal keys (25M matches), capacity 1,000", same,
+         ones, same, ones, 1000),
+        ("empty probe side", e_k, e_m, infl.cols["user"], infl.valid, 4096),
+        ("empty build side", viral.cols["user"], viral.valid, e_k, e_m,
+         4096),
+        ("invalid build rows among equal keys",
+         t(rng.randint(-1, 66, 100_000).astype(np.int32)),
+         t(rng.rand(100_000) < 0.9), t(rk[rng.permutation(rk.size)]),
+         t(rng.rand(rk.size) < 0.5), 1 << 22),
+    ]
+
+
+def check_join_edges(dev, viral, infl):
+    """hash_join_nonunique on the card at each of :func:`join_edges`,
+    equal in every slot to the same join on the CPU."""
+    for case, lk, lm, rk, rm, cap in join_edges(dev, viral, infl):
+        got = hash_join_nonunique(lk, lm, rk, rm, cap)
+        want = hash_join_nonunique(lk.cpu(), lm.cpu(), rk.cpu(), rm.cpu(),
+                                   cap)
+        check(same_join(got, want), f"join-edge {case}: card != CPU")
+        count, overflow = int(got[3]), bool(got[4])
+        if "overflow" in case or "25M" in case:
+            check(overflow and count == cap, f"join-edge {case}: count "
+                                             f"{count}, overflow {overflow}")
+        if "empty" in case:
+            check(count == 0 and not overflow, f"join-edge {case}: {count}")
+        if "invalid" in case:
+            v = got[2]
+            check(bool(rm[got[1][v].long()].all()), "an invalid build row "
+                                                     "matched")
+        phase("join-edge", case=json.dumps(case), L=int(lk.shape[0]),
+              R=int(rk.shape[0]), cap=cap, count=count, overflow=overflow,
+              equal_cpu=True)
+
+
+def triangle_oracle(src, dst, n) -> int:
+    """Σ(A ∘ A²) of the 0/1 adjacency with an edge at every ``(src, dst)``,
+    in int64 on the host, by edge-list intersection: each 2-path ``i -> k
+    -> j`` whose ``(i, j)`` is an edge counts once."""
+    keys = np.unique(np.asarray(src, np.int64) * n + np.asarray(dst))
+    i, k = np.divmod(keys, n)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(i, minlength=n))])
+    reps = np.diff(indptr)[k]                  # the 2-paths through (i, k)
+    first = indptr[k] - (np.cumsum(reps) - reps)
+    j = k[np.repeat(first, reps) + np.arange(int(reps.sum()))]
+    paths = np.repeat(i, reps) * n + j
+    pos = np.clip(np.searchsorted(keys, paths), 0, keys.size - 1)
+    return int((keys[pos] == paths).sum())
+
+
+def check_append(dev, syscat, analysis, stores, arrays, query, inputs):
+    """Phase 10f: appends 1 % more tweets and documents (from seed 1) on
+    the host, re-plans (a plan-cache miss with a new plan id, then a hit),
+    and holds the appended stores' run on the card bitwise against the
+    same analysis over stores built fresh from the concatenated arrays."""
+    table, graph, corpus, infl = stores
+    size = INFLUENCE
+    rng = np.random.RandomState(APPEND["seed"])
+    new_cols = tri_influence.tweet_columns(rng, APPEND["tweets"],
+                                           size["hashtags"])
+    new_cols["doc"] = np.arange(table.rows, table.rows + APPEND["tweets"],
+                                dtype=np.int32)
+    terms, lengths = tri_influence.corpus_terms(rng, APPEND["docs"],
+                                                size["vocab"],
+                                                size["terms_hi"])
+    cache = PlanCache()
+    fn0 = repro_torch.compile(analysis, syscat, device="cuda", cache=cache)
+    repro_torch.compile(analysis, syscat, device="cuda", cache=cache)
+    check(cache.hits == 1, f"recompiling missed the plan cache: {cache.hits}")
+    versions = (table.version, corpus.version)
+    t0 = time.perf_counter()
+    table.append(new_cols)
+    corpus.append(np.split(terms, np.cumsum(lengths)[:-1]))
+    append_s = time.perf_counter() - t0
+    check((table.version, corpus.version) == (versions[0] + 1,
+                                              versions[1] + 1),
+          "append did not bump the stores' versions")
+    fn1 = repro_torch.compile(analysis, syscat, device="cuda", cache=cache)
+    check(fn1.plan_id != fn0.plan_id and cache.hits == 1,
+          "the appended stores reused the stale plan")
+    fn1b = repro_torch.compile(analysis, syscat, device="cuda", cache=cache)
+    check(fn1b.plan_id == fn1.plan_id and cache.hits == 2,
+          "recompiling after the append missed the plan cache")
+    caps = [a["capacity"] for n in fn1.concrete.topo()
+            if n.impl == "rel_fused_agg_pallas"
+            for op, a, _s, _t in n.attrs["chain"] if op == "bounded_join"]
+    check(caps == [size["tweets"]], f"join capacity attrs {caps}")
+    fresh_table = ColumnStore({k: np.concatenate([v, new_cols[k]])
+                               for k, v in arrays["tweets"].items()})
+    fresh_corpus = TextStore.from_flat(
+        np.concatenate([arrays["terms"], terms]),
+        np.concatenate([arrays["lengths"], lengths]), size["vocab"])
+    for name in ("doc_ids", "term_ids", "tf", "doc_len", "idf"):
+        check(np.array_equal(getattr(corpus, name),
+                             getattr(fresh_corpus, name)),
+              f"appended corpus {name} differs from a fresh index")
+    fresh = tri_influence.influence_rollup(
+        fresh_table, graph, fresh_corpus, infl, iters=size["iters"],
+        capacity=size["tweets"])
+    fn_fresh = repro_torch.compile(fresh, syscat, device="cuda", cache=False)
+    check(fn_fresh.chosen_impls() == fn1.chosen_impls(),
+          "the fresh stores' plan differs from the appended stores'")
+    t0 = time.perf_counter()
+    appended = {**inputs, "tweets": table.payload(dev),
+                "cx": corpus.payload(dev)}
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    rebuilt = {**inputs, "tweets": fresh_table.payload(dev),
+               "cx": fresh_corpus.payload(dev)}
+    got = influence_outputs(fn1, run_env(fn1, appended))
+    want = influence_outputs(fn_fresh, run_env(fn_fresh, rebuilt))
+    for k in ("out", "hits"):
+        check(torch.equal(got[k], want[k]), f"append: {k} differs bitwise "
+                                            f"from the fresh stores'")
+    for a, b in zip(got["rollups"], want["rollups"]):
+        check(torch.equal(a, b), "append: a rollup differs bitwise")
+    check(bool(got["out"].isfinite().all()), "append: output not finite")
+    phase("append", tweets=table.rows, docs=corpus.n_docs,
+          postings=corpus.n_postings, versions=json.dumps(
+              [table.version, corpus.version]),
+          plan_id=fn1.plan_id[:12], stale_plan_id=fn0.plan_id[:12],
+          cache_hits=cache.hits, join_capacity=caps[0],
+          append_s=round(append_s, 3), h2d_s=round(h2d_s, 3),
+          bitwise_fresh=True)
+
+
+def check_tricount(dev, syscat):
+    """Phase 10g: ``graph_tricount`` planned (``graph_tricount_csr``) and
+    run on the card over a symmetric random graph, exactly equal to the
+    host's integer count divided by 6 in float32; its time."""
+    n = TRICOUNT["nodes"]
+    rng = np.random.RandomState(SEED)
+    pairs = rng.randint(0, n, (2, n * TRICOUNT["pairs_per_node"]))
+    graph = GraphStore.from_edges(pairs[0], pairs[1], n, symmetric=True)
+    with Analysis("tricount", standard_catalog()) as a:
+        a.store(a.op("graph_tricount", a.bind("g", graph)))
+    fn = repro_torch.compile(a, syscat, device="cuda")
+    check("graph_tricount_csr" in fn.chosen_impls(),
+          f"tricount impls {fn.chosen_impls()}")
+    g = graph.payload(dev)
+    torch.cuda.reset_peak_memory_stats()
+    got = fn({}, {"g": g})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    s = triangle_oracle(graph.src, graph.indices, n)
+    oracle_s = time.perf_counter() - t0
+    want = float(np.float32(s) / np.float32(6.0))
+    check(float(got) == want, f"triangle count {float(got)} != {want}")
+    ms = cuda_ms(lambda: fn({}, {"g": g}), reps=5, warmup=1)
+    # 2 n^3 for A @ A, n^2 for the product and the sum: float32 math
+    bound_ms, bound_by = bound(4 * (2 * graph.n_edges + n + 1) + 4,
+                               2 * n ** 3 + 2 * n ** 2, FP32_FLOPS)
+    phase("tricount", nodes=n, edges=graph.n_edges, sum_a_a2=s,
+          triangles=float(got), exact=True, ms=ms, bound_ms=bound_ms,
+          bound_by=bound_by, peak_mem_gb=round(peak, 3),
+          oracle_s=round(oracle_s, 3))
+
+
+KEEP = (lambda v: float(v.max()) > 1.5)             # noqa: E731
+FOLD = (lambda acc, v: acc * 0.5 + v)               # noqa: E731
+
+
+def check_collections(dev, syscat):
+    """Phase 10h: an ADIL program that maps a one-op subplan (relu² by
+    ``ffn_act``) over a ListT of float32 vectors, filters them by their
+    max and folds the kept ones, on the card and on the CPU: bitwise equal
+    (every step is one correctly rounded elementwise operation)."""
+    size, length = COLLECTION["vectors"], COLLECTION["length"]
+    vec = TensorT((length,), "float32", ("vocab",))
+    with Analysis("collections", standard_catalog()) as a:
+        xs = a.input("xs", ListT(vec, size))
+        body = Plan("body")
+        body.add_input("x", vec)
+        body.set_outputs(body.add("ffn_act", ["x"], {"act": "relu2"}))
+        a.store(a.reduce(a.filter(a.map(xs, body), KEEP), FOLD))
+    fn = repro_torch.compile(a, syscat, device="cuda")
+    fn_cpu = repro_torch.compile(a, syscat, device="cpu")
+    check(fn.chosen_impls() == ["map", "filter", "reduce", "store"],
+          f"collection impls {fn.chosen_impls()}")
+    rng = np.random.RandomState(SEED)
+    vals = [(rng.randn(length) * s).astype(np.float32)
+            for s in np.linspace(0.1, 1.0, size)]
+    card = [torch.from_numpy(v).to(dev) for v in vals]
+    got = fn({}, {"xs": card})
+    want = fn_cpu({}, {"xs": [torch.from_numpy(v) for v in vals]})
+    check(torch.equal(got.cpu(), want), "collections: card != CPU")
+    kept = sum(KEEP(np.square(np.maximum(v, 0))) for v in vals)
+    check(0 < kept < size, f"the filter kept {kept} of {size}")
+    ms = cuda_ms(lambda: fn({}, {"xs": card}), reps=5, warmup=1)
+    phase("collections", vectors=size, length=length, kept=int(kept),
+          bitwise_cpu=True, ms=ms)
+
+
+def influence_path(args, dev, syscat) -> list:
+    """Phases 10a-10h: ``tri_influence``.  Returns its kernels' records."""
+    size = {k: v for k, v in INFLUENCE.items() if k != "cut"}
+    # 10a. data (set-up)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)
+    arrays = tri_influence.influence_arrays(rng, **size)
+    stores = tri_influence.stores_from_arrays(arrays, **size)
+    table, graph, corpus, infl = stores
+    analysis = tri_influence.influence_rollup(*stores, iters=size["iters"])
+    query = corpus.query_vector(rng.randint(0, size["vocab"], 6))
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inputs = tri_influence.inputs_for(*stores, query, dev)
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    phase("data", path="tri_influence", tweets=table.rows,
+          influencers=infl.rows, hashtags=graph.n_nodes,
+          edges=graph.n_edges, docs=corpus.n_docs,
+          postings=corpus.n_postings, join_capacity=size["tweets"],
+          cut=json.dumps(INFLUENCE["cut"]), build_s=round(t_build, 3),
+          h2d_s=round(t_h2d, 3))
+
+    # 10b. the main path through the entry points
+    fn = repro_torch.compile(analysis, syscat, device="cuda")
+    impls = Counter(fn.chosen_impls())
+    check(impls == INFLUENCE_IMPLS, f"chosen impls {dict(impls)} != "
+                                    f"{dict(INFLUENCE_IMPLS)}")
+    chains = [[op for op, *_ in n.attrs["chain"]] for n in fn.concrete.topo()
+              if n.impl == "rel_fused_agg_pallas"]
+    check(["bounded_join", "rel_group_agg"] in chains,
+          f"the bounded join is not fused into a group-by: {chains}")
+    torch.cuda.reset_peak_memory_stats()
+    counted, run_ms = drive(fn, inputs, INFLUENCE_LAUNCHES)
+    phase("main", path="tri_influence", plan_id=fn.plan_id[:12],
+          impls=json.dumps(dict(impls)), chains=json.dumps(chains),
+          launches=json.dumps({k: v for k, v in counted.items() if v}),
+          run_ms=run_ms, runs=RUNS, setup_s=round(t_build + t_h2d, 3),
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    if args.profile:
+        profile_run(fn, inputs, "tri_influence")
+
+    # 10c. against the port's plain path on the CPU, and run to run
+    a = influence_outputs(fn, run_env(fn, inputs))
+    b = influence_outputs(fn, run_env(fn, inputs))
+    check(torch.equal(a["out"], b["out"]) and torch.equal(a["hits"],
+                                                          b["hits"])
+          and all(torch.equal(x, y) for x, y in zip(a["rollups"],
+                                                   b["rollups"])),
+          "two card runs differ bitwise")
+    cap = size["tweets"]
+    join_a = hash_join_nonunique(a["viral"].cols["user"], a["viral"].valid,
+                                 inputs["infl"].cols["user"],
+                                 inputs["infl"].valid, cap)
+    join_ms = cuda_ms(lambda: hash_join_nonunique(
+        a["viral"].cols["user"], a["viral"].valid,
+        inputs["infl"].cols["user"], inputs["infl"].valid, cap), reps=5)
+    fn_cpu = repro_torch.compile(analysis, syscat, device="cpu")
+    check(fn_cpu.plan_id == fn.plan_id, "CPU plan differs from the card's")
+    inputs_cpu = tri_influence.inputs_for(*stores, query, "cpu")
+    t0 = time.perf_counter()
+    c = influence_outputs(fn_cpu, run_env(fn_cpu, inputs_cpu))
+    t_cpu = time.perf_counter() - t0
+    join_c = hash_join_nonunique(c["viral"].cols["user"], c["viral"].valid,
+                                 inputs_cpu["infl"].cols["user"],
+                                 inputs_cpu["infl"].valid, cap)
+    check(torch.equal(a["hits"].cpu(), c["hits"]),
+          "top-64 ids differ from the CPU plain path")
+    for x, y in zip(a["rollups"], c["rollups"]):
+        torch.testing.assert_close(x.cpu(), y, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(a["out"].cpu(), c["out"], rtol=RTOL,
+                               atol=ATOL)
+    check(same_join(join_a, join_c),
+          "the join (lidx, ridx, valid, count, overflow) differs from the "
+          "CPU's")
+    check(not bool(join_a[4]), "the path's join overflowed")
+    phase("check", path="tri_influence", top64_equal_cpu=True,
+          rollups_allclose_cpu=True, join_every_slot_equal_cpu=True,
+          bitwise_rerun=True, viral=int(a["viral"].count),
+          join_count=int(join_a[3]), join_overflow=bool(join_a[4]),
+          join_ms=join_ms,
+          out_max_abs_err_cpu=float((a["out"].cpu() - c["out"]).abs().max()),
+          cpu_plain_s=round(t_cpu, 3))
+    viral = a["viral"]
+    del a, b, c, join_a, join_c, inputs_cpu
+
+    # 10d. kernels on the very arguments one run gives them
+    calls = {"scatter_add": [], "masked_segment_agg": []}
+    with recording(graph_store, "scatter_add", calls["scatter_add"]), \
+            recording(runtime, "masked_segment_agg",
+                      calls["masked_segment_agg"]):
+        run_env(fn, inputs)
+    torch.cuda.synchronize()
+    check(len(calls["scatter_add"]) == INFLUENCE_LAUNCHES["scatter_add"]
+          and len(calls["masked_segment_agg"])
+          == INFLUENCE_LAUNCHES["masked_segment_agg"],
+          f"kernel calls of one run: "
+          f"{ {k: len(v) for k, v in calls.items()} }")
+    # the join-fed group-by first (the call timed): R = capacity, the
+    # join's matches a valid prefix
+    seg = sorted(calls["masked_segment_agg"],
+                 key=lambda call: -int((call[2] != 0).sum()))
+    check(int(seg[0][1].shape[0]) == cap, "no group-by at R = capacity")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    records = [check_segment_agg(dev, gen, seg, edges=False),
+               check_scatter(dev, gen, calls["scatter_add"], edges=False)]
+    del calls, seg
+    for rec in records:
+        rec["launches"] = counted[rec["name"]]
+        rec["path"] = "tri_influence"
+
+    # 10e-10h
+    check_join_edges(dev, viral, inputs["infl"])
+    del viral
+    check_append(dev, syscat, analysis, stores, arrays, query, inputs)
+    del inputs
+    free_memory()
+    check_tricount(dev, syscat)
+    free_memory()
+    check_collections(dev, syscat)
+    return records
 
 
 # -- phase 12: flash attention against its plain version -------------------
@@ -2552,6 +2984,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one run of each path (torch.profiler)")
+    ap.add_argument("--paths", default=None,
+                    help="comma-separated paths to run (default: every "
+                         "path), e.g. tri_influence")
     args = ap.parse_args(argv)
 
     # 1. device
@@ -2594,12 +3029,17 @@ def main(argv=None) -> int:
 
     syscat = SystemCatalog(hardware=hardware_for_device(name))
     records = []
-    paths = [("hashtag_pulse", pulse_path), ("tri_selective_0.01",
-                                             window_path),
-             ("qwen3_serve", serve_path)]
+    paths = [("hashtag_pulse", pulse_path),
+             ("tri_selective_0.01", window_path),
+             ("tri_influence", influence_path), ("qwen3_serve", serve_path)]
     paths += [(spec["path"], lambda a, d, s, arch=arch: recurrent_path(
         a, d, s, arch)) for arch, spec in RECURRENT.items()]
     paths.append(("dbrx_serve", dbrx_path))
+    if args.paths:
+        wanted = args.paths.split(",")
+        unknown = set(wanted) - {p for p, _ in paths}
+        check(not unknown, f"unknown paths {sorted(unknown)}")
+        paths = [(p, run) for p, run in paths if p in wanted]
     for path, run in paths:
         t0 = time.perf_counter()
         records += run(args, dev, syscat)

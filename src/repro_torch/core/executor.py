@@ -14,8 +14,11 @@ nothing without a backward); ``attn_flash_pallas``, ``moe_gmm_pallas``,
 matmul, WKV6 and SSD kernels, ``moe_dense_onehot`` and ``moe_dropping``
 the capacity dispatch with einsum experts (cf 2.0 and 1.0),
 ``wkv6_scan_xla`` and ``ssd_chunked_xla`` the recurrences' chunked plain
-forms.  The moe impls ignore the ``pin_moe`` attr: the reference's
-sharding constraints have no counterpart on one card.  Planning is the
+forms.  ``map`` / ``filter`` / ``reduce`` run ADIL's collection ops over
+a ``ListT`` value, a Python list of tensors (a ``filter`` predicate that
+reads a device value synchronizes with the host, as it must to decide).
+The moe impls ignore the ``pin_moe`` attr: the reference's sharding
+constraints have no counterpart on one card.  Planning is the
 copied staged pipeline, so a plan id here equals the reference package's
 for the same analysis and catalogs.
 
@@ -360,6 +363,33 @@ def _i_scan(ctx, args, node):
                     torch.stack([layer[j][1] for layer in per_layer]))
                    for j in range(len(per_layer[0])))
     return (carry, kv)
+
+
+# --------------------------------------------------------------------------
+# ADIL's collection ops over a ListT value (a Python list of plan values)
+# --------------------------------------------------------------------------
+
+@impl("map")
+def _i_map(ctx, args, node):
+    sub = node.subplan
+    (in_name,) = sub.inputs.keys()
+    return [run_plan(sub, ctx, {in_name: v})[0] for v in args[0]]
+
+
+@impl("reduce")
+def _i_reduce(ctx, args, node):
+    fn = node.attrs["fn"]
+    vals = args[0]
+    acc = vals[0]
+    for v in vals[1:]:
+        acc = fn(acc, v) if callable(fn) else acc + v
+    return acc
+
+
+@impl("filter")
+def _i_filter(ctx, args, node):
+    pred = node.attrs["predicate"]
+    return [v for v in args[0] if pred(v)]
 
 
 # --------------------------------------------------------------------------

@@ -11,6 +11,9 @@ Functions:
   * :func:`filter_mask` — predicate over one column;
   * :func:`hash_join`   — equi-join probe against a *unique-key* build side
     (stable sort + binary search);
+  * :func:`hash_join_nonunique` — equi-join against a **non-unique** build
+    side: every key match claims a slot of a capacity-bounded,
+    validity-prefixed result (overflow flagged, never silent);
   * :func:`group_agg`   — segment-reduce per group id (sum / count / mean /
     max), mask-weighted.
 """
@@ -42,7 +45,11 @@ class ColumnStore:
     Columns are canonicalized to 32-bit on ingest, as in the reference
     (device tables are 32-bit; integer columns whose values would wrap are
     refused rather than corrupted).  ``capacity`` (>= the ingested row
-    count) preallocates headroom: the pad rows are ``valid=False``.
+    count) preallocates headroom for :meth:`append`: the pad rows are
+    ``valid=False``, and appends within capacity keep the table's shape.
+    Every append bumps the monotonic ``version``, which the planner folds
+    into the plan-cache key, so plans priced against the old rows are not
+    reused.
     """
 
     def __init__(self, columns: Dict[str, np.ndarray],
@@ -98,6 +105,32 @@ class ColumnStore:
     def column(self, name: str) -> np.ndarray:
         return self._cols[name][:self.rows]
 
+    def append(self, columns: Dict[str, np.ndarray]) -> "ColumnStore":
+        """Append rows (same schema) on the host; the next ``payload()``
+        carries them to the device.  Appends beyond ``capacity`` grow it to
+        the new row count (a shape, and so a plan-type, change); either way
+        ``version`` bumps."""
+        if set(columns) != set(self._cols):
+            raise ValidationError(
+                f"append schema mismatch: {sorted(columns)} vs "
+                f"{sorted(self._cols)}")
+        lens = {k: len(v) for k, v in columns.items()}
+        if len(set(lens.values())) != 1:
+            raise ValidationError(f"ragged append: {lens}")
+        new = {k: self._canon_col(k, np.asarray(v))
+               for k, v in columns.items()}
+        for k, v in new.items():
+            if v.dtype != self._cols[k].dtype:
+                raise ValidationError(
+                    f"append column {k!r}: dtype {v.dtype} != "
+                    f"{self._cols[k].dtype}")
+        for k, v in new.items():
+            self._cols[k] = np.concatenate([self._cols[k], v])
+        self.rows += next(iter(lens.values()))
+        self.capacity = max(self.capacity, self.rows)
+        self.version += 1
+        return self
+
 
 # --------------------------------------------------------------------------
 # relational functions (pure functions over column tensors)
@@ -129,6 +162,66 @@ def hash_join(lkeys: torch.Tensor, rkeys: torch.Tensor):
     idx = order[pos].to(torch.int32)
     matched = sorted_r[pos] == lkeys
     return idx, matched
+
+
+def hash_join_nonunique(lkeys, lmask, rkeys, rmask, capacity: int):
+    """Equi-join with a **non-unique build side**, capacity-bounded.
+
+    Every (valid probe row, valid build row) key match claims one output
+    slot, ordered by probe row and, within one probe row, by the build
+    side's stable sorted order.  Slots ``[0, count)`` hold matches, the
+    rest are placeholders; when the true match total exceeds ``capacity``
+    the excess is dropped and ``overflow`` is True.  Invalid build rows are
+    skipped by a rank-select over the sorted validity prefix sum.
+
+    The reference accumulates the per-probe ends in float32 and relies on
+    every deciding value staying below 2^24; a parallel float scan on the
+    card would round its prefixes past 2^24 differently and need not stay
+    sorted.  Here the clamped counts (``min(cnt, capacity + 1)``) are
+    summed in int64: exact, so the outputs equal the reference's bit for
+    bit on every input its capacity guard admits, placeholders included.
+
+    Returns ``(lidx, ridx, valid, count, overflow)``: the first three
+    ``(capacity,)`` (int32, int32, bool), ``count`` a 0-d int32 and
+    ``overflow`` a 0-d bool, all on the keys' device.
+    """
+    cap = int(capacity)
+    if cap >= 1 << 23:
+        raise ValidationError(
+            f"bounded_join: capacity {cap} >= 2^23 (the slot-owner search "
+            f"needs exact float32 prefix sums in the emitted region)")
+    nl, nr = int(lkeys.shape[0]), int(rkeys.shape[0])
+    dev = lkeys.device
+    if nl == 0 or nr == 0:
+        z = torch.zeros(cap, dtype=torch.int32, device=dev)
+        return (z, z.clone(), torch.zeros(cap, dtype=torch.bool, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev))
+    order = torch.argsort(rkeys, stable=True)
+    sk = rkeys[order]
+    cum = torch.cumsum(rmask[order].to(torch.int64), 0, dtype=torch.int64)
+    lk = lkeys.to(sk.dtype)
+    lo = torch.searchsorted(sk, lk)                   # int64
+    hi = torch.searchsorted(sk, lk, right=True)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    before = torch.where(lo > 0, cum[torch.clamp(lo - 1, min=0)], zero)
+    upto = torch.where(hi > 0, cum[torch.clamp(hi - 1, min=0)], zero)
+    # clamping at cap + 1 keeps every emitted slot's owner and the
+    # overflow predicate (total > cap), as in the reference
+    cnt = torch.clamp(torch.where(lmask, upto - before, zero), max=cap + 1)
+    ends = torch.cumsum(cnt, 0, dtype=torch.int64)   # inclusive ends
+    total = ends[-1]
+    j = torch.arange(cap, dtype=torch.int64, device=dev)
+    # owner probe row of slot j: the first row whose end exceeds j
+    i = torch.clamp(torch.searchsorted(ends, j, right=True), 0, nl - 1)
+    rank = j - (ends[i] - cnt[i])
+    # the rank-th valid sorted build row at or after lo[i]: the first
+    # sorted position whose inclusive valid count reaches before + rank + 1
+    p = torch.searchsorted(cum, before[i] + rank + 1)
+    rpos = order[torch.clamp(p, 0, nr - 1)]
+    count = torch.clamp(total, max=cap).to(torch.int32)
+    return (i.to(torch.int32), rpos.to(torch.int32), j < count, count,
+            total > cap)
 
 
 def group_agg(values: Optional[torch.Tensor], keys: torch.Tensor,

@@ -29,7 +29,9 @@ Frontier ops built on the SpMV:
     whose sources are all zero in the frontier (a pushed selection);
   * :func:`pagerank`        — damped (optionally personalized) power
     iteration with out-degree normalization; ``skip_first=True`` block-
-    skips its first SpMV on a sparse personalization.
+    skips its first SpMV on a sparse personalization;
+  * :func:`triangle_count`  — Σ(A ∘ A²)/6 over the densified adjacency, as
+    the reference computes it (one dense n × n product).
 
 A skipped edge would add exactly ``x[src] · w = +0.0``, so the skipping
 variants are bitwise equal to the dense ones.
@@ -207,3 +209,16 @@ def pagerank(g: dict, iters: int = 10, damping: float = 0.85,
              else _spmv(g, xs, use_kernel))
         r = (1.0 - damping) * p0 + damping * y
     return r
+
+
+def triangle_count(g: dict) -> torch.Tensor:
+    """Triangles in the (symmetric, simple) graph: Σ(A ∘ A²)/6 in float32,
+    a 0-d tensor.  A is densified from the CSR (1.0 at every ``(src,
+    dst)``, repeated edges once) and squared by one dense matmul, as in the
+    reference; it holds three n × n float32 buffers at its peak."""
+    n = g["indptr"].shape[0] - 1
+    src = g["src"]
+    a = torch.zeros((n, n), dtype=torch.float32, device=src.device)
+    a.index_put_((src.long(), g["indices"].long()),
+                 torch.ones((), dtype=torch.float32, device=src.device))
+    return (a * (a @ a)).sum() / 6.0

@@ -22,8 +22,10 @@ from ..kernels.masked_kernels import (compact_prefix, join_probe,
                                       masked_segment_agg, masked_tfidf)
 from .base import GRAPH_ENGINE, REL_ENGINE, TEXT_ENGINE
 from .bounded import BoundedRel, as_bounded, compact_rel
-from .column_store import filter_mask, group_agg, hash_join
-from .graph_store import expand_frontier, expand_frontier_blockskip, pagerank
+from .column_store import (filter_mask, group_agg, hash_join,
+                           hash_join_nonunique)
+from .graph_store import (expand_frontier, expand_frontier_blockskip,
+                          pagerank, triangle_count)
 from .text_store import (masked_topk, tfidf_scores, tfidf_topk,
                          tfidf_topk_blockskip, tfidf_topk_masked)
 
@@ -102,6 +104,21 @@ def _step_rel_join_probe(left, right, attrs, ctx=None):
     return BoundedRel(cols, valid, None, left.overflow | right.overflow)
 
 
+def _step_bounded_join(left, right, attrs, ctx=None):
+    """Non-unique equi-join into ``attrs["capacity"]`` slots: the left
+    columns gathered at each slot's probe row, the right side's merged at
+    its build row; overflow ORs into the result's flag."""
+    left, right = as_bounded(left), as_bounded(right)
+    lo, ro = attrs["left_on"], attrs["right_on"]
+    lidx, ridx, valid, count, ovf = hash_join_nonunique(
+        left.cols[lo], left.valid, right.cols[ro], right.valid,
+        int(attrs["capacity"]))
+    gathered = left.with_cols({k: v[lidx] for k, v in left.cols.items()})
+    cols = _merge_join_cols(gathered, right, ro, ridx)
+    return BoundedRel(cols, valid, count,
+                      ovf | left.overflow | right.overflow)
+
+
 def _step_rel_group_agg(tbl, attrs, ctx=None):
     rel = as_bounded(tbl)
     key = rel.cols[attrs["key"]]
@@ -173,6 +190,8 @@ _REL_STEPS = {
                                                                 ctx),
     "rel_join": lambda ins, attrs, ctx=None: _step_rel_join(ins[0], ins[1],
                                                             attrs, ctx),
+    "bounded_join": lambda ins, attrs, ctx=None: _step_bounded_join(
+        ins[0], ins[1], attrs, ctx),
     "rel_group_agg": lambda ins, attrs, ctx=None: _step_rel_group_agg(
         ins[0], attrs, ctx),
     "compact": lambda ins, attrs, ctx=None: _step_compact(ins[0], attrs, ctx),
@@ -184,9 +203,6 @@ def _run_chain(args, chain, ctx=None, *, stop_before_last=False):
     steps = chain[:-1] if stop_before_last else chain
     prev = None
     for op, attrs, srcs, _out_t in steps:
-        if op not in _REL_STEPS:
-            raise NotImplementedError(
-                f"fused step {op!r} is not ported yet")
         ins = [prev if s == "prev" else args[int(s)] for s in srcs]
         prev = _REL_STEPS[op](ins, attrs, ctx)
     return prev
@@ -210,6 +226,17 @@ def _i_rel_join(ctx, args, node):
 @_PALLAS.impl("rel_join_probe_pallas")
 def _i_rel_join_probe(ctx, args, node):
     return _step_rel_join_probe(args[0], args[1], node.attrs, ctx)
+
+
+@REL_ENGINE.impl("bounded_join_col")
+def _i_bounded_join(ctx, args, node):
+    if node.attrs.get("dist") == "partitioned":
+        # the co-partitioned join needs the sharded stores (ROADMAP item
+        # 17); the dense join's slot order differs, so it is no stand-in
+        raise NotImplementedError(
+            "bounded_join_col with dist='partitioned' needs the sharded "
+            "stores, which are not ported yet (ROADMAP §1 item 17)")
+    return _step_bounded_join(args[0], args[1], node.attrs, ctx)
 
 
 @REL_ENGINE.impl("rel_group_agg_col")
@@ -330,6 +357,11 @@ def _i_pagerank_skip(ctx, args, node):
 @_PALLAS.impl("graph_pagerank_pallas")
 def _i_pagerank_kernel(ctx, args, node):
     return _pagerank(args, node, use_kernel=True)
+
+
+@GRAPH_ENGINE.impl("graph_tricount_csr")
+def _i_tricount(ctx, args, node):
+    return triangle_count(args[0])
 
 
 # --------------------------------------------------------------------------

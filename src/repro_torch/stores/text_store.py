@@ -52,7 +52,8 @@ class TextStore:
         self.version = 0
 
     @staticmethod
-    def _index_flat(terms: np.ndarray, lengths: np.ndarray, vocab: int):
+    def _index_flat(terms: np.ndarray, lengths: np.ndarray, vocab: int,
+                    first_doc: int = 0):
         """Vectorized indexing of ``len(lengths)`` documents whose term ids
         lie back to back in ``terms``: one sort of the (doc, term) keys
         gives every document's unique terms in ascending order with their
@@ -64,7 +65,8 @@ class TextStore:
         if terms.size and (terms.min() < 0 or terms.max() >= vocab):
             bad = np.flatnonzero((terms < 0) | (terms >= vocab))[0]
             doc = int(np.searchsorted(np.cumsum(lengths), bad, side="right"))
-            raise ValidationError(f"doc {doc}: term id out of range")
+            raise ValidationError(
+                f"doc {first_doc + doc}: term id out of range")
         doc = np.repeat(np.arange(n, dtype=np.int64), lengths)
         keys, tfs = np.unique(doc * vocab + terms, return_counts=True)
         doc_ids, term_ids = np.divmod(keys, vocab)
@@ -89,10 +91,30 @@ class TextStore:
     def from_docs(cls, docs: Sequence[Iterable[int]],
                   vocab: int) -> "TextStore":
         """``docs``: one iterable of term ids per document."""
-        docs = [np.asarray(list(d), np.int64) for d in docs]
-        lengths = np.array([d.size for d in docs], np.int64)
-        flat = np.concatenate(docs) if docs else np.zeros(0, np.int64)
-        return cls.from_flat(flat, lengths, vocab)
+        return cls.from_flat(*_flatten(docs), vocab)
+
+    def append(self, docs: Sequence[Iterable[int]]) -> "TextStore":
+        """Append documents (one iterable of term ids each) and reindex on
+        the host: postings extend (doc ids continue from ``n_docs``) and
+        the idf table is recomputed from the grown corpus's document
+        frequencies, so the arrays equal a fresh ``from_flat`` over all the
+        documents.
+        Bumps ``version``; the next ``payload()`` carries the corpus to the
+        device."""
+        d_ids, t_ids, tfs, d_len, _df = self._index_flat(
+            *_flatten(docs), self.vocab, self.n_docs)
+        self.doc_ids = np.concatenate(
+            [self.doc_ids, (d_ids + self.n_docs).astype(np.int32)])
+        self.term_ids = np.concatenate([self.term_ids,
+                                        t_ids.astype(np.int32)])
+        self.tf = np.concatenate([self.tf, tfs.astype(np.float32)])
+        self.doc_len = np.concatenate([self.doc_len, d_len])
+        self.n_docs = int(self.doc_len.shape[0])
+        self.n_postings = int(self.doc_ids.shape[0])
+        df = np.bincount(self.term_ids, minlength=self.vocab)
+        self.idf = self._idf(self.n_docs, df).astype(np.float32)
+        self.version += 1
+        return self
 
     @property
     def type(self) -> CorpusT:
@@ -110,6 +132,15 @@ class TextStore:
         for t in terms:
             q[int(t)] += 1.0
         return q
+
+
+def _flatten(docs):
+    """``(terms, lengths)``: the term ids of ``docs`` (one iterable per
+    document) back to back, and each document's term count."""
+    docs = [np.asarray(list(d), np.int64) for d in docs]
+    lengths = np.array([d.size for d in docs], np.int64)
+    flat = np.concatenate(docs) if docs else np.zeros(0, np.int64)
+    return flat, lengths
 
 
 def text_payload(doc_ids, term_ids, tf, doc_len, idf, device) -> dict:

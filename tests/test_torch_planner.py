@@ -77,6 +77,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "sys.path.insert(0, '.')\n"
         "import repro_torch, repro_torch.examples.tri_model_analysis\n"
         "import repro_torch.examples.windowed_ranking\n"
+        "import repro_torch.examples.tri_influence\n"
         "import repro_torch.kernels.masked_kernels\n"
         "import repro_torch.kernels.graph_kernels\n"
         "import repro_torch.kernels.build\n"

@@ -246,6 +246,40 @@ package.  Phases, one line each; any failure raises and exits non-zero:
 
  27. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
+Observability (EXPLAIN ANALYZE and the resource ledger, slice 11), inside
+the paths above:
+
+  [ledger]     — in phases 3, 7 and 10a, the default memory ledger reset
+     just before the inputs are built: each store's entry holds its
+     payload's tensor bytes (plus 4 bytes a host int, as the reference
+     counts a host leaf), each kind's total is its stores' sum, and the
+     rise of ``torch.cuda.memory_allocated()`` over the build lies between
+     the payload and query tensors' bytes rounded up to the allocator's
+     512-byte blocks and that plus 1 MiB for each tensor over 1 MiB (a
+     cached block is handed out whole when the rest would be 1 MiB or
+     less); predicted / actual bytes a store.  After phase 13: the
+     runtime's telemetry snapshot, the KV pool's entry equal to the pool's
+     tensor bytes, every kept prefill plan in the ledger, no leaks;
+  [analyze]    — after phases 6, 10 and 10c, on ``hashtag_pulse``,
+     ``tri_selective_0.01``'s default plan and ``tri_influence``:
+     ``fn.analyze`` driven as in phase 5 (its kernel launches those of
+     ``__call__``), its output bitwise ``__call__``'s, one device->host
+     copy a run (the tracer's one copy, counted), each op span's count /
+     overflow / capacity and the count sink equal to the CPU port's traced
+     run of the same plan, the Chrome export valid (written under a
+     temporary directory); the synchronizing calls of one ``__call__`` and
+     one ``analyze`` under ``torch.cuda.set_sync_debug_mode("warn")``;
+     untraced and traced wall times as interleaved medians of 11 pairs and
+     the overhead beside the reference's 5 % bar (reported, not gated);
+  [analyze-op] — one line per concrete node of those plans: impl, the cost
+     model's prediction, the span's dispatch ms (median over the pairs) and
+     the node's synced ms (the plan run one node at a time through
+     ``run_plan_subset``, a ``torch.cuda.synchronize()`` before and after
+     each node, median of 5);
+  [observe]    — after phase 10: ``observe`` on the card and on the CPU
+     port give one feedback fingerprint, re-planning with it one plan id,
+     and the re-planned run the first run's top-64.
+
 ``--paths a,b`` runs only the named paths (``[time]`` lines name them).
 With ``--profile`` it also runs each path's default plan (a second serve
 of the qwen3 and dbrx traces on the same runtime; for each recurrent
@@ -290,7 +324,9 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from collections import Counter
 from pathlib import Path
 from types import SimpleNamespace
@@ -306,12 +342,16 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.adil import Analysis  # noqa: E402
 from repro_torch.core.adil_parser import parse_adil  # noqa: E402
+from repro_torch.core import tracing  # noqa: E402
 from repro_torch.core.engines import dispatch  # noqa: E402
 from repro_torch.core.executor import (ExecContext,  # noqa: E402
                                        plan_and_compile, run_plan_subset)
+from repro_torch.core.feedback import SelectivityFeedback  # noqa: E402
 from repro_torch.core.ir import (ListT, Plan, SystemCatalog,  # noqa: E402
                                  TensorT, hardware_for_device,
                                  standard_catalog)
+from repro_torch.core.ledger import (default_ledger,  # noqa: E402
+                                     reset_default_ledger)
 from repro_torch.core.rewrite import (DEFAULT_PIPELINE,  # noqa: E402
                                       UNPUSHED_PIPELINE)
 from repro_torch.examples import tri_influence  # noqa: E402
@@ -343,8 +383,8 @@ from repro_torch.models.decode import (DecodeGraph,  # noqa: E402
                                        decode_step_batched, init_cache)
 from repro_torch.serving import (AsyncServingRuntime,  # noqa: E402
                                  ServeRequest, bucket_len, serve_sequential)
-from repro_torch.stores import (ColumnStore, GraphStore,  # noqa: E402
-                                TextStore, graph_store, runtime)
+from repro_torch.stores import (BoundedRel, ColumnStore,  # noqa: E402
+                                GraphStore, TextStore, graph_store, runtime)
 from repro_torch.stores.column_store import (  # noqa: E402
     hash_join_nonunique)
 from repro_torch.stores.text_store import tfidf_scores  # noqa: E402
@@ -375,6 +415,13 @@ BF16_FLOPS = 989e12             # H100 SXM data sheet, dense tensor cores
 RTOL, ATOL = 1e-5, 1e-6
 REPS = 21
 RUNS = 5
+PAIRS = 11             # interleaved untraced / traced runs of [analyze]
+NODE_REPS = 5          # node-at-a-time synced runs of [analyze-op]
+ALLOC_BLOCK = 512      # the caching allocator's block granularity (bytes)
+ALLOC_SLACK = 1 << 20  # a cached block it hands out whole: up to 1 MiB more
+# the plan inputs that are store payloads, and the ledger kind of each
+STORE_KINDS = {"tweets": "column_store", "infl": "column_store",
+               "g": "graph_store", "cx": "text_store"}
 GRAPH_CALLS = 64       # calls captured in one CUDA graph for device_ms
 TOPK_IMPLS = ("text_topk_inv", "text_topk_skip_inv", "text_topk_masked_pallas",
               "masked_topk_xla")
@@ -1113,14 +1160,14 @@ def pulse_path(args, dev, syscat) -> list:
     table, graph, corpus = build_social_data(rng, **FULL)
     query = corpus.query_vector(rng.randint(0, FULL["vocab"], 6))
     t_build = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    inputs = inputs_for(table, graph, corpus, query, dev)
-    torch.cuda.synchronize()
-    t_h2d = time.perf_counter() - t0
+    inputs, t_h2d, rise = timed_inputs(
+        lambda: inputs_for(table, graph, corpus, query, dev))
     phase("data", path="hashtag_pulse", tweets=table.rows,
           hashtags=graph.n_nodes, edges=graph.n_edges, docs=corpus.n_docs,
           postings=corpus.n_postings, build_s=round(t_build, 3),
           h2d_s=round(t_h2d, 3))
+    check_ledger("hashtag_pulse", {"tweets": table, "g": graph,
+                                   "cx": corpus}, inputs, rise)
 
     # 4. kernels against their plain versions on the card
     # (an SpMV over the whole graph; the filter->count group-by over the
@@ -1184,15 +1231,19 @@ def pulse_path(args, dev, syscat) -> list:
           top10=json.dumps([int(h) for h in
                             np.argsort(-score_c.numpy(), kind="stable")[:10]]),
           cpu_plain_s=round(t_cpu, 3))
+    check_analyze("hashtag_pulse", fn, inputs, fn_cpu, inputs_cpu,
+                  EXPECTED_LAUNCHES)
     return records
 
 
-def drive(fn, inputs, expected):
-    """One run of ``fn`` with every launch count set to 0 just before it
-    and read just after (they must equal ``expected``), then the median
-    wall time of RUNS more.  Returns ``(counts, run_ms)``."""
+def drive(fn, inputs, expected, run=None):
+    """One run of ``run`` (default ``fn``; ``fn.analyze`` for the traced
+    run) with every launch count set to 0 just before it and read just
+    after (they must equal ``expected``), then the median wall time of
+    RUNS more.  Returns ``(counts, run_ms)``."""
+    run = fn if run is None else run
     kernels.reset_launches()
-    out = fn({}, inputs)
+    out = run({}, inputs)
     torch.cuda.synchronize()
     counted = kernels.launches()
     check(counted == expected,
@@ -1202,11 +1253,229 @@ def drive(fn, inputs, expected):
     for _ in range(RUNS):
         kernels.reset_launches()
         t0 = time.perf_counter()
-        fn({}, inputs)
+        run({}, inputs)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         check(kernels.launches() == expected, "launches changed")
     return counted, statistics.median(walls) * 1e3
+
+
+# -- observability: the ledger, EXPLAIN ANALYZE, observe -------------------
+
+
+def timed_inputs(build):
+    """``build()`` (a path's ``inputs_for``) with the default ledger reset
+    just before it: ``(inputs, seconds, allocator rise in bytes)``."""
+    reset_default_ledger()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    inputs = build()
+    torch.cuda.synchronize()
+    return (inputs, time.perf_counter() - t0,
+            torch.cuda.memory_allocated() - m0)
+
+
+def payload_tensors(value) -> tuple:
+    """``(tensors, host ints)`` of a store payload: a relation's columns,
+    valid, count and overflow; a dict payload's tensor and int values."""
+    if isinstance(value, BoundedRel):
+        return (list(value.cols.values())
+                + [value.valid, value.count, value.overflow]), []
+    return ([v for v in value.values() if isinstance(v, torch.Tensor)],
+            [v for v in value.values() if isinstance(v, int)])
+
+
+def check_ledger(path, stores, inputs, rise):
+    """[ledger]: each store's ledger entry holds its payload's tensor
+    bytes plus 4 bytes a host int (the reference's count of a host leaf),
+    each kind's total is the sum of its stores', and the allocator's rise
+    over the inputs' build covers those bytes: every tensor is one block
+    rounded up to ALLOC_BLOCK bytes, and one over 1 MiB may get a cached
+    block up to ALLOC_SLACK larger (the allocator does not split off a
+    rest of 1 MiB or less)."""
+    led = default_ledger()
+    kinds, blocks, slack = Counter(), 0, 0
+    for name, store in stores.items():
+        kind = STORE_KINDS[name]
+        tensors, ints = payload_tensors(inputs[name])
+        nbytes = sum(t.nbytes for t in tensors) + 4 * len(ints)
+        entry = led.get((kind, f"{id(store):#x}"))
+        check(entry is not None and entry.nbytes == nbytes,
+              f"{path} {name}: ledger {entry and entry.nbytes} != payload "
+              f"{nbytes} bytes")
+        kinds[kind] += nbytes
+        blocks += sum(-(-t.nbytes // ALLOC_BLOCK) * ALLOC_BLOCK
+                      for t in tensors)
+        slack += ALLOC_SLACK * sum(t.nbytes > (1 << 20) for t in tensors)
+        phase("ledger", path=path, store=name, kind=kind,
+              version=entry.version, actual_bytes=entry.nbytes,
+              predicted_bytes=entry.predicted, ratio=entry.ratio)
+    for kind, nbytes in kinds.items():
+        check(led.bytes_for_kind(kind) == nbytes,
+              f"{path}: ledger {kind} bytes {led.bytes_for_kind(kind)} != "
+              f"{nbytes}")
+    q = inputs["q"]
+    blocks += -(-q.nbytes // ALLOC_BLOCK) * ALLOC_BLOCK
+    total = sum(kinds.values())
+    check(blocks <= rise <= blocks + slack,
+          f"{path}: allocator rise {rise} outside [{blocks}, "
+          f"{blocks + slack}] (ledger {total} + query {q.nbytes})")
+    phase("ledger", path=path, ledger_bytes=total, query_bytes=q.nbytes,
+          allocator_rise=rise, blocks_512=blocks,
+          rise_minus_ledger=rise - total, rise_minus_blocks=rise - blocks,
+          by_kind=json.dumps(dict(kinds)))
+
+
+def host_syncs(call) -> list:
+    """The synchronizing CUDA calls ``call()`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` flags them: one
+    ``dir/file:line`` (the Python line that made the call) each."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return ["/".join(Path(w.filename).parts[-2:]) + f":{w.lineno}"
+            for w in caught if "synchroniz" in str(w.message)]
+
+
+def node_synced_ms(fn, inputs) -> dict:
+    """Each concrete node's host time when the plan runs one node at a
+    time through ``run_plan_subset`` with a ``torch.cuda.synchronize()``
+    before and after it: dispatch and device work together (median of
+    NODE_REPS)."""
+    ctx = ExecContext(root={}, scope={}, device=fn.device)
+    nodes = list(fn.concrete.topo())
+    times = {n.id: [] for n in nodes}
+    for _ in range(NODE_REPS):
+        env = dict(inputs)
+        for n in nodes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            env = run_plan_subset(fn.concrete, ctx, env, [n.id])
+            torch.cuda.synchronize()
+            times[n.id].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def check_analyze(path, fn, inputs, fn_cpu, inputs_cpu, expected):
+    """[analyze] and [analyze-op]: EXPLAIN ANALYZE of ``fn`` on the card
+    through ``drive`` (its kernel launches those of ``__call__``), its
+    outputs bitwise ``__call__``'s, each op span's count / overflow /
+    capacity and the count sink equal to the CPU port's traced run of
+    the same plan, its Chrome export valid, one device->host copy a run;
+    the host syncs of each kind of run under the sync debug mode; the
+    untraced and traced wall times as interleaved medians of PAIRS pairs
+    (the overhead is reported, not gated); then one line per concrete node:
+    the cost model's prediction, the span's dispatch ms (median over the
+    pairs) and the node's synced ms (:func:`node_synced_ms`)."""
+    counted, _ = drive(fn, inputs, expected, run=fn.analyze)
+    out_call = fn({}, inputs)
+    before = tracing.transfers
+    out_traced = fn.analyze({}, inputs)
+    check(tracing.transfers - before == 1,
+          f"{path}: analyze made {tracing.transfers - before} device->host "
+          f"copies, not 1")
+    check(torch.equal(out_call, out_traced),
+          f"{path}: analyze's output differs from __call__'s")
+    trace = fn.last_run_trace
+    fn_cpu.analyze({}, inputs_cpu)
+    cpu = fn_cpu.last_run_trace
+    check([s.name for s in trace.spans] == [s.name for s in cpu.spans],
+          f"{path}: span names differ from the CPU port's")
+    observed = 0
+    for card, host in zip(trace.op_spans(), cpu.op_spans()):
+        for key in ("count", "overflow", "capacity"):
+            check(card.attrs.get(key) == host.attrs.get(key),
+                  f"{path} {card.name}: {key} {card.attrs.get(key)} != CPU "
+                  f"{host.attrs.get(key)}")
+        observed += "count" in card.attrs
+    check(trace.counts == cpu.counts,
+          f"{path}: count sink {trace.counts} != CPU {cpu.counts}")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace.to_chrome(Path(tmp) / "trace.json")
+        doc = json.loads((Path(tmp) / "trace.json").read_text())
+    errs = tracing.validate_chrome_trace(doc)
+    check(not errs, f"{path}: chrome trace invalid: {errs[:3]}")
+    syncs_call = host_syncs(lambda: fn({}, inputs))
+    syncs_traced = host_syncs(lambda: fn.analyze({}, inputs))
+    # what the debug mode flags at all: a device sync, a 4-byte copy
+    flags_sync = len(host_syncs(torch.cuda.synchronize))
+    flags_copy = len(host_syncs(
+        lambda: torch.zeros(1, device=fn.device).cpu()))
+    plain, traced, dispatch_ms = [], [], {}
+    for _ in range(PAIRS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn({}, inputs)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        fn.analyze({}, inputs)
+        traced.append((time.perf_counter() - t0) * 1e3)
+        for sp in fn.last_run_trace.spans:
+            dispatch_ms.setdefault(sp.name, []).append(sp.dur_ms)
+    run_ms, traced_ms = statistics.median(plain), statistics.median(traced)
+    phase("analyze", path=path, launches=json.dumps(
+              {k: v for k, v in counted.items() if v}),
+          launches_equal_call=True, outputs_bitwise_call=True,
+          counts_equal_cpu=True, spans=len(trace.spans),
+          op_spans=len(trace.op_spans()), spans_with_count=observed,
+          sink_sites=len(trace.counts), chrome_events=len(doc["traceEvents"]),
+          chrome_valid=True, transfers_per_run=1,
+          host_syncs_call=json.dumps(syncs_call),
+          host_syncs_analyze=json.dumps(syncs_traced),
+          debug_flags_synchronize=flags_sync, debug_flags_copy=flags_copy,
+          run_ms=run_ms, traced_ms=traced_ms,
+          overhead=traced_ms / run_ms - 1.0, bar=0.05, pairs=PAIRS,
+          sync_ms=statistics.median(dispatch_ms["device_sync"]),
+          run_span_ms=statistics.median(dispatch_ms["run"]))
+    synced = node_synced_ms(fn, inputs)
+    for sp in trace.op_spans():
+        disp = statistics.median(dispatch_ms[sp.name])
+        phase("analyze-op", path=path, node=sp.name,
+              impl=sp.attrs["impl"],
+              predicted_ms=sp.attrs.get("predicted_s", float("nan")) * 1e3,
+              dispatch_ms=disp, synced_ms=synced[sp.name],
+              dispatch_share=disp / synced[sp.name])
+    phase("analyze-op", path=path, nodes=len(synced),
+          dispatch_sum_ms=sum(statistics.median(dispatch_ms[sp.name])
+                              for sp in trace.op_spans()),
+          synced_sum_ms=sum(synced.values()))
+
+
+def check_observe(analysis, syscat, fn, inputs, fn_cpu, inputs_cpu, hits):
+    """[observe]: ``observe`` on the card and on the CPU port give equal
+    feedback (counts are exact), re-planning with it gives one plan id on
+    both, and the re-planned run's top-64 equals ``hits`` (the first
+    run's)."""
+    fb_card, fb_cpu = SelectivityFeedback(), SelectivityFeedback()
+    before = tracing.transfers
+    out = fn.observe({}, inputs, fb_card)
+    check(tracing.transfers - before == 1, "observe: not one copy a run")
+    check(torch.equal(out, fn({}, inputs)), "observe's output differs")
+    fn_cpu.observe({}, inputs_cpu, fb_cpu)
+    check(len(fb_card) > 0 and fb_card.fingerprint() == fb_cpu.fingerprint(),
+          "observe: feedback on the card differs from the CPU's")
+    again = repro_torch.compile(analysis, syscat, device="cuda",
+                                feedback=fb_card)
+    again_cpu = repro_torch.compile(analysis, syscat, device="cpu",
+                                    feedback=fb_cpu)
+    check(again.plan_id == again_cpu.plan_id,
+          "observe: re-planned ids differ between card and CPU")
+    hits_re, score = hits_and_score(again, run_env(again, inputs))
+    check(torch.equal(hits_re.cols["doc"], hits.cols["doc"]),
+          "observe: the re-planned top-64 differs from the first run's")
+    check(bool(score.isfinite().all()), "observe: re-planned output")
+    phase("observe", path="tri_selective", sites=len(fb_card),
+          fingerprint=fb_card.fingerprint()[:12], fingerprint_equal_cpu=True,
+          replanned_id=again.plan_id[:12], first_id=fn.plan_id[:12],
+          replanned_id_equal_cpu=True,
+          replanned_impls=json.dumps(dict(Counter(again.chosen_impls()))),
+          top64_equal_first_run=True)
 
 
 def window_path(args, dev, syscat) -> list:
@@ -1219,14 +1488,14 @@ def window_path(args, dev, syscat) -> list:
         rng, SELECTIVITY, **WINDOW)
     table, graph, corpus = stores
     t_build = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    inputs = windowed_ranking.inputs_for(*stores, query, dev)
-    torch.cuda.synchronize()
-    t_h2d = time.perf_counter() - t0
+    inputs, t_h2d, rise = timed_inputs(
+        lambda: windowed_ranking.inputs_for(*stores, query, dev))
     phase("data", path="tri_selective", tweets=table.rows,
           hashtags=graph.n_nodes, edges=graph.n_edges, docs=corpus.n_docs,
           postings=corpus.n_postings, window=SELECTIVITY,
           build_s=round(t_build, 3), h2d_s=round(t_h2d, 3))
+    check_ledger("tri_selective", {"tweets": table, "g": graph,
+                                   "cx": corpus}, inputs, rise)
 
     plans = {}
     for plan, (pipe, want, _launches) in WINDOW_PLANS.items():
@@ -1327,6 +1596,10 @@ def window_path(args, dev, syscat) -> list:
           score_bitwise_rerun=bool(torch.equal(score_a, score_b)),
           score_max_abs_err_cpu=float((score_a.cpu() - score_c).abs().max()),
           cpu_plain_s=round(t_cpu, 3))
+    check_analyze("tri_selective", plans["default"], inputs, fn_cpu,
+                  inputs_cpu, WINDOW_PLANS["default"][2])
+    check_observe(analysis, syscat, plans["default"], inputs, fn_cpu,
+                  inputs_cpu, hits_a)
     return [rec for _plan, rec in records]
 
 
@@ -1579,16 +1852,16 @@ def influence_path(args, dev, syscat) -> list:
     analysis = tri_influence.influence_rollup(*stores, iters=size["iters"])
     query = corpus.query_vector(rng.randint(0, size["vocab"], 6))
     t_build = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    inputs = tri_influence.inputs_for(*stores, query, dev)
-    torch.cuda.synchronize()
-    t_h2d = time.perf_counter() - t0
+    inputs, t_h2d, rise = timed_inputs(
+        lambda: tri_influence.inputs_for(*stores, query, dev))
     phase("data", path="tri_influence", tweets=table.rows,
           influencers=infl.rows, hashtags=graph.n_nodes,
           edges=graph.n_edges, docs=corpus.n_docs,
           postings=corpus.n_postings, join_capacity=size["tweets"],
           cut=json.dumps(INFLUENCE["cut"]), build_s=round(t_build, 3),
           h2d_s=round(t_h2d, 3))
+    check_ledger("tri_influence", {"tweets": table, "g": graph,
+                                   "cx": corpus, "infl": infl}, inputs, rise)
 
     # 10b. the main path through the entry points
     fn = repro_torch.compile(analysis, syscat, device="cuda")
@@ -1650,6 +1923,8 @@ def influence_path(args, dev, syscat) -> list:
           join_ms=join_ms,
           out_max_abs_err_cpu=float((a["out"].cpu() - c["out"]).abs().max()),
           cpu_plain_s=round(t_cpu, 3))
+    check_analyze("tri_influence", fn, inputs, fn_cpu, inputs_cpu,
+                  INFLUENCE_LAUNCHES)
     viral = a["viral"]
     del a, b, c, join_a, join_c, inputs_cpu
 
@@ -1986,6 +2261,7 @@ def serve_path(args, dev, syscat) -> list:
           peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
     record["launches"] = counted["flash_attention"]
     record["path"] = "qwen3_serve"
+    check_serve_ledger(rt)
     if args.profile:
         # the same runtime serves the trace again (its requests are reset)
         profile_call(lambda: rt.serve(reqs, timeout_s=600), "qwen3_serve")
@@ -2031,6 +2307,27 @@ def serve_path(args, dev, syscat) -> list:
           f32_runtime_equal_sequential=True, f32_runtime_s=round(rt_s, 3),
           f32_sequential_s=round(seq_s, 3), **cpu)
     return [record]
+
+
+def check_serve_ledger(rt):
+    """[ledger] of a served trace: the runtime's telemetry snapshot; the
+    KV pool's ledger entry holds the bytes of the pool's tensors, and no
+    entry outlives its anchor (``leaks()`` empty)."""
+    snap = rt.telemetry_snapshot()
+    entry = rt.ledger.get(("kv_pool", f"{id(rt.pool):#x}"))
+    pool = sum(t.nbytes for gc in rt.pool.cache.values()
+               for t in gc.values())
+    check(entry is not None and entry.nbytes == pool,
+          f"kv_pool ledger bytes {entry and entry.nbytes} != pool {pool}")
+    leaks = rt.ledger.leaks()
+    check(not leaks, f"ledger leaks {[(r, e.owner) for r, e in leaks]}")
+    kept = [("plan_jit", f.plan_id) for f in rt._prefill_fns.values()]
+    check(all(rt.ledger.get(k) is not None for k in kept),
+          "a kept prefill plan is not in the ledger")
+    phase("ledger", path="qwen3_serve", kv_pool_bytes=entry.nbytes,
+          pool_tensor_bytes=pool, leaks=0, plan_jit=len(kept),
+          recorder_events=len(rt.recorder), trips=len(rt.recorder.trips),
+          snapshot=json.dumps(snap, default=str))
 
 
 def check_decode_graph(model, params, dev, batch) -> dict:

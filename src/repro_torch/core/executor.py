@@ -22,19 +22,28 @@ constraints have no counterpart on one card.  Planning is the
 copied staged pipeline, so a plan id here equals the reference package's
 for the same analysis and catalogs.
 
+EXPLAIN ANALYZE is the reference's: ``PlannedFunction.analyze`` runs the
+plan under a span tracer (``ExecContext.tracer``, ``core/tracing.py``),
+one span per physical op, and synchronizes the device once at the end;
+``observe`` records the count sink's cardinalities into a
+``SelectivityFeedback``; both move the run's device values to the host in
+one copy.  With no tracer, ``run_plan`` is the untouched fast path: one
+``tracer is None`` check per call, none per op.
+
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; without a card they raise (:func:`resolve_device`) rather
 than carry on on the CPU.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Optional
 
 import torch
 
 from .buffering import BufferingDecision
-from .cost_model import CostModel
+from .cost_model import CostModel, raw_features
 from .engines import dispatch, get_engine, resolve_engines
 from .ir import FunctionCatalog, Plan, SystemCatalog, hardware_for_device
 from .physical import PHYS_OPS, PhysPlan
@@ -95,6 +104,7 @@ class ExecContext:
     scope: Any                      # current scope
     device: torch.device            # where the plan's tensors live
     aux: dict = field(default_factory=dict)   # count_sink, positions, ...
+    tracer: Optional[Any] = None    # core.tracing.Tracer; None = fast path
 
     def params_for(self, node):
         """The parameters under the node's ``pp`` path: from the root for
@@ -406,10 +416,51 @@ def _impl_fn(n):
 
 def run_plan(pplan: PhysPlan, ctx: ExecContext, values: dict) -> tuple:
     """Run every node of a concrete physical plan in topo order.  Nothing
-    here reads a device value back to the host."""
+    here reads a device value back to the host.  With a tracer in the
+    context the traced path runs instead (:func:`_run_plan_traced`)."""
+    if ctx.tracer is not None:
+        return _run_plan_traced(pplan, ctx, values)
     env = dict(values)
     for n in pplan.topo():
         env[n.id] = _impl_fn(n)(ctx, [env[i] for i in n.inputs], n)
+    return tuple(env[o] for o in pplan.outputs)
+
+
+def _run_plan_traced(pplan: PhysPlan, ctx: ExecContext,
+                     values: dict) -> tuple:
+    """run_plan with one span per physical op.  Span durations are dispatch
+    times (CUDA launches are asynchronous); the caller synchronizes once
+    per run.  Device-side observations (BoundedRel counts, overflow flags)
+    are *deferred* into the tracer and fetched in one transfer at
+    ``resolve()`` — a relation's lazy count is computed here, on the traced
+    path only."""
+    from .tracing import tree_bytes, xfer_wire_bytes
+    tracer = ctx.tracer
+    n_data = 1                       # one device: no data axis
+    env = dict(values)
+    for n in pplan.topo():
+        fn = _impl_fn(n)
+        opdef = PHYS_OPS.get(n.impl)
+        attrs = {"impl": n.impl,
+                 "engine": (opdef.backend or "xla") if opdef else "xla"}
+        if "dist" in n.attrs:
+            attrs["dist"] = n.attrs["dist"]
+        with tracer.span(n.id, "op", **attrs) as sp:
+            out = fn(ctx, [env[i] for i in n.inputs], n)
+            if n.impl.startswith("xfer_"):
+                kind = n.impl[len("xfer_"):]
+                payload = tree_bytes(out)
+                sp.attrs["xfer_kind"] = kind
+                sp.attrs["payload_bytes"] = payload
+                sp.attrs["wire_bytes"] = xfer_wire_bytes(kind, payload,
+                                                         n_data)
+            # duck-typed BoundedRel (no core -> stores import): its
+            # count / overflow are device scalars — defer, don't fetch
+            if hasattr(out, "cols") and hasattr(out, "valid"):
+                tracer.defer("count", out.count)
+                tracer.defer("overflow", out.overflow)
+                sp.attrs["capacity"] = int(out.capacity)
+        env[n.id] = out
     return tuple(env[o] for o in pplan.outputs)
 
 
@@ -430,6 +481,18 @@ def run_plan_subset(pplan: PhysPlan, ctx: ExecContext, values: dict,
 # end-to-end: logical plan -> planned function on one device
 # --------------------------------------------------------------------------
 
+def _drain_counts(resolved, feedback) -> None:
+    """Fold already-resolved count-sink entries into a feedback store."""
+    for site, count, capacity in resolved:
+        if site and site[0] == "compact_overflow":
+            # a capacity bound dropped rows: flag the originating
+            # predicate site so re-planning backs off from compacting it
+            if count > 0:
+                feedback.note_overflow(tuple(site[1]))
+            continue
+        feedback.record(site, count, capacity)
+
+
 @dataclass
 class PlannedFunction:
     """A staged plan bound to one device."""
@@ -444,6 +507,8 @@ class PlannedFunction:
     device: torch.device
     plan_id: str = ""
     staged: Optional[Any] = None     # StagedPhysicalPlan
+    last_run_trace: Optional[Any] = None   # RunTrace of the last analyze()
+    _predicted: Optional[dict] = None      # node id -> (seconds, features)
 
     @classmethod
     def from_staged(cls, staged, syscat: SystemCatalog, *,
@@ -452,15 +517,29 @@ class PlannedFunction:
                    staged.choices, staged.report, staged.buffering,
                    syscat, resolve_device(device), staged.plan_id, staged)
 
-    def explain(self) -> str:
-        """The plan-time EXPLAIN report."""
-        return "" if self.staged is None else self.staged.explain()
+    def explain(self, analyze=False) -> str:
+        """The plan-time EXPLAIN report; with ``analyze`` the runtime
+        section merges in.  ``analyze=True`` uses the last :meth:`analyze`
+        run's trace; a RunTrace may also be passed directly."""
+        if self.staged is None:
+            return ""
+        trace = None
+        if analyze is not False and analyze is not None:
+            trace = analyze if hasattr(analyze, "spans") \
+                else self.last_run_trace
+            if trace is None:
+                raise ValueError(
+                    "explain(analyze=True) needs a run trace: call "
+                    ".analyze(params, inputs) first")
+        return self.staged.explain(analyze=trace)
 
     def chosen_impls(self) -> list:
         """The concrete plan's impl names, in topo order."""
         return [n.impl for n in self.concrete.topo()]
 
-    def __call__(self, params, inputs: dict, aux: Optional[dict] = None):
+    def _context(self, params, inputs: dict, aux, tracer=None):
+        """The execution context of one run on this plan's device; refuses
+        inputs that hold a tensor on another device."""
         dev = resolve_device(self.device)
         for name, value in inputs.items():
             for t in _tensors(value):
@@ -469,10 +548,139 @@ class PlannedFunction:
                         f"input {name!r} holds a tensor on {t.device}, but "
                         f"this plan runs on {dev}: build it with "
                         f"payload(device={str(dev)!r})")
-        ctx = ExecContext(root=params, scope=params, device=dev,
-                          aux=aux or {})
-        outs = run_plan(self.concrete, ctx, inputs)
+        return ExecContext(root=params, scope=params, device=dev,
+                           aux=aux or {}, tracer=tracer)
+
+    def __call__(self, params, inputs: dict, aux: Optional[dict] = None):
+        outs = run_plan(self.concrete, self._context(params, inputs, aux),
+                        inputs)
         return outs if len(outs) > 1 else outs[0]
+
+    # -- EXPLAIN ANALYZE ----------------------------------------------------
+    def _predict_costs(self, cost_model=None) -> dict:
+        """Cost-model predictions per concrete node (memoized: the plan is
+        immutable, so one walk serves every analyze run)."""
+        if self._predicted is not None and cost_model is None:
+            return self._predicted
+        cm = cost_model or CostModel()
+        predicted: dict = {}
+
+        def visit(plan):
+            for n in plan.topo():
+                if n.subplan is not None:
+                    visit(n.subplan)
+                in_types = [plan.types.get(i) or plan.inputs.get(i)
+                            for i in n.inputs]
+                try:
+                    feats = raw_features(n.impl, in_types, n.attrs,
+                                         self.syscat)
+                    sec = cm.op_seconds(n.impl, in_types, n.attrs,
+                                        self.syscat)
+                except Exception:
+                    continue
+                predicted[n.id] = (float(sec), feats)
+
+        visit(self.concrete)
+        if cost_model is None:
+            self._predicted = predicted
+        return predicted
+
+    def analyze(self, params, inputs: dict, aux: Optional[dict] = None, *,
+                feedback=None, cost_model=None, recorder=None,
+                trip_context=None):
+        """EXPLAIN ANALYZE execution: run the plan under a span tracer,
+        synchronize the device **once** at the end (``torch.cuda.
+        synchronize`` in the ``device_sync`` span; empty on the CPU), and
+        build a :class:`~repro_torch.core.tracing.RunTrace` pairing every
+        physical node's observed dispatch ms / counts / xfer bytes with the
+        cost model's prediction.  The trace lands in
+        ``self.last_run_trace`` (rendered by ``explain(analyze=True)``) and
+        its ``(impl, features, observed_s)`` samples feed
+        ``core.feedback.fit_weights``.  With ``feedback`` given, the count
+        sink also drains into it (superset of :meth:`observe`).  With
+        ``recorder`` (a :class:`~repro_torch.core.ledger.FlightRecorder`),
+        the run's trace summary lands in the ring, and two incident
+        triggers trip a dump: an executor exception (which then re-raises)
+        and any BoundedRel overflow observed in the resolved counts.
+        ``trip_context`` — a zero-arg callable returning a dict — is merged
+        into the ``executor_error`` trip detail.  The outputs are
+        ``__call__``'s, on the same device.  Returns the plan outputs."""
+        from .tracing import RunTrace, Tracer
+        tracer = Tracer()
+        sink: list = []
+        run_aux = dict(aux or {})
+        run_aux["count_sink"] = sink
+        sync_sp = None
+        t0 = time.perf_counter()
+        try:
+            ctx = self._context(params, inputs, run_aux, tracer=tracer)
+            with tracer.span("run", "run", plan_id=self.plan_id):
+                outs = run_plan(self.concrete, ctx, inputs)
+            with tracer.span("device_sync", "sync") as sync_sp:
+                if ctx.device.type == "cuda":
+                    torch.cuda.synchronize(ctx.device)
+        except Exception as exc:
+            if recorder is not None:
+                detail = {"plan_id": self.plan_id, "error": repr(exc)}
+                if trip_context is not None:
+                    try:
+                        detail.update(trip_context() or {})
+                    except Exception:
+                        pass
+                recorder.trip("executor_error", detail)
+            raise
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        # ONE device -> host copy: deferred span attrs + the count sink
+        counts = tracer.resolve(sink)
+        predicted = self._predict_costs(cost_model)
+        samples = []
+        for sp in tracer.spans:
+            hit = predicted.get(sp.name)
+            if hit is None:
+                continue
+            sec, feats = hit
+            sp.attrs["predicted_s"] = sec
+            samples.append((sp.attrs.get("impl", sp.name), feats, sp.dur))
+        trace = RunTrace(spans=list(tracer.spans), wall_ms=wall_ms,
+                         sync_ms=sync_sp.dur_ms if sync_sp else 0.0,
+                         counts=counts, samples=samples,
+                         plan_id=self.plan_id)
+        self.last_run_trace = trace
+        if recorder is not None:
+            recorder.record_trace(trace)
+            overflows = [
+                {"site": list(map(str, site)), "count": float(c),
+                 "capacity": int(cap)}
+                for site, c, cap in counts
+                if site and site[0] == "compact_overflow" and c > 0]
+            overflows += [
+                {"span": sp.name, "capacity": sp.attrs.get("capacity")}
+                for sp in trace.spans if sp.attrs.get("overflow")]
+            if overflows:
+                recorder.trip("overflow", {"plan_id": self.plan_id,
+                                           "overflows": overflows})
+        if feedback is not None:
+            _drain_counts(counts, feedback)
+        return outs if len(outs) > 1 else outs[0]
+
+    def observe(self, params, inputs: dict, feedback,
+                aux: Optional[dict] = None):
+        """Run the plan while recording observed cardinalities: every
+        ``rel_filter`` / ``sel_mask`` site reports its actual ``count /
+        capacity`` into ``feedback`` (a ``SelectivityFeedback``).  The
+        counts stay on the device during the run and move to the host in
+        **one** copy at the end (``resolve_counts`` — the transfer point
+        EXPLAIN ANALYZE uses too), never per site.  Re-compiling with the
+        same feedback object then re-plans under the observed
+        selectivities (and misses the plan cache by construction).
+        Returns the plan outputs, exactly like ``__call__``."""
+        from .tracing import resolve_counts
+        sink: list = []
+        out_aux = dict(aux or {})
+        out_aux["count_sink"] = sink
+        outs = self.__call__(params, inputs, aux=out_aux)
+        _drain_counts(resolve_counts(sink), feedback)
+        return outs
 
 
 def plan_and_compile(logical: Plan, catalog: FunctionCatalog,

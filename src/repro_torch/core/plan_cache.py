@@ -23,6 +23,8 @@ import threading
 from collections import OrderedDict
 from typing import Any, Optional
 
+from .tracing import tree_leaves
+
 # per-node bookkeeping overhead (dataclass + dict slots, interned strings)
 # and the fallback for opaque entries staged_bytes cannot walk
 _NODE_BYTES = 256
@@ -43,37 +45,13 @@ def staged_bytes(staged) -> int:
         total = 0
         for node in staged.concrete.topo():
             total += _NODE_BYTES
-            for leaf in _leaves(dict(node.attrs)):
+            for leaf in tree_leaves(dict(node.attrs)):
                 n = getattr(leaf, "nbytes", None)   # numpy and torch alike
                 if n is not None:
                     total += int(n)
         return max(total, _NODE_BYTES)
     except Exception:
         return _FALLBACK_BYTES
-
-
-def _leaves(tree):
-    """The leaves of nested dicts / lists / tuples (the containers a node
-    attr can hold)."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-class _NullLedger:
-    """Stand-in until the port has a memory ledger: cached plans are
-    counted by the cache itself and registered nowhere else."""
-
-    def register(self, key, nbytes=0, kind=""):
-        pass
-
-    def release(self, key):
-        pass
 
 
 class PlanCache:
@@ -108,7 +86,7 @@ class PlanCache:
             raise ValueError(f"byte_budget must be >= 1, got {byte_budget}")
         self.maxsize = maxsize
         self.byte_budget = byte_budget
-        self._ledger = ledger                # None -> _NullLedger(), lazy
+        self._ledger = ledger                # None -> default_ledger(), lazy
         # one reentrant lock covers every counter and map mutation: the
         # serving loop's admission path and benchmark scripts look plans up
         # from multiple tasks/threads, and the bare ``self.hits += 1``
@@ -132,7 +110,8 @@ class PlanCache:
     @property
     def ledger(self):
         if self._ledger is None:
-            self._ledger = _NullLedger()
+            from .ledger import default_ledger
+            self._ledger = default_ledger()
         return self._ledger
 
     def note_fingerprint(self, fingerprint: str) -> None:

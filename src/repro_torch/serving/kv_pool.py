@@ -51,7 +51,7 @@ class PageTable:
 class PagedKVPool:
     def __init__(self, model, n_slots: int, max_seq: int, *,
                  page_size: int = 16, page_budget: int | None = None,
-                 registry=None, device=None):
+                 registry=None, ledger=None, device=None):
         if n_slots < 1 or max_seq < 1 or page_size < 1:
             raise ValueError("n_slots, max_seq, page_size must be >= 1")
         self.model = model
@@ -68,7 +68,13 @@ class PagedKVPool:
         self._free_slots = list(range(n_slots))
         self._tables: dict = {}      # request_id -> PageTable
         self.pages_in_use = 0
+        # occupancy/fragmentation gauges live in the shared registry; the
+        # ledger records the one allocation — resident for the pool's
+        # lifetime, so it never re-registers
         self.registry = registry
+        if ledger is not None:
+            ledger.register(("kv_pool", f"{id(self):#x}"), self.cache,
+                            kind="kv_pool")
         self._update_gauges()
 
     # -- admission-facing capacity -----------------------------------------

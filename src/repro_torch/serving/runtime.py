@@ -35,10 +35,19 @@ on the card unless ``device="cpu"`` is passed, and raises without one.  No
 ``try`` wraps a prefill or a decode tick: a kernel or launch error surfaces
 to the caller.
 
+Resource accounting and incident capture are the reference's: a
+:class:`~repro_torch.core.ledger.MemoryLedger` (the plan cache's, by
+default the process-wide one) holds the KV pool's one allocation and ties
+each bucket's kept prefill plan to its plan-cache entry, so a plan the
+runtime still holds after the cache evicted it shows in ``leaks()``; a
+:class:`~repro_torch.core.ledger.FlightRecorder` keeps telemetry snapshots
+(every ``snapshot_every`` ticks) and trips a dump on an admission
+rejection (``admission_reject``) and on a loop timeout
+(``serve_timeout``).
+
 Not ported yet (ROADMAP §1): fault injection and retries, deadlines,
-degraded-mode replanning, the memory ledger and flight recorder, the
-sub-plan cache and the analytical requests; their constructor arguments
-are absent.
+degraded-mode replanning, the sub-plan cache and the analytical requests;
+their constructor arguments are absent.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ import torch
 
 from ..core.executor import default_syscat, plan_and_compile, resolve_device
 from ..core.ir import SystemCatalog
+from ..core.ledger import FlightRecorder, MemoryLedger, default_ledger
 from ..core.plan_cache import (PlanCache, default_plan_cache,
                                load_plan_cache, save_plan_cache)
 from ..models.decode import (DecodeGraph, decode_step_batched,
@@ -104,6 +114,9 @@ class AsyncServingRuntime:
                  plan_cache_dir: Optional[str] = None,
                  admission: Optional[AdmissionController] = None,
                  registry: Optional[MetricsRegistry] = None,
+                 ledger: Optional[MemoryLedger] = None,
+                 recorder: Optional[FlightRecorder] = None,
+                 snapshot_every: int = 64,
                  prefill_batch: int = 4, device=None):
         self.device = resolve_device(device)
         self.model = model
@@ -122,9 +135,18 @@ class AsyncServingRuntime:
         self.kv_mode = model.supports_prefill_kv()
         self.registry = registry if registry is not None else \
             MetricsRegistry()
+        # resource accounting + incident capture: the ledger tracks every
+        # resident tensor tree (KV pool, plan-cache entries, store
+        # payloads); the flight recorder keeps a bounded ring of telemetry
+        # snapshots, dumped on rejection / timeout
+        self.ledger = ledger if ledger is not None else \
+            getattr(self.pc, "ledger", None) or default_ledger()
+        self.recorder = recorder if recorder is not None else FlightRecorder()
+        self.snapshot_every = max(int(snapshot_every), 1)
         self.pool = PagedKVPool(model, max_batch, max_seq,
                                 page_size=page_size, page_budget=page_budget,
-                                registry=self.registry, device=self.device)
+                                registry=self.registry, ledger=self.ledger,
+                                device=self.device)
         self.scheduler = ContinuousBatchScheduler(max_batch)
         self.admission = admission or AdmissionController()
         self.metrics = ServingMetrics(registry=self.registry)
@@ -167,6 +189,14 @@ class AsyncServingRuntime:
                                engines=self.engines, cache=self.pc,
                                device=self.device)
         self.metrics.observe_plan(hit=self.pc.hits > hits0)
+        kept = self._prefill_fns.get(bucket)
+        if kept is None or kept.plan_id != fwd.plan_id:
+            # tie the kept plan's lifetime to its plan-cache entry: once
+            # the cache evicts the entry while the runtime still holds the
+            # plan, this registration shows up in ledger.leaks()
+            self.ledger.register(
+                ("plan_jit", fwd.plan_id), nbytes=0, kind="plan_jit",
+                tied_to=("plan_cache", fwd.plan_id))
         self._prefill_fns[bucket] = fwd
         return fwd, (time.perf_counter() - t0) * 1e3
 
@@ -241,12 +271,46 @@ class AsyncServingRuntime:
         return decode_step_batched(self.model, self.params, self.pool.cache,
                                    toks, idxs)[0]
 
+    # -- telemetry ----------------------------------------------------------
+    def telemetry_snapshot(self) -> dict:
+        """One continuous-telemetry record: ledger totals, KV occupancy +
+        fragmentation, per-bucket queue depth, plan-cache hit/byte ratios,
+        decode-batch occupancy.  Published as registry gauges and recorded
+        in the flight recorder ring."""
+        pc_stats = self.pc.stats()
+        snap = {
+            "ledger": self.ledger.snapshot(),
+            "kv": {**self.pool.occupancy(), **self.pool.fragmentation()},
+            "queues": {b: len(q) for b, q in self.scheduler.queues.items()
+                       if q},
+            "queue_depth": self.scheduler.queue_depth(),
+            "active_slots": self.scheduler.n_active(),
+            "plan_cache": pc_stats,
+            "ticks": self.metrics.ticks,
+        }
+        self.ledger.publish(self.registry)
+        g = self.registry.gauge
+        g("plan_cache.hit_rate").set(pc_stats["hit_rate"])
+        g("plan_cache.bytes").set(pc_stats["bytes"])
+        g("serving.queue_depth").set(snap["queue_depth"])
+        g("serving.active_slots").set(snap["active_slots"])
+        return snap
+
+    def _maybe_snapshot(self, force: bool = False) -> None:
+        if force or self.metrics.ticks % self.snapshot_every == 0:
+            self.recorder.record("telemetry", self.telemetry_snapshot())
+
     # -- admission ----------------------------------------------------------
     def _reject(self, req: ServeRequest, reason: str) -> None:
         self.metrics.rejected += 1
         self._results[req.rid] = ServeResult(
             req.rid, [], "rejected", None,
             error={"reason": reason, "rid": str(req.rid)})
+        self.recorder.trip("admission_reject", {
+            "rid": str(req.rid), "reason": reason,
+            "prompt_len": req.prompt_len, "gen": req.gen,
+            "queue_depth": self.scheduler.queue_depth(),
+            "active": self.scheduler.n_active()})
 
     def submit(self, req: ServeRequest) -> None:
         if req.prompt_len < 1 or req.gen < 1:
@@ -421,6 +485,7 @@ class AsyncServingRuntime:
         active = self.scheduler.active()
         self.metrics.observe_tick(self.scheduler.queue_depth(),
                                   self.pool.occupancy()["fill"])
+        self._maybe_snapshot()
         if not active:
             return False
         toks = np.zeros((self.max_batch, 1), np.int64)
@@ -450,7 +515,14 @@ class AsyncServingRuntime:
 
     def _fail_outstanding(self, requests, timeout_s: float) -> None:
         """Loop timeout: resolve every request that has no result yet with
-        a structured timeout error and return its resources."""
+        a structured timeout error and return its resources.  One
+        serve_timeout trip captures the stuck state."""
+        self.recorder.trip("serve_timeout", {
+            "timeout_s": timeout_s, "done": len(self._results),
+            "expected": len(requests),
+            "queue_depth": self.scheduler.queue_depth(),
+            "active": self.scheduler.n_active(),
+            "telemetry": self.telemetry_snapshot()})
         for st in list(self.scheduler.active()):
             self._finish(st, "timeout",
                          error={"reason": "timeout", "phase": "decode",

@@ -26,6 +26,7 @@ import torch
 
 from ..core.executor import resolve_device
 from ..core.ir import TableT, ValidationError
+from ..core.ledger import register_store_payload
 from ..kernels.graph_kernels import scatter_add_plain
 from .bounded import BoundedRel
 
@@ -90,7 +91,7 @@ class ColumnStore:
 
     def payload(self, device="cuda") -> BoundedRel:
         """The table on ``device`` (the card unless the caller asks for the
-        CPU)."""
+        CPU), registered in the default memory ledger."""
         dev = resolve_device(device)
         pad = self.capacity - self.rows
         cols = {k: torch.from_numpy(np.pad(v, (0, pad)) if pad else v
@@ -98,9 +99,10 @@ class ColumnStore:
                 for k, v in self._cols.items()}
         valid = torch.arange(self.capacity, dtype=torch.int32,
                              device=dev) < self.rows
-        return BoundedRel(cols, valid,
-                          torch.tensor(self.rows, dtype=torch.int32,
-                                       device=dev))
+        rel = BoundedRel(cols, valid,
+                         torch.tensor(self.rows, dtype=torch.int32,
+                                      device=dev))
+        return register_store_payload(self, rel, "column_store")
 
     def column(self, name: str) -> np.ndarray:
         return self._cols[name][:self.rows]

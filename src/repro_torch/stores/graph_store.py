@@ -45,6 +45,8 @@ import torch
 
 from ..core.executor import resolve_device
 from ..core.ir import GraphT, ValidationError
+from ..core.ledger import register_store_payload
+from ..core.tracing import tree_bytes
 from ..kernels.graph_kernels import scatter_add, scatter_add_plain
 
 
@@ -96,16 +98,25 @@ class GraphStore:
 
     def payload(self, device="cuda") -> dict:
         """The CSR and its dst-ordered edge copy on ``device`` (the card
-        unless the caller asks for the CPU)."""
+        unless the caller asks for the CPU), registered in the default
+        memory ledger."""
         dev = resolve_device(device)
         out_deg = np.maximum(np.diff(self.indptr), 1).astype(np.float32)
-        return with_dst_order({
+        out = with_dst_order({
             "indptr": torch.from_numpy(self.indptr).to(dev),
             "indices": torch.from_numpy(self.indices).to(dev),  # dst / edge
             "src": torch.from_numpy(self.src).to(dev),          # src / edge
             "weights": torch.from_numpy(self.weights).to(dev),
             "out_deg": torch.from_numpy(out_deg).to(dev),
         })
+        return register_store_payload(
+            self, out, "graph_store",
+            extra=tree_bytes([out[k] for k in DST_ORDER_KEYS]))
+
+
+# the keys with_dst_order adds: the port's payload holds them beyond the
+# reference's, and the ledger adds their bytes to the predicted ones
+DST_ORDER_KEYS = ("dst_src", "dst_dst", "dst_w")
 
 
 def with_dst_order(g: dict) -> dict:

@@ -42,6 +42,17 @@ def _record_count(ctx, site, count, capacity):
         sink.append((site, count, capacity))
 
 
+def _annotate(ctx, **attrs):
+    """Runtime-attribution hook: when the executor traced this op
+    (``ExecContext.tracer``), report which dist strategy the impl actually
+    dispatched and the per-shard collective bytes its kernel moves.  A
+    cheap no-op when tracing is off.  Its callers are the sharded stores'
+    branches, which the port does not have yet."""
+    tr = None if ctx is None else getattr(ctx, "tracer", None)
+    if tr is not None:
+        tr.annotate(**attrs)
+
+
 # --------------------------------------------------------------------------
 # relational engine: step functions + per-op impls
 # --------------------------------------------------------------------------

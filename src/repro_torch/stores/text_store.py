@@ -34,6 +34,8 @@ import torch
 
 from ..core.executor import resolve_device
 from ..core.ir import CorpusT, ValidationError
+from ..core.ledger import register_store_payload
+from ..core.tracing import tree_bytes
 from ..kernels.masked_kernels import ordered_doc_sum
 
 
@@ -122,9 +124,12 @@ class TextStore:
 
     def payload(self, device="cuda") -> dict:
         """The index on ``device`` (the card unless the caller asks for the
-        CPU)."""
-        return text_payload(self.doc_ids, self.term_ids, self.tf,
-                            self.doc_len, self.idf, resolve_device(device))
+        CPU), registered in the default memory ledger."""
+        out = text_payload(self.doc_ids, self.term_ids, self.tf,
+                           self.doc_len, self.idf, resolve_device(device))
+        return register_store_payload(
+            self, out, "text_store",
+            extra=tree_bytes([out[k] for k in PORT_KEYS]))
 
     def query_vector(self, terms: Iterable[int]) -> np.ndarray:
         """Dense (vocab,) query term-count vector for :func:`tfidf_scores`."""
@@ -141,6 +146,11 @@ def _flatten(docs):
     lengths = np.array([d.size for d in docs], np.int64)
     flat = np.concatenate(docs) if docs else np.zeros(0, np.int64)
     return flat, lengths
+
+
+# the keys text_payload adds to the reference's five arrays; the ledger
+# adds their bytes to the predicted ones
+PORT_KEYS = ("doc_ptr", "max_doc_postings")
 
 
 def text_payload(doc_ids, term_ids, tf, doc_len, idf, device) -> dict:

@@ -98,6 +98,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.serving.scheduler, repro_torch.serving.metrics\n"
         "import repro_torch.serving.kv_pool, repro_torch.serving.runtime\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.core.tracing, repro_torch.core.ledger\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and m.split('.')[0] in ('repro', 'jax', 'jaxlib')]\n"

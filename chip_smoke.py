@@ -244,7 +244,61 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      left out; the CPU tests hold the port against the reference at SMOKE
      width (``tests/test_torch_moe_*.py``);
 
- 27. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+  ``multi_query`` (many analysts over one tri-store, and the resilience
+  layer, slice 12):
+
+ 28. data     — hashtag_pulse's stores at full size from seed 0 (10M
+     tweets, 131,072 hashtags) and the 11 query vectors (6 random terms
+     each) of ``benchmarks/multi_query.py``'s 16 clients; their copy to the
+     card (set-up time);
+ 29. [mq]     — the benchmark's programs (``repro_torch.examples.
+     multi_query``: the heavy tri-query at its full iters=24, the light
+     text-relevance one), planned with the kernel slot: the heavy plan's
+     impls are hashtag_pulse's.  16 clients (4 exact twins, 2 x 2 heavy
+     queries that differ only in ``q``, 8 light queries batched on ``q``;
+     tenants ``client{i % 4}``): each alone through ``__call__`` (its
+     launches its plan's), then one at a time through ``run_analysis`` on
+     a runtime without a subplan cache (the sequential wall), then all
+     through ``serve_analyses`` on a runtime whose subplan budget is twice
+     the bytes a probe pass caches (the multi-query wall, warm).  Checked:
+     the deduped / batched / shared_hits counters equal the reference
+     runtime's for the same workload (``mq.SMOKE_COUNTERS``, held on the
+     CPU by ``tests/test_torch_mqo.py``), no ``batch_fallback``, every
+     deduped or cache-served result bitwise its isolated run, batched ones
+     bitwise or within ``rtol=1e-5, atol=1e-6`` (max error printed), the
+     kernel launches equal the executed nodes' (each residual's, one light
+     plan a batched row), one host copy a query (``content_key``), the
+     cache within its budget, its ledger bytes the cache's and gone after
+     ``clear()``.  ``[mq-batched]``: the group-by's batching rule on the
+     light queries' recorded arguments under ``torch.func.vmap`` (one
+     launch a row) against a loop of unbatched calls and the plain version;
+     then scatter_add and masked_segment_agg timed on the heavy and light
+     runs' arguments, as in phase 8;
+ 30. [resilience] — hashtag_pulse's plan under a ``ResilientExecutor``: a
+     persistent fault at ``rel_fused_agg_pallas`` opens the breaker and
+     re-plans without the kernel slot (a new plan id, no ``_pallas`` impl,
+     0 launches, output within the float tolerance); the chaos spec
+     ``seed=0,rate=0.05`` over 8 runs retries the same plan to the
+     fault-free output bitwise; a ``KernelError`` raised in the group-by
+     impl fails in one attempt with the breaker closed, and a plain
+     ``RuntimeError`` there is retried 3 times on the base plan with the
+     breaker closed (only an injected fault re-plans);
+ 31. [degrade] — the heavy query through ``run_analysis(degrade=2)``: k
+     64 -> 8 and iters 24 -> 3 under a new plan id, the impls and the
+     bitwise output of a direct compile of the clamped program, scatter_add
+     launches 26 -> 5;
+ 32. [serve-faults] — qwen3-0.6b at full width serving phase 13's 8
+     requests under the chaos spec, twice (one schedule), against a
+     fault-free run at ``prefill_batch`` 1: every request terminates, ok
+     ones token for token the fault-free run's, flash launches 28 x the
+     prefill forwards, the pool empty and no ledger leak; then a request
+     whose deadline has passed at submit and, through ``serve()`` on a
+     fresh runtime, one whose budget (request 0's prefill plus 2.5
+     fault-free decode steps) runs out mid-decode: cut at a token
+     boundary, its partial tokens a prefix of the fault-free run's, its
+     pages returned;
+
+ 33. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Observability (EXPLAIN ANALYZE and the resource ledger, slice 11), inside
 the paths above:
@@ -339,26 +393,32 @@ import torch  # noqa: E402
 
 import repro_torch  # noqa: E402
 from repro_torch import kernels  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.adil import Analysis  # noqa: E402
 from repro_torch.core.adil_parser import parse_adil  # noqa: E402
-from repro_torch.core import tracing  # noqa: E402
+from repro_torch.core import mqo, tracing  # noqa: E402
 from repro_torch.core.engines import dispatch  # noqa: E402
 from repro_torch.core.executor import (ExecContext,  # noqa: E402
                                        plan_and_compile, run_plan_subset)
+from repro_torch.core.faults import FaultInjector  # noqa: E402
 from repro_torch.core.feedback import SelectivityFeedback  # noqa: E402
 from repro_torch.core.ir import (ListT, Plan, SystemCatalog,  # noqa: E402
                                  TensorT, hardware_for_device,
                                  standard_catalog)
-from repro_torch.core.ledger import (default_ledger,  # noqa: E402
+from repro_torch.core.ledger import (FlightRecorder,  # noqa: E402
+                                     MemoryLedger, default_ledger,
                                      reset_default_ledger)
+from repro_torch.core.resilience import (CircuitBreaker,  # noqa: E402
+                                         ExecError, ResilientExecutor,
+                                         RetryPolicy)
 from repro_torch.core.rewrite import (DEFAULT_PIPELINE,  # noqa: E402
                                       UNPUSHED_PIPELINE)
+from repro_torch.examples import multi_query as mq  # noqa: E402
 from repro_torch.examples import tri_influence  # noqa: E402
 from repro_torch.examples import windowed_ranking  # noqa: E402
 from repro_torch.examples.tri_model_analysis import (  # noqa: E402
     adil_script, build_social_data, inputs_for)
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, masked_kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_mask, flash_attention, flash_attention_hmajor,
     flash_attention_plain)
@@ -381,10 +441,12 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import CATALOG  # noqa: E402
 from repro_torch.models.decode import (DecodeGraph,  # noqa: E402
                                        decode_step_batched, init_cache)
-from repro_torch.serving import (AsyncServingRuntime,  # noqa: E402
+from repro_torch.serving import (AnalysisRequest,  # noqa: E402
+                                 AsyncServingRuntime, DegradePolicy,
                                  ServeRequest, bucket_len, serve_sequential)
 from repro_torch.stores import (BoundedRel, ColumnStore,  # noqa: E402
-                                GraphStore, TextStore, graph_store, runtime)
+                                GraphStore, TextStore, graph_store, runtime,
+                                store_engines)
 from repro_torch.stores.column_store import (  # noqa: E402
     hash_join_nonunique)
 from repro_torch.stores.text_store import tfidf_scores  # noqa: E402
@@ -452,6 +514,16 @@ DBRX = {"arch": "dbrx-132b", "n_layers": 2, "requests": 8,
                "44.0 GB at 3, with 19.6 GB of bf16 expert copies: 3 do not "
                "fit 80 GB"}
 DSUB = {"prompt_lens": (100, 500), "gen": 8, "moe_bucket": 512}
+# multi_query: benchmarks/multi_query.py's 16 clients and programs (the
+# heavy one at its full iters=24) over hashtag_pulse's stores; the subplan
+# budget is budget_factor x the bytes a probe pass caches (room for all)
+MQ = {"iters": 24, "probe_budget": 8 << 30, "budget_factor": 2}
+MQ_LIGHT_IMPLS = Counter({"xfer_pin": 3, "text_topk_inv": 1,
+                          "rel_fused_agg_pallas": 1, "col_tensor_rel": 1,
+                          "store": 1})
+CHAOS = "seed=0,rate=0.05"    # benchmarks/serving_throughput.py's chaos spec
+RESILIENCE_RUNS = 8           # runs of hashtag_pulse under the chaos spec
+DEGRADE_LEVEL = 2             # DegradePolicy's survival rung: k 8, iters 3
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 RECURRENT = {
     "rwkv6-3b": {
@@ -849,6 +921,10 @@ def check_segment_agg(dev, gen, calls, edges=True):
                 library)
     plain_ms = cuda_ms(
         lambda: masked_segment_agg_plain(vals, keys, mw, n_groups))
+    # the same launch through the torch.library op that only a vmapped
+    # call enters: the op's dispatch cost is op_ms - ms
+    op_ms = cuda_ms(
+        lambda: masked_kernels._segment_agg_op(vals, keys, mw, n_groups))
     r = int(keys.shape[0])
     rows = torch.nonzero(mw != 0).flatten()
     active = int(rows.numel())
@@ -863,7 +939,7 @@ def check_segment_agg(dev, gen, calls, edges=True):
     phase("kernel", name="masked_segment_agg", R=r, R_active=active,
           G=n_groups, calls=len(calls), max_abs_err=err, plain_ms=plain_ms,
           bound_ms=bound_ms, share_of_bound=bound_ms / t["device_ms"],
-          sectors_mb_est=sectors_mb_est, **t)
+          sectors_mb_est=sectors_mb_est, op_ms=op_ms, **t)
     return {"name": "masked_segment_agg", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/masked_segment_agg.cu",
             "replaces": "src/repro/stores/masked_kernels.py:311",
@@ -3276,6 +3352,514 @@ def dbrx_path(args, dev, syscat) -> list:
     return records
 
 
+# -- phases 28-32: many analysts at once and the resilience layer ---------
+
+
+def node_launches(fn, inputs) -> dict:
+    """Each concrete node's kernel launches in one run of ``fn`` (the plan
+    run one node at a time through ``run_plan_subset``)."""
+    ctx = ExecContext(root={}, scope={}, device=fn.device)
+    env, out = dict(inputs), {}
+    for n in fn.concrete.topo():
+        kernels.reset_launches()
+        env = run_plan_subset(fn.concrete, ctx, env, [n.id])
+        out[n.id] = Counter(kernels.launches())
+    torch.cuda.synchronize()
+    return out
+
+
+@contextlib.contextmanager
+def residuals(log):
+    """Append ``(plan, node ids)`` of every residual the subplan cache's CSE
+    pass runs (``mqo.run_plan_subset``) to ``log``."""
+    wrapped = mqo.run_plan_subset
+
+    def record(pplan, ctx, values, node_ids):
+        log.append((pplan, list(node_ids)))
+        return wrapped(pplan, ctx, values, node_ids)
+
+    mqo.run_plan_subset = record
+    try:
+        yield
+    finally:
+        mqo.run_plan_subset = wrapped
+
+
+def mq_runtime(model, params, syscat, dev, **kw):
+    """The analytical queries' runtime: the benchmark's (2 decode slots,
+    max_seq 32) over qwen3 SMOKE, whose language-model half stays idle."""
+    return AsyncServingRuntime(model, params, max_batch=2, max_seq=32,
+                               syscat=syscat, device=dev, **kw)
+
+
+def check_batched_agg(dev, calls) -> dict:
+    """The group-by's batching rule on the card: the 8 light queries'
+    ``masked_segment_agg`` arguments (recorded in their isolated runs)
+    stacked and run under ``torch.func.vmap`` — one launch a row — against
+    a loop of unbatched kernel calls and against the plain version."""
+    n_groups = calls[0][3]
+    v, k, w = (torch.stack([c[i] for c in calls]) for i in range(3))
+    kernels.reset_launches()
+    s, c = torch.func.vmap(
+        lambda a, b, m: masked_segment_agg(a, b, m, n_groups))(v, k, w)
+    torch.cuda.synchronize()
+    launched = kernels.launches()["masked_segment_agg"]
+    check(launched == len(calls),
+          f"batched masked_segment_agg: {launched} launches for "
+          f"{len(calls)} rows")
+    bitwise, err = True, 0.0
+    for i, (a, b, m, g) in enumerate(calls):
+        ls, lc = masked_segment_agg(a, b, m, g)
+        ps, pc = masked_segment_agg_plain(a, b, m, g)
+        torch.testing.assert_close(s[i], ps, rtol=RTOL, atol=ATOL)
+        check(torch.equal(c[i], pc) and torch.equal(c[i], lc),
+              "batched masked_segment_agg: counts differ")
+        bitwise &= bool(torch.equal(s[i], ls))
+        err = max(err, float((s[i] - ps).abs().max()))
+    return {"rows": len(calls), "R": int(v.shape[1]), "G": n_groups,
+            "launches": launched, "bitwise_loop": bitwise,
+            "max_abs_err_plain": err}
+
+
+def multi_query_path(args, dev, syscat) -> list:
+    """Phases 28-32: the multi-query workload and the resilience layer.
+    Returns its kernels' records."""
+    # 28. data: hashtag_pulse's stores, the 11 query vectors of the
+    # benchmark's 16 clients
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)
+    table, graph, corpus = build_social_data(rng, **FULL)
+    qs_np = mq.query_vectors(rng, corpus, 11)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stores = inputs_for(table, graph, corpus, qs_np[0], dev)
+    qs = [torch.from_numpy(q).to(dev) for q in qs_np]
+    torch.cuda.synchronize()
+    heavy_in = {k: stores[k] for k in ("tweets", "g", "cx")}
+    light_in = {k: stores[k] for k in ("tweets", "cx")}
+    phase("data", path="multi_query", tweets=table.rows,
+          hashtags=graph.n_nodes, edges=graph.n_edges, docs=corpus.n_docs,
+          postings=corpus.n_postings, queries=len(qs),
+          build_s=round(t_build, 3),
+          h2d_s=round(time.perf_counter() - t0, 3))
+
+    # 29. [mq]: 16 clients through serve_analyses
+    ah = mq.heavy_analysis(table, graph, corpus, iters=MQ["iters"])
+    al = mq.light_analysis(table, corpus, graph.n_nodes)
+    fh = repro_torch.compile(ah, syscat, device=dev)
+    fl = repro_torch.compile(al, syscat, device=dev)
+    impls_h, impls_l = Counter(fh.chosen_impls()), Counter(fl.chosen_impls())
+    check(impls_h == EXPECTED_IMPLS, f"heavy impls {dict(impls_h)}")
+    check(impls_l == MQ_LIGHT_IMPLS, f"light impls {dict(impls_l)}")
+    wl = mq.workload((ah, fh), (al, fl), heavy_in, light_in, qs)
+    per_node = {fh.plan_id: node_launches(fh, wl[0][1]),
+                fl.plan_id: node_launches(fl, wl[8][1])}
+    plan_launches = {pid: sum(nodes.values(), Counter())
+                     for pid, nodes in per_node.items()}
+    # isolated references: each query alone through __call__ (also warms
+    # the unbatched path), its launches those of its plan; the kernels'
+    # arguments of one heavy and the 8 light runs recorded
+    sc_calls, agg_heavy, agg_light, refs = [], [], [], []
+    for i, (fn, inp, _bp, _sv) in enumerate(wl):
+        sc, agg = ((sc_calls, agg_heavy) if i == 0
+                   else ([], agg_light) if fn is fl else ([], []))
+        kernels.reset_launches()
+        with recording(graph_store, "scatter_add", sc), \
+                recording(runtime, "masked_segment_agg", agg):
+            refs.append(fn({}, inp))
+        torch.cuda.synchronize()
+        got = Counter(kernels.launches())
+        check(+got == +plan_launches[fn.plan_id],
+              f"query {i}: launches {dict(+got)} != its plan's "
+              f"{dict(+plan_launches[fn.plan_id])}")
+    model = build_model(get_smoke_config(SERVE["arch"]).replace(
+        dtype="float32"))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    # the sequential baseline: run_analysis one query at a time, no
+    # subplan cache
+    rt_seq = mq_runtime(model, params, syscat, dev)
+    check(rt_seq.subplans is None, "baseline runtime holds a subplan cache")
+    seq, each = [], []
+    t0 = time.perf_counter()
+    for fn, inp, _, _ in wl:
+        t1 = time.perf_counter()
+        seq.append(rt_seq.run_analysis(fn, {}, inp))
+        each.append((time.perf_counter() - t1) * 1e3)
+    t_seq = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(seq, refs)),
+          "sequential run_analysis differs from __call__")
+
+    def requests():
+        return [AnalysisRequest(rid=i, planned=fn, inputs=inp, params={},
+                                tenant=f"client{i % 4}", batch_param=bp,
+                                store_versions=sv)
+                for i, (fn, inp, bp, sv) in enumerate(wl)]
+
+    # the budget: a warm-up pass (the batched path's first run) through a
+    # cache with room for everything gives the cached intermediates' bytes
+    probe = mq_runtime(model, params, syscat, dev,
+                       subplan_budget=MQ["probe_budget"])
+    probe.serve_analyses(requests(), timeout_s=600)
+    cached = probe.subplans.stats()
+    budget = MQ["budget_factor"] * cached["bytes"]
+    budget = -(-budget // (1 << 20)) << 20
+    del probe
+    led = MemoryLedger()
+    rt = mq_runtime(model, params, syscat, dev, ledger=led,
+                    plan_cache=PlanCache(ledger=led), subplan_budget=budget)
+    reqs, ran = requests(), []
+    copies = mqo.host_copies
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with residuals(ran):
+        res = rt.serve_analyses(reqs, timeout_s=600)
+    torch.cuda.synchronize()
+    t_conc = time.perf_counter() - t0
+    counted = kernels.launches()
+    copies = mqo.host_copies - copies
+    s = rt.metrics.analytics_summary()
+    sub = rt.subplans.stats()
+    check([r.status for r in res] == ["ok"] * len(res),
+          f"statuses {[(r.status, r.error) for r in res]}")
+    got = {k: s[k] for k in mq.SMOKE_COUNTERS}
+    check(got == mq.SMOKE_COUNTERS,
+          f"counters {got} != the reference's {mq.SMOKE_COUNTERS}")
+    check(all(r.batched for r in res[8:]) and not any(r.batched
+                                                      for r in res[:8]),
+          "light queries not batched")
+    fallbacks = [e for e in rt.recorder.events() if e.kind == "batch_fallback"]
+    check(not fallbacks, f"batch_fallback events {fallbacks}")
+    for i, (r, want) in enumerate(zip(res[:8], refs[:8])):
+        check(torch.equal(r.value, want),
+              f"query {i} (deduped={r.deduped}, shared_hits="
+              f"{r.shared_hits}) differs from its isolated run")
+    batched_err, batched_bitwise = 0.0, True
+    for r, want in zip(res[8:], refs[8:]):
+        torch.testing.assert_close(r.value, want, rtol=RTOL, atol=ATOL)
+        batched_bitwise &= bool(torch.equal(r.value, want))
+        batched_err = max(batched_err, float((r.value - want).abs().max()))
+    # launches: each residual's nodes, plus one light plan per batched row
+    expected = Counter()
+    for pplan, nids in ran:
+        pid = fh.plan_id if pplan is fh.concrete else fl.plan_id
+        for nid in nids:
+            expected += per_node[pid][nid]
+    for _ in res[8:]:
+        expected += plan_launches[fl.plan_id]
+    check(+Counter(counted) == +expected,
+          f"launches {dict(+Counter(counted))} != the executed nodes' "
+          f"{dict(+expected)}")
+    check(copies == len(reqs),
+          f"content_key made {copies} host copies for {len(reqs)} queries")
+    check(sub["bytes"] <= budget and sub["oversize_skips"] == 0
+          and sub["evictions"] == 0, f"subplan cache {sub}")
+    check(led.snapshot()["by_kind"].get("subplan", 0) == sub["bytes"],
+          "ledger subplan bytes differ from the cache's")
+    rt.subplans.clear()
+    check(led.snapshot()["by_kind"].get("subplan", 0) == 0
+          and not led.leaks(), "subplan bytes or leaks after clear()")
+    batched = check_batched_agg(dev, agg_light)
+    phase("mq", clients=len(reqs), tenants=4, heavy_plan=fh.plan_id[:12],
+          light_plan=fl.plan_id[:12], iters=MQ["iters"],
+          heavy_ms=statistics.median(each[:8]),
+          light_ms=statistics.median(each[8:]),
+          sequential_s=round(t_seq, 4), multi_query_s=round(t_conc, 4),
+          sequential_over_multi=t_seq / t_conc,
+          **{k: s[k] for k in ("deduped", "batched", "shared_hits")},
+          counters_equal_reference=True, batch_fallbacks=0,
+          deduped_and_cached_bitwise=True,
+          batched_bitwise_isolated=batched_bitwise,
+          batched_max_abs_err=batched_err, residual_runs=len(ran),
+          launches=json.dumps(dict(+Counter(counted))),
+          launches_equal_plan=True, host_copies=copies,
+          cached_entries=cached["entries"], cached_bytes=cached["bytes"],
+          budget_bytes=budget, subplan_bytes=sub["bytes"],
+          subplan_hits=sub["hits"], leaks_after_clear=0,
+          mean_ttfr_ms=s["mean_ttfr_ms"], p95_ttfr_ms=s["p95_ttfr_ms"])
+    phase("mq-batched", **batched)
+    if args.profile:
+        profile_call(lambda: mq_runtime(
+            model, params, syscat, dev, subplan_budget=budget
+        ).serve_analyses(requests(), timeout_s=600), "multi_query")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    records = [check_scatter(dev, gen, sc_calls, edges=False),
+               check_segment_agg(dev, gen, agg_heavy + agg_light,
+                                 edges=False)]
+    for rec in records:
+        rec["launches"] = counted[rec["name"]]
+        rec["path"] = "multi_query"
+    del rt, rt_seq, res, seq, refs, sc_calls, agg_heavy, agg_light
+
+    # 30. [resilience]: hashtag_pulse's plan under a ResilientExecutor
+    check_resilience(dev, syscat, table, graph, corpus,
+                     {**heavy_in, "q": qs[0]})
+
+    # 31. [degrade]: the heavy query at ladder level 2
+    check_degrade(dev, syscat, table, graph, corpus, fh, model, params,
+                  {**heavy_in, "q": qs[0]})
+    del stores, heavy_in, light_in, qs, wl, model, params
+    free_memory()
+
+    # 32. [serve-faults]: qwen3-0.6b's served trace under the chaos spec
+    check_serve_faults(dev, syscat)
+    return records
+
+
+def check_resilience(dev, syscat, table, graph, corpus, inputs):
+    """[resilience]: an injected persistent fault at the group-by kernel
+    opens the breaker and re-plans without the kernels; a rate-only
+    injector retries the same plan to the fault-free result; a KernelError
+    fails fast with the breaker closed, and any other real error at the
+    kernel is retried on the same plan with the breaker closed."""
+    pulse = parse_adil(adil_script(table, graph, corpus), standard_catalog())
+    base = repro_torch.compile(pulse, syscat, device=dev)
+    kernels.reset_launches()
+    want = base({}, inputs)
+    torch.cuda.synchronize()
+    check(kernels.launches() == EXPECTED_LAUNCHES, "base plan launches")
+
+    def rex(**kw):
+        return ResilientExecutor(
+            pulse.catalog, syscat, engines=store_engines(pallas=True),
+            sleep=lambda s: None,
+            plan_kwargs={"store_versions": pulse.store_versions(),
+                         "device": dev}, **kw)
+
+    # 1. a persistently broken kernel site opens the breaker
+    rec = FlightRecorder()
+    r1 = rex(policy=RetryPolicy(max_attempts=3, base_backoff_s=0.0,
+                                jitter=0.0),
+             breaker=CircuitBreaker(threshold=1), recorder=rec,
+             faults=FaultInjector(seed=0,
+                                  always_fail=("rel_fused_agg_pallas",)))
+    out, fn = r1.run(pulse.plan, {}, inputs)
+    base_id = r1.attempts_log[0][2]
+    check(base_id == base.plan_id, "executor's base plan is not compile's")
+    check(fn.plan_id != base_id, "breaker re-plan kept the plan id")
+    check(not [i for i in fn.chosen_impls() if i.endswith("_pallas")],
+          f"degraded plan keeps kernels {fn.chosen_impls()}")
+    check(r1.breaker.blocklist(base_id) == ("pallas",), "breaker not open")
+    check(any(r == "breaker_open" for r, _ in rec.trips), "no breaker_open")
+    kernels.reset_launches()
+    again = fn({}, inputs)
+    torch.cuda.synchronize()
+    check(not any(kernels.launches().values()),
+          f"degraded plan launched {kernels.launches()}")
+    err = float((out - want).abs().max())
+    torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    # 2. rate-only faults: retries of the same plan, run after run
+    faults = FaultInjector.from_spec(CHAOS)
+    r2 = rex(policy=RetryPolicy(max_attempts=8, base_backoff_s=0.0),
+             breaker=CircuitBreaker(threshold=1 << 20), faults=faults)
+    for _ in range(RESILIENCE_RUNS):
+        out2, fn2 = r2.run(pulse.plan, {}, inputs)
+        check(fn2.plan_id == base_id, "rate-only retry re-planned")
+        check(torch.equal(out2, want),
+              "retried result differs from the fault-free run's")
+    fails = sum(1 for a in r2.attempts_log if a[0] == "fail")
+    # 3. a kernel error fails fast: one attempt, the breaker closed
+    rec3 = FlightRecorder()
+    r3 = rex(policy=RetryPolicy(max_attempts=5, base_backoff_s=0.0),
+             breaker=CircuitBreaker(threshold=1), recorder=rec3)
+    wrapped = runtime.masked_segment_agg
+
+    def broken(*a, **k):
+        raise build.KernelError("masked_segment_agg: injected launch error")
+
+    runtime.masked_segment_agg = broken
+    try:
+        r3.run(pulse.plan, {}, inputs)
+    except ExecError as exc:
+        fast = (not exc.retryable and isinstance(exc.cause, build.KernelError)
+                and len(r3.attempts_log) == 1 and not r3.breaker.events
+                and not any(r == "breaker_open" for r, _ in rec3.trips))
+    else:
+        fast = False
+    finally:
+        runtime.masked_segment_agg = wrapped
+    check(fast, f"KernelError did not fail fast: {r3.attempts_log}")
+    # 4. any other real error at the kernel (not injected) is retried on
+    # the same plan and never opens the breaker
+    rec4 = FlightRecorder()
+    r4 = rex(policy=RetryPolicy(max_attempts=3, base_backoff_s=0.0),
+             breaker=CircuitBreaker(threshold=1), recorder=rec4,
+             faults=FaultInjector(seed=0, rate=0.0))
+
+    def failing(*a, **k):
+        raise RuntimeError("masked_segment_agg: a real, not injected, error")
+
+    runtime.masked_segment_agg = failing
+    try:
+        r4.run(pulse.plan, {}, inputs)
+    except ExecError as exc:
+        kept = (exc.retryable and len(r4.attempts_log) == 3
+                and {a[2] for a in r4.attempts_log} == {base_id}
+                and not r4.breaker.events
+                and not any(r == "breaker_open" for r, _ in rec4.trips))
+    else:
+        kept = False
+    finally:
+        runtime.masked_segment_agg = wrapped
+    check(kept, f"a real kernel-site error re-planned: {r4.attempts_log}")
+    phase("resilience", plan=base_id[:12], degraded_plan=fn.plan_id[:12],
+          degraded_impls=json.dumps(dict(Counter(fn.chosen_impls()))),
+          degraded_launches=0, base_launches=json.dumps(
+              {k: v for k, v in EXPECTED_LAUNCHES.items() if v}),
+          degraded_max_abs_err=err,
+          degraded_bitwise=bool(torch.equal(again, want)),
+          breaker_open_trips=sum(r == "breaker_open" for r, _ in rec.trips),
+          chaos=json.dumps(CHAOS), chaos_runs=RESILIENCE_RUNS,
+          chaos_faults=faults.n_errors(), chaos_failed_attempts=fails,
+          chaos_bitwise=True, kernel_error_attempts=len(r3.attempts_log),
+          kernel_error_breaker_closed=True,
+          real_error_attempts=len(r4.attempts_log),
+          real_error_plans=len({a[2] for a in r4.attempts_log}),
+          real_error_breaker_closed=True)
+
+
+def check_degrade(dev, syscat, table, graph, corpus, fh, model, params,
+                  inputs):
+    """[degrade]: run_analysis(heavy, degrade=2) clamps k to 8 and iters to
+    3; the degraded plan picks the impls of a direct compile of the clamped
+    program and gives its outputs bitwise; scatter_add launches fall with
+    iters."""
+    pol = DegradePolicy(mq.CAT)
+    rt = mq_runtime(model, params, syscat, dev, degrade=pol)
+    pol.registry, pol.recorder = rt.registry, rt.recorder
+    kernels.reset_launches()
+    rt.run_analysis(fh, {}, inputs, degrade=False)
+    full = kernels.launches()
+    kernels.reset_launches()
+    out = rt.run_analysis(fh, {}, inputs, degrade=DEGRADE_LEVEL)
+    deg = kernels.launches()
+    # warm wall times of each (median of RUNS, each ending in a sync)
+    walls = {}
+    for key, lvl in (("full_ms", False), ("degraded_ms", DEGRADE_LEVEL)):
+        ts = []
+        for _ in range(RUNS):
+            t0 = time.perf_counter()
+            rt.run_analysis(fh, {}, inputs, degrade=lvl)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        walls[key] = statistics.median(ts)
+    event = pol.events[-1]
+    clamps = {(c["attr"], c["from"], c["to"]) for c in event["clamps"]}
+    check(clamps == {("k", 64, 8), ("iters", MQ["iters"], 3)},
+          f"clamps {clamps}")
+    direct = repro_torch.compile(mq.heavy_analysis(
+        table, graph, corpus, iters=3, k=8), syscat, device=dev)
+    deg_fn = pol.replan(fh, DEGRADE_LEVEL, cache=rt.pc)
+    check(deg_fn.plan_id == event["degraded_plan_id"] != fh.plan_id,
+          "degraded plan id")
+    check(Counter(deg_fn.chosen_impls()) == Counter(direct.chosen_impls()),
+          "degraded impls differ from the clamped program's")
+    check(torch.equal(out, direct({}, inputs)),
+          "degraded output differs from the clamped program's")
+    check(full["scatter_add"] == 2 + MQ["iters"] and deg["scatter_add"] == 5,
+          f"scatter_add launches {full['scatter_add']} -> "
+          f"{deg['scatter_add']}")
+    phase("degrade", level=DEGRADE_LEVEL, plan=fh.plan_id[:12],
+          degraded_plan=deg_fn.plan_id[:12],
+          direct_compile_plan=direct.plan_id[:12],
+          clamps=json.dumps(sorted(clamps)), impls_equal_direct=True,
+          output_bitwise_direct=True,
+          scatter_add_launches=f"{full['scatter_add']}->{deg['scatter_add']}",
+          **walls)
+
+
+def check_serve_faults(dev, syscat):
+    """[serve-faults]: qwen3-0.6b's served trace under the chaos spec, twice
+    (one schedule), against a fault-free run at prefill_batch 1; then a
+    deadline at submit and one at a token boundary."""
+    cfg = get_config(SERVE["arch"])
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    reqs = serve_trace(cfg, SERVE["prompt_lens"], SERVE["requests"],
+                       SERVE["gen"])
+    lens = [r.prompt_len for r in reqs]
+
+    def runtime_(**kw):
+        led = MemoryLedger()
+        return AsyncServingRuntime(
+            model, params, engines=("xla", "pallas"),
+            max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
+            page_size=SERVE["page_size"], plan_cache=PlanCache(ledger=led),
+            ledger=led, syscat=syscat, device=dev, **kw)
+
+    clean_rt = runtime_(prefill_batch=1)
+    clean_rt.warmup(lens)
+    clean = clean_rt.serve(reqs, timeout_s=600)
+    check([r.status for r in clean] == ["ok"] * len(reqs),
+          "fault-free serve failed")
+    schedules, walls, statuses, touched = [], [], [], set()
+    for _ in range(2):
+        faults = FaultInjector.from_spec(CHAOS)
+        rt = runtime_(faults=faults)
+        check(rt.prefill_batch == 1, "faults did not force prefill_batch 1")
+        rt.warmup(lens)
+        fwd0 = rt.registry.count("lm.prefill_forwards", 0)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = rt.serve(reqs, timeout_s=600)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        forwards = rt.registry.count("lm.prefill_forwards", 0) - fwd0
+        check(kernels.launches() == launch_counts(
+            flash_attention=cfg.n_layers * forwards), "flash launches")
+        for r, c in zip(res, clean):
+            check(r.status in ("ok", "truncated", "error",
+                               "deadline_exceeded", "timeout", "rejected"),
+                  f"request {r.rid}: status {r.status}")
+            check(r.status == "ok" and r.tokens == c.tokens
+                  or r.status != "ok" and r.error is not None,
+                  f"request {r.rid} ({r.status}) differs from the "
+                  f"fault-free run")
+        occ = rt.pool.occupancy()
+        check(occ["slots_used"] == 0 and occ["pages_used"] == 0
+              and not rt.ledger.leaks(), f"pool or ledger after chaos {occ}")
+        schedules.append(faults.schedule())
+        statuses.append([r.status for r in res])
+        touched |= {s[1][1] for s in faults.schedule() if s[1][0] == "prefill"}
+    check(schedules[0] == schedules[1] and statuses[0] == statuses[1],
+          "two runs under one seed gave two schedules")
+    # deadlines: one expired at submit, one at a token boundary
+    late = ServeRequest("late", reqs[0].prompt, 4, deadline_s=0.0)
+    r_late = clean_rt.serve([late], timeout_s=600)[0]
+    check(r_late.status == "deadline_exceeded"
+          and r_late.error["phase"] == "submit", f"late: {r_late.status}")
+    # the token-boundary cut, through serve(): a budget of request 0's
+    # prefill plus 2.5 of the fault-free run's shortest decode steps, on a
+    # fresh runtime (it has observed no latency, so the door does not shed
+    # the request as unmeetable)
+    step_s = min(r.metrics.tpot_s for r in clean)
+    budget_s = clean[0].metrics.prefill_ms / 1e3 + 2.5 * step_s
+    cut_rt = runtime_(prefill_batch=1)
+    cut_rt.warmup([reqs[0].prompt_len])
+    cut = ServeRequest("cut", reqs[0].prompt, SERVE["gen"],
+                       deadline_s=budget_s)
+    r_cut = cut_rt.serve([cut], timeout_s=600)[0]
+    partial = r_cut.tokens
+    occ = cut_rt.pool.occupancy()
+    check(r_cut.status == "deadline_exceeded"
+          and r_cut.error["phase"] == "decode"
+          and 1 <= len(partial) < SERVE["gen"]
+          and partial == clean[0].tokens[:len(partial)]
+          and occ["slots_used"] == 0 and occ["pages_used"] == 0
+          and not cut_rt.ledger.leaks(),
+          f"token-boundary cut: {r_cut} budget {budget_s} s")
+    kinds = Counter(k for k, _s, _o in schedules[0])
+    phase("serve-faults", arch=cfg.name, requests=len(reqs),
+          chaos=json.dumps(CHAOS), injected=json.dumps(dict(kinds)),
+          statuses=json.dumps(dict(Counter(statuses[0]))),
+          touched=json.dumps(sorted(touched)), same_schedule_twice=True,
+          ok_equal_fault_free=True, pool_empty=True, leaks=0,
+          walls_s=json.dumps([round(w, 4) for w in walls]),
+          deadline_submit=r_late.status, deadline_cut_budget_s=budget_s,
+          deadline_cut_step_s=step_s, deadline_cut_tokens=len(partial),
+          deadline_cut_phase=r_cut.error["phase"],
+          deadline_cut_equal_fault_free=True)
+    del clean_rt, rt, cut_rt
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3332,6 +3916,7 @@ def main(argv=None) -> int:
     paths += [(spec["path"], lambda a, d, s, arch=arch: recurrent_path(
         a, d, s, arch)) for arch, spec in RECURRENT.items()]
     paths.append(("dbrx_serve", dbrx_path))
+    paths.append(("multi_query", multi_query_path))
     if args.paths:
         wanted = args.paths.split(",")
         unknown = set(wanted) - {p for p, _ in paths}
@@ -3343,7 +3928,7 @@ def main(argv=None) -> int:
         free_memory()
         phase("time", path=path, seconds=round(time.perf_counter() - t0, 1))
 
-    # 27. results
+    # 33. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
     # device_ms / library_device_ms: the tri-store kernels' and the

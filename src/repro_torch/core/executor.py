@@ -27,8 +27,15 @@ plan under a span tracer (``ExecContext.tracer``, ``core/tracing.py``),
 one span per physical op, and synchronizes the device once at the end;
 ``observe`` records the count sink's cardinalities into a
 ``SelectivityFeedback``; both move the run's device values to the host in
-one copy.  With no tracer, ``run_plan`` is the untouched fast path: one
-``tracer is None`` check per call, none per op.
+one copy.  With no tracer and no fault injector, ``run_plan`` is the
+untouched fast path: one check per call, none per op.
+
+Fault injection is the reference's too: a
+:class:`~repro_torch.core.faults.FaultInjector` on the planned function
+(``PlannedFunction.faults``) rides in ``ExecContext.faults``, and the run
+checks it at every node boundary (``_run_plan_faulted``, or inside each
+span of the traced path), wrapping any impl exception into the
+:class:`~repro_torch.core.resilience.ExecError` taxonomy with its site.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; without a card they raise (:func:`resolve_device`) rather
@@ -105,6 +112,7 @@ class ExecContext:
     device: torch.device            # where the plan's tensors live
     aux: dict = field(default_factory=dict)   # count_sink, positions, ...
     tracer: Optional[Any] = None    # core.tracing.Tracer; None = fast path
+    faults: Optional[Any] = None    # core.faults.FaultInjector; None = off
 
     def params_for(self, node):
         """The parameters under the node's ``pp`` path: from the root for
@@ -417,12 +425,46 @@ def _impl_fn(n):
 def run_plan(pplan: PhysPlan, ctx: ExecContext, values: dict) -> tuple:
     """Run every node of a concrete physical plan in topo order.  Nothing
     here reads a device value back to the host.  With a tracer in the
-    context the traced path runs instead (:func:`_run_plan_traced`)."""
+    context the traced path runs instead (:func:`_run_plan_traced`), with
+    a fault injector and no tracer the faulted one
+    (:func:`_run_plan_faulted`)."""
+    if ctx.tracer is None and ctx.faults is None:
+        # the untouched fast path: tracing and fault injection both off
+        env = dict(values)
+        for n in pplan.topo():
+            env[n.id] = _impl_fn(n)(ctx, [env[i] for i in n.inputs], n)
+        return tuple(env[o] for o in pplan.outputs)
     if ctx.tracer is not None:
         return _run_plan_traced(pplan, ctx, values)
+    return _run_plan_faulted(pplan, ctx, values)
+
+
+def _fault_site(n) -> tuple:
+    """Site key for a physical node: xfer/collective nodes get their own
+    category (the "sharded" failure class), everything else is "node"."""
+    if n.impl.startswith("xfer_"):
+        return ("xfer", n.id, n.impl)
+    return ("node", n.id, n.impl)
+
+
+def _run_plan_faulted(pplan: PhysPlan, ctx: ExecContext,
+                      values: dict) -> tuple:
+    """run_plan with a FaultInjector at every node boundary.  Impl
+    exceptions (injected or real) are wrapped into the ExecError taxonomy
+    with their site attached, so the resilience layer can classify and the
+    breaker can pick a fallback class."""
+    from .resilience import classify
+    faults = ctx.faults
     env = dict(values)
     for n in pplan.topo():
-        env[n.id] = _impl_fn(n)(ctx, [env[i] for i in n.inputs], n)
+        fn = _impl_fn(n)
+        opdef = PHYS_OPS.get(n.impl)
+        engine = (opdef.backend or "xla") if opdef else "xla"
+        try:
+            faults.check(_fault_site(n))
+            env[n.id] = fn(ctx, [env[i] for i in n.inputs], n)
+        except Exception as exc:
+            raise classify(exc, node=n, engine=engine) from exc
     return tuple(env[o] for o in pplan.outputs)
 
 
@@ -446,6 +488,8 @@ def _run_plan_traced(pplan: PhysPlan, ctx: ExecContext,
         if "dist" in n.attrs:
             attrs["dist"] = n.attrs["dist"]
         with tracer.span(n.id, "op", **attrs) as sp:
+            if ctx.faults is not None:
+                ctx.faults.check(_fault_site(n))
             out = fn(ctx, [env[i] for i in n.inputs], n)
             if n.impl.startswith("xfer_"):
                 kind = n.impl[len("xfer_"):]
@@ -507,6 +551,7 @@ class PlannedFunction:
     device: torch.device
     plan_id: str = ""
     staged: Optional[Any] = None     # StagedPhysicalPlan
+    faults: Optional[Any] = None     # core.faults.FaultInjector; None = off
     last_run_trace: Optional[Any] = None   # RunTrace of the last analyze()
     _predicted: Optional[dict] = None      # node id -> (seconds, features)
 
@@ -549,7 +594,7 @@ class PlannedFunction:
                         f"this plan runs on {dev}: build it with "
                         f"payload(device={str(dev)!r})")
         return ExecContext(root=params, scope=params, device=dev,
-                           aux=aux or {}, tracer=tracer)
+                           aux=aux or {}, tracer=tracer, faults=self.faults)
 
     def __call__(self, params, inputs: dict, aux: Optional[dict] = None):
         outs = run_plan(self.concrete, self._context(params, inputs, aux),

@@ -146,6 +146,18 @@ class MemoryLedger:
                 self._kind_bytes.get(e.kind, 0) - e.nbytes
             return e.nbytes
 
+    def release_kind(self, kind: str) -> int:
+        """Drop every entry of one owner kind; returns the bytes released.
+        The subplan cache drains through this on clear(): its entries are
+        keyed by content hash, so enumerating the owners from outside the
+        ledger would duplicate its bookkeeping."""
+        with self._lock:
+            keys = [k for k, e in self._entries.items() if e.kind == kind]
+        freed = 0
+        for k in keys:
+            freed += self.release(k)
+        return freed
+
     def note_transient(self, owner, nbytes: int, kind: str = "transient"
                        ) -> None:
         """Account scratch that lives only inside one executed program

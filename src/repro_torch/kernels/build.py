@@ -36,6 +36,14 @@ _ENTRIES: dict = {}
 _LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A kernel that cannot run: ``nvcc`` missing, a build that failed, a
+    library that does not load or lacks its entry, or a launch the card
+    refused.  No retry and no other plan can mend it in this process, so
+    the resilience layer fails fast on it (``core/resilience.py``) instead
+    of re-planning without the kernel."""
+
+
 def sources() -> list:
     """The kernel names: one per ``csrc/*.cu``."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -47,8 +55,8 @@ def nvcc_path() -> str:
                  shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                       "to build the port's CUDA kernels")
+    raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                      "to build the port's CUDA kernels")
 
 
 def lib_path(name: str) -> Path:
@@ -77,8 +85,8 @@ def _finish(name: str, job) -> str:
     out, tmp, proc = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
+        raise KernelError(f"nvcc failed for {name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     return log
 
@@ -102,7 +110,11 @@ def load(name: str) -> ctypes.CDLL:
             job = _start(name)
             if job is not None:
                 _finish(name, job)
-            lib = ctypes.CDLL(str(lib_path(name)))
+            try:
+                lib = ctypes.CDLL(str(lib_path(name)))
+            except OSError as exc:
+                raise KernelError(f"{name}: library does not load: "
+                                  f"{exc}") from exc
             _LIBS[name] = lib
         return lib
 
@@ -113,7 +125,10 @@ def entry(name: str, symbol: str, *argtypes):
     every entry returns ``cudaGetLastError()``."""
     fn = _ENTRIES.get((name, symbol))
     if fn is None:
-        fn = getattr(load(name), symbol)
+        try:
+            fn = getattr(load(name), symbol)
+        except AttributeError as exc:
+            raise KernelError(f"{name}: no entry {symbol}") from exc
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _ENTRIES[(name, symbol)] = fn
@@ -131,4 +146,4 @@ def stream(device: torch.device) -> int:
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` code from a C entry."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+        raise KernelError(f"{what}: CUDA error {rc} at launch")

@@ -26,7 +26,7 @@ from . import build
 
 def scatter_add_plain(vals: torch.Tensor, dst: torch.Tensor,
                       num_nodes: int) -> torch.Tensor:
-    """Plain PyTorch scatter-add: ``index_add_`` with the padding mask,
+    """Plain PyTorch scatter-add: ``index_add`` with the padding mask,
     summed in float64 and rounded to float32, as the kernel sums.
     Out-of-range edges go to one spill slot past the end, cut off after,
     so they add nothing anywhere (``index_add_`` on a CUDA tensor would
@@ -34,8 +34,11 @@ def scatter_add_plain(vals: torch.Tensor, dst: torch.Tensor,
     n = int(num_nodes)
     ok = (dst >= 0) & (dst < n)
     idx = torch.where(ok, dst, torch.full_like(dst, n))
-    acc = torch.zeros(n + 1, dtype=torch.float64, device=vals.device)
-    acc.index_add_(0, idx, vals.to(torch.float32).to(torch.float64))
+    # out of place: under torch.func.vmap, batched ``vals`` cannot be
+    # written into the unbatched zeros (the same sums as ``index_add_``)
+    acc = torch.zeros(n + 1, dtype=torch.float64, device=vals.device
+                      ).index_add(0, idx,
+                                  vals.to(torch.float32).to(torch.float64))
     return acc[:n].to(torch.float32)
 
 

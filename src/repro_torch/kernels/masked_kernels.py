@@ -87,10 +87,27 @@ def masked_segment_agg_plain(vals: torch.Tensor, keys: torch.Tensor,
 def masked_segment_agg(vals: torch.Tensor, keys: torch.Tensor,
                        maskw: torch.Tensor, num_groups: int):
     """``(sums, counts)`` per group id: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors.  Under ``torch.func.vmap`` (a
+    batched query of the serving runtime) the call goes through
+    :func:`_segment_agg_op`, whose batching rule runs the kernel once per
+    batch row.  An unbatched call skips the op, whose dispatch is a
+    measurable share of the call (``chip_smoke.py`` prints it as ``op_ms``
+    beside ``ms``; PERF.md §6)."""
+    ts = (vals, keys, maskw)
+    if _is_batched(ts):
+        out = _segment_agg_op(vals, keys, maskw, int(num_groups))
+    else:
+        out = _segment_agg(vals, keys, maskw, num_groups)
+    return out[0], out[1]
+
+
+def _segment_agg(vals, keys, maskw, num_groups) -> torch.Tensor:
+    """The stacked ``(2, num_groups)`` (sums, counts) of one unbatched
+    call: the kernel's output, or the plain version's on the CPU."""
     ts = (vals, keys, maskw)
     if _plain_or_cuda("masked_segment_agg", ts):
-        return masked_segment_agg_plain(vals, keys, maskw, num_groups)
+        return torch.stack(masked_segment_agg_plain(vals, keys, maskw,
+                                                    num_groups))
     _check("masked_segment_agg", ts,
            (torch.float32, torch.int32, torch.float32))
     if vals.dim() != 1 or any(t.shape != vals.shape for t in ts):
@@ -98,8 +115,7 @@ def masked_segment_agg(vals: torch.Tensor, keys: torch.Tensor,
                          f"length, got {[tuple(t.shape) for t in ts]}")
     g, r = int(num_groups), int(vals.shape[0])
     if r == 0 or g == 0:
-        out = torch.zeros(2, g, dtype=torch.float32, device=vals.device)
-        return out[0], out[1]
+        return torch.zeros(2, g, dtype=torch.float32, device=vals.device)
     # float64 scratch (sums, counts), zeroed by the entry and rounded into
     # ``out``; freeing it on return is safe in stream order, as in
     # scatter_add
@@ -111,10 +127,44 @@ def masked_segment_agg(vals: torch.Tensor, keys: torch.Tensor,
                    acc.data_ptr(), out.data_ptr(), r, g,
                    build.stream(out.device)), "masked_segment_agg")
     masked_segment_agg.launches += 1
-    return out[0], out[1]
+    return out
 
 
 masked_segment_agg.launches = 0
+
+
+def _is_batched(ts) -> bool:
+    """True when a tensor is a ``torch.func.vmap`` batched tensor: its
+    ``data_ptr()`` names no batch row, so the kernel cannot take it."""
+    for t in ts:
+        if torch._C._functorch.is_batchedtensor(t):
+            return True
+    return False
+
+
+@torch.library.custom_op("repro_torch::masked_segment_agg", mutates_args=())
+def _segment_agg_op(vals: torch.Tensor, keys: torch.Tensor,
+                    maskw: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """:func:`masked_segment_agg` as an operator, so that ``vmap`` can
+    reach it through :func:`_segment_agg_vmap`."""
+    return _segment_agg(vals, keys, maskw, num_groups)
+
+
+def _segment_agg_vmap(info, in_dims, vals, keys, maskw, num_groups):
+    """The batching rule: one unbatched call (one kernel launch on the
+    card) per batch row, its (2, G) outputs stacked on dim 0.  An input
+    without a batch dim is shared by every row."""
+    rows = []
+    for t, d in zip((vals, keys, maskw), in_dims[:3]):
+        rows.append([t] * info.batch_size if d is None
+                    else list(t.movedim(d, 0)))
+    out = torch.stack([_segment_agg_op(v.contiguous(), k.contiguous(),
+                                       w.contiguous(), num_groups)
+                       for v, k, w in zip(*rows)])
+    return out, 0
+
+
+torch.library.register_vmap(_segment_agg_op, _segment_agg_vmap)
 
 
 # --------------------------------------------------------------------------

@@ -7,14 +7,21 @@ every scheduler tick, plan-cache hit/miss deltas, and join/leave/reject
 counters.
 
 Distributions are held as :class:`Summary` objects — running count / mean /
-min / max plus p50/p95/p99 **percentile summaries** (nearest-rank) over
-every raw sample.
+min / max plus p50/p95/p99 **percentile summaries** (nearest-rank).  Raw
+sample lists stay available behind the ``keep_samples`` flag (default on,
+so existing consumers keep exact lists); with it off a Summary keeps only a
+bounded ring of recent samples for the percentile estimate, making
+long-running servers O(1) in memory.
 
-All summaries and counters live in a :class:`MetricsRegistry`
-(``AsyncServingRuntime(registry=...)``), and one ``report()`` covers them.
-The reference's analysis-request view (``analytics_summary``) and its
-bounded-ring option (``keep_samples=False``) come with the slice that
-ports the analysis requests.
+All summaries and counters live in a :class:`MetricsRegistry`, so the LM
+serving path and analytical (tri-store) requests report into **one**
+registry (``AsyncServingRuntime(registry=...)`` /
+``AsyncServingRuntime.run_analysis``) and one ``report()`` covers both
+workload families.
+
+The port's copy of the reference package's ``serving/metrics.py``; its
+``RequestMetrics`` also times the replay fallback (``replay_ms``,
+``adopt_ms``).
 """
 from __future__ import annotations
 
@@ -54,17 +61,25 @@ class RequestMetrics:
 
 class Summary:
     """One observed distribution: running count/mean/min/max plus
-    nearest-rank percentiles over every raw sample."""
+    nearest-rank percentiles over the retained samples.  ``keep_samples``
+    keeps the full raw list (exact percentiles, unbounded memory — the
+    test/benchmark default); off keeps a bounded ring of the most recent
+    ``cap`` samples (approximate percentiles, O(1) memory)."""
 
-    __slots__ = ("name", "count", "total", "min", "max", "_samples")
+    __slots__ = ("name", "keep_samples", "cap", "count", "total",
+                 "min", "max", "_samples", "_head")
 
-    def __init__(self, name: str = ""):
+    def __init__(self, name: str = "", keep_samples: bool = True,
+                 cap: int = 4096):
         self.name = name
+        self.keep_samples = bool(keep_samples)
+        self.cap = int(cap)
         self.count = 0
         self.total = 0.0
         self.min = float("inf")
         self.max = float("-inf")
         self._samples: list = []
+        self._head = 0
 
     def observe(self, value) -> None:
         v = float(value)
@@ -72,11 +87,15 @@ class Summary:
         self.total += v
         self.min = min(self.min, v)
         self.max = max(self.max, v)
-        self._samples.append(v)
+        if self.keep_samples or len(self._samples) < self.cap:
+            self._samples.append(v)
+        else:                                   # bounded ring overwrite
+            self._samples[self._head] = v
+            self._head = (self._head + 1) % self.cap
 
     @property
     def samples(self) -> list:
-        """The raw samples, in observation order."""
+        """The retained raw samples (full history with ``keep_samples``)."""
         return self._samples
 
     @property
@@ -84,7 +103,7 @@ class Summary:
         return self.total / self.count if self.count else 0.0
 
     def percentile(self, q: float) -> float:
-        """Nearest-rank percentile over the samples (q in 0..100)."""
+        """Nearest-rank percentile over the retained samples (q in 0..100)."""
         if not self._samples:
             return 0.0
         xs = sorted(self._samples)
@@ -171,10 +190,13 @@ class Counter:
 
 
 class MetricsRegistry:
-    """Named summaries + gauges + counters: the LM serving path registers
-    ``lm.*`` series — one registry, one report."""
+    """Named summaries + gauges + counters shared across workload families:
+    the LM serving path registers ``lm.*`` series, analytical requests
+    ``analytics.*``, the resource ledger ``ledger.*`` — one registry, one
+    report."""
 
-    def __init__(self):
+    def __init__(self, keep_samples: bool = True):
+        self.keep_samples = bool(keep_samples)
         self.summaries: dict = {}
         self.counters: dict = {}
         self.gauges: dict = {}
@@ -182,7 +204,7 @@ class MetricsRegistry:
     def summary(self, name: str) -> Summary:
         s = self.summaries.get(name)
         if s is None:
-            s = self.summaries[name] = Summary(name)
+            s = self.summaries[name] = Summary(name, self.keep_samples)
         return s
 
     def gauge(self, name: str) -> Gauge:
@@ -231,9 +253,9 @@ class ServingMetrics:
     views over the Summary samples so existing consumers stay green."""
 
     def __init__(self, registry: MetricsRegistry | None = None,
-                 prefix: str = "lm"):
+                 keep_samples: bool = True, prefix: str = "lm"):
         self.registry = registry if registry is not None \
-            else MetricsRegistry()
+            else MetricsRegistry(keep_samples)
         self.prefix = prefix
         self.requests: list = []      # finished RequestMetrics
         self.rejected = 0
@@ -302,6 +324,34 @@ class ServingMetrics:
             for q in (50, 95, 99):
                 out[f"p{q}_{key}"] = s.percentile(q)
         return out
+
+    def analytics_summary(self) -> dict:
+        """The concurrent-analytics view over the shared registry: request
+        counts, TTFR (time-to-first-result — admission to result, the
+        analytical analogue of TTFT), and the multi-query sharing counters
+        (``analytics.shared_hits`` — sub-DAG cache hits + deduped
+        twins; ``analytics.batched`` — queries executed inside a vmapped
+        same-shape batch)."""
+        r = self.registry
+        ttfr = r.summary("analytics.ttfr_ms")
+        out = {
+            "requests": r.count("analytics.requests", 0),
+            "shared_hits": r.count("analytics.shared_hits", 0),
+            "batched": r.count("analytics.batched", 0),
+            "deduped": r.count("analytics.deduped", 0),
+            "mean_ttfr_ms": ttfr.mean,
+        }
+        for q in (50, 95, 99):
+            out[f"p{q}_ttfr_ms"] = ttfr.percentile(q)
+        return out
+
+    def analytics_report(self) -> str:
+        s = self.analytics_summary()
+        return (f"[analytics] {s['requests']} queries: "
+                f"{s['shared_hits']} shared subplan hits, "
+                f"{s['deduped']} deduped, {s['batched']} vmapped-batched; "
+                f"TTFR {s['mean_ttfr_ms']:.1f} ms mean "
+                f"(p50 {s['p50_ttfr_ms']:.1f} / p95 {s['p95_ttfr_ms']:.1f})")
 
     def report(self) -> str:
         s = self.summary()

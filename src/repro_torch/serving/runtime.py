@@ -42,12 +42,30 @@ each bucket's kept prefill plan to its plan-cache entry, so a plan the
 runtime still holds after the cache evicted it shows in ``leaks()``; a
 :class:`~repro_torch.core.ledger.FlightRecorder` keeps telemetry snapshots
 (every ``snapshot_every`` ticks) and trips a dump on an admission
-rejection (``admission_reject``) and on a loop timeout
-(``serve_timeout``).
+rejection (``admission_reject``), a loop timeout (``serve_timeout``), a
+missed deadline (``deadline_miss``), a failed prefill or decode
+(``prefill_error``, ``decode_error``) and an analytical executor error
+(``executor_error``).
 
-Not ported yet (ROADMAP §1): fault injection and retries, deadlines,
-degraded-mode replanning, the sub-plan cache and the analytical requests;
-their constructor arguments are absent.
+Fault tolerance is the reference's: a request may carry ``deadline_s``
+(queued requests drop, active ones leave at a token boundary and return
+their pages); an optional :class:`~repro_torch.core.faults.FaultInjector`
+fires at the admission, prefill and decode seams — a failed prefill is
+re-enqueued up to ``prefill_retries`` times, a faulted decode tick is
+retried whole (the check comes before the CUDA-graph replay and before any
+write to the pool or to a position), up to ``decode_fault_cap``
+consecutive faults — and injection forces ``prefill_batch`` to 1, as in
+the reference.  A kernel error (``KernelError``, a sticky CUDA error) is
+never absorbed: the prefill's pages are returned and the error raised.
+
+Analytical (tri-store) queries share the runtime: :meth:`run_analysis`
+runs one planned function (traced with ``analyze=True``, through the
+cross-query subplan cache of ``core/mqo.py`` when the runtime holds one,
+degraded by a :class:`~repro_torch.serving.degrade.DegradePolicy` under
+overload); :meth:`serve_analyses` admits many per tenant (weighted round
+robin), single-flights exact twins, runs queries equal up to their
+``batch_param`` input as ONE planned forward under ``torch.func.vmap``,
+and sends the rest through the subplan cache.
 """
 from __future__ import annotations
 
@@ -59,18 +77,22 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.executor import default_syscat, plan_and_compile, resolve_device
+from ..core.faults import FaultInjectedError
 from ..core.ir import SystemCatalog
 from ..core.ledger import FlightRecorder, MemoryLedger, default_ledger
+from ..core.mqo import SubplanCache, mqo_run, subdag_keys
 from ..core.plan_cache import (PlanCache, default_plan_cache,
                                load_plan_cache, save_plan_cache)
+from ..core.resilience import classify, is_kernel_error
 from ..models.decode import (DecodeGraph, decode_step_batched,
                              init_cache)
 from ..models.lm import CATALOG, LM
 from .admission import AdmissionController, bucket_len
 from .kv_pool import PagedKVPool
 from .metrics import MetricsRegistry, RequestMetrics, ServingMetrics
-from .scheduler import ContinuousBatchScheduler
+from .scheduler import ContinuousBatchScheduler, TenantScheduler
 
 
 @dataclass(frozen=True)
@@ -79,6 +101,7 @@ class ServeRequest:
     prompt: tuple                    # token ids
     gen: int
     arrival: float = 0.0             # seconds after run() start
+    deadline_s: Optional[float] = None   # budget from arrival; None = none
 
     @property
     def prompt_len(self) -> int:
@@ -89,13 +112,53 @@ class ServeRequest:
 class ServeResult:
     rid: object
     tokens: list = field(default_factory=list)
-    status: str = "ok"               # ok | rejected | truncated | timeout
+    # ok | rejected | truncated | deadline_exceeded | error | timeout
+    status: str = "ok"
     metrics: Optional[RequestMetrics] = None
     error: Optional[dict] = None     # structured failure detail (non-ok)
 
     @property
     def ok(self) -> bool:
         return self.status in ("ok", "truncated")
+
+
+@dataclass
+class AnalysisRequest:
+    """One analytical query submitted to the multi-query admission loop.
+
+    ``batch_param`` names an input whose value may differ across otherwise
+    identical queries (a PageRank seed set, a top-k query vector): requests
+    sharing a plan fingerprint modulo that slot are coalesced per admission
+    tick into one vmapped planned forward.  ``store_versions`` are the
+    (name, version) pairs of the bound stores — they key the sub-DAG cache
+    entries so appends provably invalidate."""
+
+    rid: object
+    planned: object                  # PlannedFunction
+    inputs: dict
+    params: object = None
+    tenant: object = "default"
+    batch_param: Optional[str] = None
+    store_versions: tuple = ()
+    tied_to: object = None           # ledger owner of the producing store
+    aux: Optional[dict] = None
+
+
+@dataclass
+class AnalysisResult:
+    rid: object
+    value: object = None
+    status: str = "ok"               # ok | error
+    error: Optional[dict] = None
+    shared_hits: int = 0             # cached sub-DAGs reused by this query
+    executed: int = 0                # residual nodes actually run
+    deduped: bool = False            # rode an identical in-flight query
+    batched: bool = False            # ran inside a vmapped batch
+    ttfr_ms: float = 0.0             # submit -> first result
+
+    @property
+    def ok(self) -> bool:
+        return self.status == "ok"
 
 
 def _first_tokens(logits, ns, vocab: int):
@@ -117,6 +180,14 @@ class AsyncServingRuntime:
                  ledger: Optional[MemoryLedger] = None,
                  recorder: Optional[FlightRecorder] = None,
                  snapshot_every: int = 64,
+                 faults=None,
+                 degrade=None,
+                 prefill_retries: int = 2,
+                 decode_fault_cap: int = 8,
+                 subplan_cache: Optional[SubplanCache] = None,
+                 subplan_budget: Optional[int] = None,
+                 tenant_weights: Optional[dict] = None,
+                 analysis_tick: int = 16,
                  prefill_batch: int = 4, device=None):
         self.device = resolve_device(device)
         self.model = model
@@ -163,9 +234,45 @@ class AsyncServingRuntime:
         self._replay = None
         self._results: dict = {}
         self._t0 = time.perf_counter()
+        # fault tolerance: an optional FaultInjector exercises the
+        # admission/prefill/decode seams; prefill faults retry by
+        # re-enqueueing (bounded), decode-tick faults retry the whole tick
+        # (state is untouched — the fault fires before the decode step
+        # writes anything); a DegradePolicy (serving.degrade) cheapens
+        # analytical plans under overload
+        self.faults = faults
+        self.degrade = degrade
+        self.prefill_retries = int(prefill_retries)
+        self.decode_fault_cap = int(decode_fault_cap)
+        self._prefill_attempts: dict = {}   # rid -> failed attempts
+        self._tick_no = 0
+        self._decode_faults = 0             # consecutive faulted ticks
+        # multi-query analytics: a byte-budgeted cache of materialized
+        # sub-DAG intermediates (cross-query CSE), a weighted round-robin
+        # tenant scheduler feeding the admission loop, and single-flight
+        # futures so concurrent identical sub-DAGs compute once
+        if subplan_cache is not None:
+            self.subplans: Optional[SubplanCache] = subplan_cache
+        elif subplan_budget is not None:
+            self.subplans = SubplanCache(
+                subplan_budget, ledger=self.ledger, recorder=self.recorder,
+                registry=self.registry)
+        else:
+            self.subplans = None
+        self.analysis_sched = TenantScheduler(tenant_weights)
+        self.analysis_tick = max(int(analysis_tick), 1)
+        self._analysis_inflight: dict = {}  # root key -> asyncio.Future
+        # id(request) -> (results dict, t0) of the run_analyses call that
+        # owns it: concurrent calls share one tenant scheduler, so a tick
+        # may drain another call's request — settlement routes through the
+        # owning call's sink, never the draining call's
+        self._analysis_sinks: dict = {}
         # up to ``prefill_batch`` same-bucket waiting requests prefill as
-        # ONE planned forward over a (w, bucket) token batch (1 disables)
-        self.prefill_batch = max(int(prefill_batch), 1)
+        # ONE planned forward over a (w, bucket) token batch (1 disables);
+        # deterministic fault replay needs per-request prefill sites, so
+        # injection forces the sequential path
+        self.prefill_batch = 1 if faults is not None \
+            else max(int(prefill_batch), 1)
 
     # -- planning ----------------------------------------------------------
     def _now(self) -> float:
@@ -312,7 +419,27 @@ class AsyncServingRuntime:
             "queue_depth": self.scheduler.queue_depth(),
             "active": self.scheduler.n_active()})
 
+    def _deadline_at(self, req: ServeRequest) -> float:
+        """Absolute (run-clock) expiry; +inf when no deadline is set."""
+        if req.deadline_s is None:
+            return float("inf")
+        return req.arrival + req.deadline_s
+
+    def _estimate_completion_s(self, req: ServeRequest) -> Optional[float]:
+        """Observed-latency completion estimate for deadline admission:
+        queue wait + TTFT + gen * TPOT from the lm.* summaries.  None until
+        enough traffic has been observed to estimate at all."""
+        s = self.metrics
+        if s._ttft.count < 1 or (req.gen > 1 and s._tpot.count < 1):
+            return None
+        return (s._queue_wait.mean + s._ttft.mean
+                + max(req.gen - 1, 0) * s._tpot.mean)
+
     def submit(self, req: ServeRequest) -> None:
+        if self.faults is not None:
+            # admission stall: the front door pauses (queue growth +
+            # deadline pressure); stall sites never raise
+            self.faults.check(("admission", str(req.rid)))
         if req.prompt_len < 1 or req.gen < 1:
             self._reject(req, "empty prompt or zero gen")
             return
@@ -324,6 +451,17 @@ class AsyncServingRuntime:
         except ValueError:
             self._reject(req, "unbucketable")
             return
+        if req.deadline_s is not None:
+            now = self._now()
+            if now >= self._deadline_at(req):
+                self._resolve_deadline(req, phase="submit")
+                return
+            est = self._estimate_completion_s(req)
+            if est is not None and now + est > self._deadline_at(req):
+                # cannot finish in time at observed latencies: shedding at
+                # the door beats burning KV pages on a doomed request
+                self._reject(req, "deadline_unmeetable")
+                return
         action = self.admission.decide(
             warm=self.is_warm(bucket),
             queue_depth=self.scheduler.queue_depth(),
@@ -334,6 +472,40 @@ class AsyncServingRuntime:
         # "admit" and "queue" both enqueue; a cold bucket's head is only
         # *planned* once the decode batch drains (scheduler-side gate)
         self.scheduler.enqueue(req, bucket, self._now())
+
+    # -- deadlines -----------------------------------------------------------
+    def _resolve_deadline(self, req: ServeRequest, *, phase: str,
+                          tokens: Sequence[int] = (), rm=None) -> None:
+        """Resolve a request whose deadline expired: structured error,
+        partial tokens preserved, one deadline_miss trip per request."""
+        self.metrics.registry.count("serving.deadline_miss")
+        self._results[req.rid] = ServeResult(
+            req.rid, list(tokens), "deadline_exceeded", rm,
+            error={"reason": "deadline_exceeded", "rid": str(req.rid),
+                   "phase": phase, "deadline_s": req.deadline_s,
+                   "tokens_done": len(tokens)})
+        self.recorder.trip("deadline_miss", {
+            "rid": str(req.rid), "phase": phase,
+            "deadline_s": req.deadline_s, "now": self._now(),
+            "tokens_done": len(tokens)})
+
+    def _expire_deadlines(self) -> None:
+        """Deadline sweep, run once per loop iteration: queued requests are
+        dropped in place; active ones leave at this token boundary, their
+        KV pages going straight back to the pool (ledger-verified — the
+        pool's one allocation never leaks per-request state)."""
+        now = self._now()
+        for w in self.scheduler.waiting():
+            if now >= self._deadline_at(w.request):
+                self.scheduler.remove(w)
+                self._resolve_deadline(w.request, phase="queued")
+        for st in list(self.scheduler.active()):
+            if now >= self._deadline_at(st.request):
+                self.scheduler.leave(st.slot)
+                self.pool.free(st.request.rid)
+                st.rm.finished_at = now
+                self._resolve_deadline(st.request, phase="decode",
+                                       tokens=st.out, rm=st.rm)
 
     # -- prefill + join ------------------------------------------------------
     def _join(self, req: ServeRequest, bucket: int, enqueued_at: float,
@@ -385,6 +557,9 @@ class AsyncServingRuntime:
 
     def _prefill_and_join(self, req: ServeRequest, bucket: int,
                           enqueued_at: float) -> None:
+        if self.faults is not None:
+            # before any allocation: a prefill fault leaves nothing behind
+            self.faults.check(("prefill", str(req.rid), bucket))
         fwd, plan_ms = self._plan_prefill(bucket)
         t0 = time.perf_counter()
         toks = np.zeros((1, bucket), np.int32)
@@ -438,7 +613,10 @@ class AsyncServingRuntime:
             batch = self._pop_prefill_batch(w)
             if len(batch) == 1:
                 req, enq = batch[0]
-                self._prefill_and_join(req, bucket, enq)
+                try:
+                    self._prefill_and_join(req, bucket, enq)
+                except Exception as exc:
+                    self._prefill_failure(req, bucket, enq, exc)
             else:
                 self._prefill_and_join_many(batch, bucket)
             joined = True
@@ -470,10 +648,42 @@ class AsyncServingRuntime:
             self._join(req, bucket, enq, _row(outs[1:], i), int(firsts[i]),
                        plan_mss[i], prefill_ms / len(batch))
 
+    def _prefill_failure(self, req: ServeRequest, bucket: int,
+                         enqueued_at: float, exc: Exception) -> None:
+        """A prefill attempt died (injected or real).  Clean up any pages
+        the attempt claimed, then either re-enqueue (bounded retries,
+        retryable errors only) or resolve with a structured error.  A
+        kernel error is raised after the clean-up: no retry mends it."""
+        if self.pool.holds(req.rid):
+            self.pool.free(req.rid)
+        if is_kernel_error(exc):
+            raise exc
+        err = classify(exc, plan_id=f"prefill_bucket_{bucket}")
+        attempts = self._prefill_attempts.get(req.rid, 0) + 1
+        self._prefill_attempts[req.rid] = attempts
+        self.metrics.registry.count("serving.prefill_faults")
+        self.recorder.record("prefill_fault", {
+            "rid": str(req.rid), "bucket": bucket, "attempt": attempts,
+            "error": err.to_dict()})
+        if err.retryable and attempts <= self.prefill_retries:
+            # back of its bucket queue: the retry is a fresh occurrence of
+            # the fault site, so rate-injected faults clear on replay
+            self.scheduler.enqueue(req, bucket, enqueued_at)
+            return
+        self._prefill_attempts.pop(req.rid, None)
+        self._results[req.rid] = ServeResult(
+            req.rid, [], "error", None,
+            error={"reason": "prefill_failed", "rid": str(req.rid),
+                   "attempts": attempts, **err.to_dict()})
+        self.recorder.trip("prefill_error", {
+            "rid": str(req.rid), "bucket": bucket, "attempts": attempts,
+            "error": err.to_dict()})
+
     # -- decode -------------------------------------------------------------
     def _finish(self, st, status: str, error: Optional[dict] = None) -> None:
         self.scheduler.leave(st.slot)
         self.pool.free(st.request.rid)
+        self._prefill_attempts.pop(st.request.rid, None)
         st.rm.finished_at = self._now()
         self.metrics.finish(st.rm)
         self._results[st.request.rid] = ServeResult(
@@ -488,6 +698,34 @@ class AsyncServingRuntime:
         self._maybe_snapshot()
         if not active:
             return False
+        self._tick_no += 1
+        if self.faults is not None:
+            # the fault fires BEFORE the decode step (the CUDA-graph replay
+            # on the card), so a faulted tick leaves the pool cache and
+            # every slot position untouched — the retry is simply the next
+            # loop iteration re-running the identical tick
+            try:
+                self.faults.check(("decode", self._tick_no))
+            except FaultInjectedError as exc:
+                self._decode_faults += 1
+                self.metrics.registry.count("serving.decode_faults")
+                self.recorder.record("decode_fault", {
+                    "tick": self._tick_no, "consecutive": self._decode_faults,
+                    "error": repr(exc)})
+                if self._decode_faults > self.decode_fault_cap:
+                    # persistently broken decode: fail the active batch
+                    # with structured errors instead of spinning forever
+                    detail = {"reason": "decode_failed",
+                              "consecutive_faults": self._decode_faults,
+                              "error": repr(exc)}
+                    self.recorder.trip("decode_error", detail)
+                    for st in list(self.scheduler.active()):
+                        self._finish(st, "error",
+                                     error={**detail,
+                                            "rid": str(st.request.rid)})
+                    self._decode_faults = 0
+                return True
+        self._decode_faults = 0
         toks = np.zeros((self.max_batch, 1), np.int64)
         idxs = np.zeros((self.max_batch,), np.int64)
         for st in active:
@@ -554,6 +792,7 @@ class AsyncServingRuntime:
             raise ValueError("run: a request id appears twice in one call")
         for rid in rids:
             self._results.pop(rid, None)
+            self._prefill_attempts.pop(rid, None)
         self._t0 = time.perf_counter()
         pending = sorted(requests, key=lambda r: r.arrival)
         submitter = asyncio.ensure_future(self._submit_all(pending))
@@ -562,6 +801,7 @@ class AsyncServingRuntime:
                 if self._now() > timeout_s:
                     self._fail_outstanding(requests, timeout_s)
                     break
+                self._expire_deadlines()
                 progressed = self._try_join()
                 progressed = self._decode_tick() or progressed
                 # yield so arrivals interleave with serving; back off when
@@ -584,6 +824,375 @@ class AsyncServingRuntime:
         raise RuntimeError(
             "serve() was called from a running event loop; call "
             "`await runtime.run(requests, timeout_s=...)` instead")
+
+    # -- analytical requests --------------------------------------------------
+    def _trip_context(self) -> dict:
+        """Incident context for executor_error trips: memory + occupancy
+        state at failure time, not just the exception repr."""
+        return {"ledger": self.ledger.snapshot(),
+                "metrics": self.registry.report()}
+
+    # -- multi-query analytics ------------------------------------------------
+    def _analysis_exec(self, req: AnalysisRequest, keys=None):
+        """One analytical query through the cross-query CSE path (subplan
+        cache attached) or plain execution; returns (value, frontier
+        info)."""
+        if self.subplans is not None:
+            out, info = mqo_run(req.planned, req.params, req.inputs,
+                                cache=self.subplans,
+                                versions=req.store_versions,
+                                aux=req.aux, keys=keys, tied_to=req.tied_to)
+        else:
+            out = req.planned(req.params, req.inputs, aux=req.aux)
+            info = {"shared_hits": 0,
+                    "executed": len(req.planned.concrete.nodes)}
+        self._sync()
+        return out, info
+
+    @staticmethod
+    def _leaf_sig(value) -> tuple:
+        """Shape/dtype signature of a value's leaves — batchable queries
+        must agree on it so stacking is well-formed."""
+        return tuple((str(getattr(x, "dtype", type(x).__name__)),
+                      tuple(getattr(x, "shape", ())))
+                     for x in tracing.tree_leaves(value))
+
+    def _batch_group_key(self, req: AnalysisRequest, keys: dict) -> tuple:
+        """Queries coalesce into one vmapped forward iff they share a plan,
+        the same declared ``batch_param`` slot, the same *objects* for
+        every other input, and the same batch-leaf shape/dtype.  Object
+        identity is conservative (equal-but-distinct tensors miss the
+        batch) but sound, and it is how multi-query workloads actually
+        share bound payloads; the ids stay valid because the requests hold
+        their inputs alive through the tick."""
+        bp = req.batch_param
+        fixed = tuple(sorted(
+            (n, id(v)) for n, v in req.inputs.items() if n != bp))
+        return (getattr(req.planned, "plan_id", id(req.planned)), bp,
+                fixed, self._leaf_sig(req.inputs[bp]),
+                "noparams" if not req.params else id(req.params))
+
+    def _run_batched_group(self, leaders: list):
+        """Execute same-shape queries as ONE planned forward under
+        ``torch.func.vmap`` over their stacked ``batch_param`` values;
+        returns per-query values.  Every op runs batched and eagerly, the
+        same dispatch path the unbatched queries take; a kernel wrapper
+        reached with a batched tensor goes through its batching rule."""
+        bp = leaders[0].batch_param
+        planned = leaders[0].planned
+        fixed = {n: v for n, v in leaders[0].inputs.items() if n != bp}
+        stacked = torch.stack([torch.as_tensor(r.inputs[bp])
+                               for r in leaders])
+        params = leaders[0].params
+        aux = leaders[0].aux
+
+        def one(pv):
+            return planned(params, {**fixed, bp: pv}, aux=aux)
+
+        outs = torch.func.vmap(one)(stacked)
+        self._sync()
+        vals = [tuple(o[i] for o in outs) if isinstance(outs, tuple)
+                else outs[i] for i in range(len(leaders))]
+        self.registry.count("analytics.batched", len(leaders))
+        return vals
+
+    def _root_key(self, req: AnalysisRequest, keys: dict) -> tuple:
+        """The whole-query identity: plan id + the runtime keys of its
+        outputs — two queries with equal root keys compute the same
+        values, whatever their programs looked like."""
+        return (getattr(req.planned, "plan_id", id(req.planned)),
+                tuple(keys.get(o, o) for o in req.planned.concrete.outputs))
+
+    def _settle_analysis(self, req: AnalysisRequest, res: AnalysisResult,
+                         results: dict, t0: float) -> None:
+        # route to the owning run_analyses call's results dict (a tick may
+        # have drained a concurrent call's request); fall back to the
+        # draining call's dict for requests with no registered owner
+        sink, st0 = self._analysis_sinks.get(id(req), (results, t0))
+        res.ttfr_ms = (time.perf_counter() - st0) * 1e3
+        self.registry.summary("analytics.ttfr_ms").observe(res.ttfr_ms)
+        self.registry.count("analytics.requests")
+        sink[req.rid] = res
+
+    async def _admit_analysis_tick(self, tick: list, results: dict,
+                                   t0: float) -> None:
+        """One admission tick: key every drained query, dedupe exact twins
+        (intra-tick groups + cross-task in-flight futures), coalesce
+        same-shape queries into vmapped batches, run the rest through the
+        CSE path, and resolve every request with a result."""
+        loop = asyncio.get_running_loop()
+        groups: dict = {}        # root key -> [(req, keys), ...]
+        waiters: list = []       # (req, future of an in-flight twin)
+        for req in tick:
+            keys = subdag_keys(req.planned, req.inputs,
+                               versions=req.store_versions,
+                               params=req.params)
+            root = self._root_key(req, keys)
+            fut = self._analysis_inflight.get(root)
+            if fut is not None and root not in groups:
+                waiters.append((req, fut))
+                continue
+            groups.setdefault(root, []).append((req, keys))
+        # same-shape batching among group leaders (>=2 make a batch)
+        singles, shaped = [], {}
+        for root, members in groups.items():
+            leader = members[0][0]
+            if leader.batch_param is not None \
+                    and leader.batch_param in leader.inputs:
+                gk = self._batch_group_key(leader, members[0][1])
+                shaped.setdefault(gk, []).append((root, members))
+            else:
+                singles.append((root, members))
+        vbatches = []
+        for g in shaped.values():
+            if len(g) >= 2:
+                vbatches.append(g)
+            else:
+                singles.extend(g)
+        futs = {}
+        for root, _ in singles:
+            futs[root] = self._analysis_inflight[root] = loop.create_future()
+        for g in vbatches:
+            for root, _ in g:
+                futs[root] = self._analysis_inflight[root] = \
+                    loop.create_future()
+
+        def settle(req, res):
+            self._settle_analysis(req, res, results, t0)
+
+        def resolve(root, members, payload, *, batched=False):
+            status, val, info, err = payload
+            fut = futs[root]
+            if not fut.done():
+                fut.set_result(payload)
+            self._analysis_inflight.pop(root, None)
+            for j, (req, _) in enumerate(members):
+                if j > 0:
+                    self.registry.count("analytics.deduped")
+                res = AnalysisResult(
+                    req.rid, val, status, err,
+                    shared_hits=info.get("shared_hits", 0),
+                    executed=info.get("executed", 0),
+                    deduped=j > 0, batched=batched)
+                settle(req, res)
+
+        try:
+            await self._run_analysis_tick(vbatches, singles, waiters,
+                                          resolve, settle)
+        except BaseException as exc:
+            self._fail_analysis_tick(tick, futs, results, exc)
+            raise
+
+    async def _run_analysis_tick(self, vbatches, singles, waiters,
+                                 resolve, settle) -> None:
+        """Run one tick's vmapped batches, then its singles through the
+        CSE path, then settle its twins of other ticks' in-flight
+        queries."""
+        for g in vbatches:
+            leaders = [members[0][0] for _, members in g]
+            try:
+                vals = self._run_batched_group(leaders)
+                for (root, members), val in zip(g, vals):
+                    resolve(root, members,
+                            ("ok", val, {"executed": 1}, None), batched=True)
+            except Exception as exc:
+                if is_kernel_error(exc):
+                    raise
+                # vmap refused the plan (data-dependent shapes, a host
+                # read): run each leader through the CSE path instead
+                self.recorder.record("batch_fallback", {
+                    "n": len(g), "error": repr(exc)})
+                singles.extend(g)
+        for root, members in singles:
+            leader, lkeys = members[0]
+            try:
+                val, info = self._analysis_exec(leader, keys=lkeys)
+                resolve(root, members, ("ok", val, info, None))
+            except Exception as exc:
+                err = {"reason": "analysis_failed",
+                       "plan_id": getattr(leader.planned, "plan_id", ""),
+                       "error": repr(exc)}
+                self.recorder.trip("executor_error",
+                                   {**err, **self._trip_context()})
+                if is_kernel_error(exc):
+                    raise
+                resolve(root, members, ("error", None, {}, err))
+            await asyncio.sleep(0)   # let twins land on the future map
+        for req, fut in waiters:
+            status, val, info, err = await fut
+            self.registry.count("analytics.deduped")
+            res = AnalysisResult(req.rid, val, status, err,
+                                 shared_hits=info.get("shared_hits", 0),
+                                 deduped=True)
+            settle(req, res)
+
+    def _fail_analysis_tick(self, tick: list, futs: dict, results: dict,
+                            exc: BaseException) -> None:
+        """A tick left on an exception (a kernel error, a cancelled task):
+        fail each of its in-flight futures, so that a concurrent task
+        awaiting one raises too instead of hanging, and drop them from the
+        in-flight map, so that a later twin computes anew.  A drained
+        request that another ``run_analyses`` call owns gets the exception
+        as its result, which that call raises."""
+        for root, fut in futs.items():
+            if not fut.done():
+                if isinstance(exc, Exception):
+                    fut.set_exception(exc)
+                    fut.exception()      # retrieved: its awaiters re-raise
+                else:
+                    fut.cancel()
+            if self._analysis_inflight.get(root) is fut:
+                del self._analysis_inflight[root]
+        for req in tick:
+            sink = self._analysis_sinks.get(id(req))
+            if sink is not None and sink[0] is not results \
+                    and req.rid not in sink[0]:
+                sink[0][req.rid] = exc
+
+    async def run_analyses(self, requests: Sequence[AnalysisRequest],
+                           timeout_s: float = 300.0) -> list:
+        """Serve a set of analytical queries through the multi-query
+        admission path: per-tenant weighted round-robin drains up to
+        ``analysis_tick`` queries per tick; each tick dedupes exact twins
+        (single-flight — the first computes, the rest await its future),
+        coalesces same-shape queries into one vmapped forward, and runs
+        the remainder through the subplan-cache CSE pass.  Returns
+        AnalysisResults in input order; every query resolves (errors are
+        structured, a loop timeout resolves stragglers)."""
+        t0 = time.perf_counter()
+        results: dict = {}
+        mine = {id(r) for r in requests}
+        for r in requests:
+            self._analysis_sinks[id(r)] = (results, t0)
+            self.analysis_sched.enqueue(r, r.tenant)
+        try:
+            # completion is scoped to THIS call's requests: a tick may
+            # settle a concurrent call's drained query into that call's
+            # sink (or pick up extras), so len(results) alone can't gate
+            while any(r.rid not in results for r in requests):
+                if time.perf_counter() - t0 > timeout_s:
+                    # pull this call's undrained stragglers out of the
+                    # shared tenant queues so a later call can't adopt
+                    # them, then resolve them with structured timeouts
+                    self.analysis_sched.purge(lambda item: id(item) in mine)
+                    for r in requests:
+                        if r.rid not in results:
+                            self._settle_analysis(r, AnalysisResult(
+                                r.rid, None, "error",
+                                {"reason": "timeout",
+                                 "timeout_s": timeout_s}),
+                                results, t0)
+                    break
+                tick = self.analysis_sched.drain(self.analysis_tick)
+                if not tick:
+                    await asyncio.sleep(0.0005)
+                    continue
+                await self._admit_analysis_tick(tick, results, t0)
+                await asyncio.sleep(0)
+            for r in requests:
+                # a concurrent call's tick failed on this call's query
+                if isinstance(results[r.rid], BaseException):
+                    raise results[r.rid]
+        finally:
+            for r in requests:
+                self._analysis_sinks.pop(id(r), None)
+            # on a raise, leave no query of this call in the shared queues
+            self.analysis_sched.purge(lambda item: id(item) in mine)
+        self._maybe_snapshot(force=True)
+        return [results[r.rid] for r in requests]
+
+    def serve_analyses(self, requests: Sequence[AnalysisRequest],
+                       timeout_s: float = 300.0) -> list:
+        """Synchronous wrapper around :meth:`run_analyses` (same nesting
+        rule as :meth:`serve`)."""
+        try:
+            asyncio.get_running_loop()
+        except RuntimeError:
+            return asyncio.run(self.run_analyses(requests,
+                                                 timeout_s=timeout_s))
+        raise RuntimeError(
+            "serve_analyses() was called from a running event loop; call "
+            "`await runtime.run_analyses(...)` instead")
+
+    def run_analysis(self, planned, params, inputs: dict, *,
+                     analyze: bool = False, aux: Optional[dict] = None,
+                     deadline_s: Optional[float] = None,
+                     degrade=None, store_versions: tuple = (),
+                     tied_to=None):
+        """Execute an analytical (tri-store) :class:`PlannedFunction`
+        through the runtime's shared metrics registry, so LM and
+        analytical traffic report into one place: wall time (ending in a
+        device sync) lands in the ``analytics.run_ms`` summary,
+        request/trace counts in ``analytics.*`` counters.  With
+        ``analyze=True`` the run goes through ``PlannedFunction.analyze``
+        (EXPLAIN ANALYZE tracing) and the trace's wall/sync split is
+        recorded too.  Either path feeds the flight recorder: traced runs
+        land their RunTrace summary in the ring (and trip a dump on
+        BoundedRel overflow, inside ``analyze``); an executor exception
+        trips an ``executor_error`` dump carrying the current ledger
+        snapshot + metrics report.
+
+        ``degrade``: with a :class:`~repro_torch.serving.degrade.
+        DegradePolicy` attached to the runtime, a standing query is
+        transparently switched to its cheaper variant under overload —
+        pass an int to force a ladder level, ``False`` to opt this call
+        out.  ``deadline_s`` bounds the run's wall time *post hoc*: a miss
+        lands an ``analytics.deadline_miss`` count and a recorder event
+        (an analytical plan has no token boundary to cancel at, so the
+        deadline informs shedding, not abortion)."""
+        if degrade is not False and self.degrade is not None:
+            lvl = degrade if isinstance(degrade, int) \
+                and not isinstance(degrade, bool) else \
+                self.degrade.level(
+                    queue_depth=self.scheduler.queue_depth(),
+                    max_batch=self.max_batch,
+                    kv_fill=self.pool.occupancy()["fill"])
+            if lvl > 0:
+                planned = self.degrade.replan(planned, lvl, cache=self.pc)
+        if self.faults is not None and planned.faults is None:
+            planned.faults = self.faults
+        t0 = time.perf_counter()
+        try:
+            if analyze:
+                outs = planned.analyze(params, inputs, aux=aux,
+                                       recorder=self.recorder,
+                                       trip_context=self._trip_context)
+                tr = planned.last_run_trace
+                self.registry.summary("analytics.trace_wall_ms").observe(
+                    tr.wall_ms)
+                self.registry.summary("analytics.sync_ms").observe(
+                    tr.sync_ms)
+                self.registry.count("analytics.traced")
+            elif self.subplans is not None and planned.faults is None:
+                # cross-query CSE: reuse cached sub-DAG intermediates and
+                # execute only the residual suffix (bitwise-identical — the
+                # reused values are an identical computation's tensors)
+                outs, _info = mqo_run(planned, params, inputs,
+                                      cache=self.subplans,
+                                      versions=store_versions, aux=aux,
+                                      tied_to=tied_to)
+                self._sync()
+            else:
+                outs = planned(params, inputs, aux=aux)
+                self._sync()
+        except Exception as exc:
+            # analyze() already tripped for its own failures (with the same
+            # trip context); only the untraced path needs capture here
+            if not analyze:
+                self.recorder.trip("executor_error", {
+                    "plan_id": getattr(planned, "plan_id", ""),
+                    "error": repr(exc), **self._trip_context()})
+            raise
+        elapsed_s = time.perf_counter() - t0
+        if deadline_s is not None and elapsed_s > deadline_s:
+            self.registry.count("analytics.deadline_miss")
+            self.recorder.record("deadline_miss", {
+                "plan_id": planned.plan_id, "kind": "analysis",
+                "deadline_s": deadline_s, "elapsed_s": elapsed_s})
+        self.registry.summary("analytics.run_ms").observe(elapsed_s * 1e3)
+        self.registry.count("analytics.requests")
+        self._maybe_snapshot(force=True)
+        return outs
 
 
 def _row(kv_groups, i: int):

@@ -273,8 +273,10 @@ def tfidf_topk_blockskip(corpus: dict, query: torch.Tensor,
                           | active[torch.clamp(ptr[1:] - 1, min=0) // b])
     docs = torch.nonzero(touched).flatten()
     w = query.to(torch.float32) * corpus["idf"]
-    scores[docs] = ordered_doc_sum(corpus["doc_ptr"], docs,
-                                   corpus["term_ids"], corpus["tf"],
-                                   corpus["doc_len"], w,
-                                   corpus["max_doc_postings"])
+    # out of place: under torch.func.vmap a batched query's sums cannot be
+    # written into the unbatched zeros (the same values as ``scores[docs]
+    # = ...``)
+    scores = scores.index_put((docs,), ordered_doc_sum(
+        corpus["doc_ptr"], docs, corpus["term_ids"], corpus["tf"],
+        corpus["doc_len"], w, corpus["max_doc_postings"]))
     return masked_topk(scores, doc_mask, k)

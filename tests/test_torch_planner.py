@@ -99,6 +99,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.serving.kv_pool, repro_torch.serving.runtime\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.core.tracing, repro_torch.core.ledger\n"
+        "import repro_torch.core.mqo, repro_torch.core.faults\n"
+        "import repro_torch.core.resilience, repro_torch.serving.degrade\n"
+        "import repro_torch.examples.multi_query\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and m.split('.')[0] in ('repro', 'jax', 'jaxlib')]\n"

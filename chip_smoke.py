@@ -124,9 +124,7 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      fully-masked rows, the heads-major entry, head_dim 160 and 256 in
      both dtypes, 72 and 112 with GQA 6 in bfloat16); CUDA-event medians
      of the kernel, the plain version and ``scaled_dot_product_attention``
-     (timed only, never called by the port), beside the bound; also
-     stablelm-12b's prefill shape (4 x 2048, 32 / 8 heads of 160), which
-     no path here serves;
+     (timed only, never called by the port), beside the bound;
  13. serve    — ``AsyncServingRuntime`` (engines xla + pallas, 4 decode
      slots, max_seq 2048, page size 16) on 8 requests of 100 / 500 / 1000 /
      2000 prompt tokens, 32 generated each: warmup, then serve with the
@@ -244,6 +242,73 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      left out; the CPU tests hold the port against the reference at SMOKE
      width (``tests/test_torch_moe_*.py``);
 
+  ``deepseek_serve``, ``stablelm_serve`` and ``gemma3_serve`` (the other
+  dense configs served by the async runtime through their planned
+  ``prefill_kv``, slice 13), each in turn, the model before it freed:
+
+ 27a. data    — deepseek-7b (30 layers, d_model 4096, 32 / 32 heads of
+     128, vocab 102,400) and stablelm-12b (40 layers, d_model 5120, 32 / 8
+     heads of 160, vocab 100,352) at full width and depth; gemma3-27b
+     (d_model 5376, 32 / 16 heads of 128, GELU, embedding scale, a tied
+     vocab of 262,144, window 1024 on 5 of every 6 layers) at full width
+     and **20 of its 62 layers**: one layer holds 412,876,800 parameters
+     (2.48 GB in float32, 0.83 GB more as the runtime's bf16 copy), the
+     tied table 5.64 GB, and the width-4 prefill at 2048 makes 8.6 GB of
+     float32 logits and as much again masked; 20 layers are 3 periods of
+     5 local + 1 global plus the 2-layer local remainder group the
+     62-layer stack also has (62 = 10 x 6 + 2), so the cut plans the same
+     two scan groups; 26 (4 periods + 2) would hold 70.1 GB of parameters
+     and copies before the activations.  bfloat16 activations, float32
+     parameters from ``he_init`` on a seeded generator on the card.
+     Parameter count (the tree's, and ``param_count()``), bytes, seconds,
+     peak memory (after the runtime's bf16 copies and after warmup);
+ 27b. serve   — ``AsyncServingRuntime`` (engines xla + pallas, 4 decode
+     slots, max_seq 2048, page size 16, prefill width 1: the 4 requests
+     fall in 4 buckets, and a width-4 warmup prefill at 2048 does not fit
+     beside stablelm's 72.7 GB of parameters, copies and pool;
+     ``prefill_kv`` mode) on 4 requests of 100 / 500 / 1000 / 2000 prompt
+     tokens, 16 generated each: warmup, then serve with the launch counts
+     set to 0 just before it and flash's
+     arguments recorded at each bucket and window; chosen impls per bucket
+     (``attn_flash_pallas`` on every layer), TTFT, decode and total
+     tokens/s, plan-cache hits, pool occupancy, peak memory;
+ 27c. serve-kernel — flash against its plain version on the card on the
+     very arguments each bucket's prefill gave it: deepseek 32 / 32 heads
+     (MHA), stablelm 32 / 8 of 160, gemma3 32 / 16 at window 1024 (its
+     local layers) and 0 (its global ones), each checked; CUDA-event
+     medians of the kernel (``ms``), its device time (``device_ms``: 64
+     calls in one CUDA graph), the plain version and
+     ``scaled_dot_product_attention`` (a window as an explicit boolean
+     mask; timed only), beside the bound: operations at 989 TFLOP/s over
+     the pairs inside the causal window;
+ 27d. check   — flash launches = 30 / 40 / 20 x the prefill forwards,
+     exactly; 100 % plan-cache hits after warmup; once the bf16 runtime is
+     freed, a float32 sub-trace (prompts 100 and 500, 8 generated) through
+     the runtime token for token equal to ``serve_sequential``; the
+     CUDA-graph decode step bitwise equal to the eager step on random
+     caches.  A card-against-CPU check would put 27.6-48.6 GB of float32
+     parameters on the host and is left out; the CPU tests hold the port
+     against the reference at SMOKE width (``tests/test_torch_dense_lm.py``);
+ 27e. [banded] (gemma3) — the float32 model planned at 1 x 4096 with
+     ``("xla",)``: ``sdpa_banded_xla`` on every windowed layer,
+     ``sdpa_xla`` on the global ones, 0 flash launches; its last-position
+     logits against the ``("xla", "pallas")`` plan's (flash on every
+     layer, 20 launches) within 2e-3;
+ 27f. [ring]  — a full-length bf16 cache seeded from a planned
+     ``prefill_kv`` of a 2000-token prompt, and a ``ring_local`` cache
+     holding in each local layer's leaf the last 1024 positions at slot
+     ``pos % 1024`` (the global layers copied whole); 32 greedy decode
+     steps with each: logits within ``RING_TOL`` of the largest |logit| up
+     to the first step whose tokens differ, which is allowed only where
+     the top-2 margin is within twice that; the local leaves' bytes (1024
+     slots against 2048);
+ 27g. [int8]  — a bf16 cache and an int8 cache (``init_cache(quantize_kv=
+     True)``; neither a plan nor the reference's ``prefill`` seeds one)
+     each filled by the decode step over one 256-token prompt, then 16
+     more steps on the bf16 run's greedy tokens: relative max logit error
+     below 0.08, ``tests/test_integration.py``'s bound; the K/V leaves'
+     bytes, int8 with scales against bf16;
+
   ``multi_query`` (many analysts over one tri-store, and the resilience
   layer, slice 12):
 
@@ -335,9 +400,9 @@ the paths above:
      and the re-planned run the first run's top-64.
 
 ``--paths a,b`` runs only the named paths (``[time]`` lines name them).
-With ``--profile`` it also runs each path's default plan (a second serve
-of the qwen3 and dbrx traces on the same runtime; for each recurrent
-family a serve of one request of 100 prompt tokens) once under
+With ``--profile`` it also runs each path's default plan (a second
+serve of the qwen3, dbrx and dense traces on the same runtime; for each
+recurrent family a serve of one request of 100 prompt tokens) once under
 ``torch.profiler`` and prints the device time of the 15 costliest kernels
 and the device's idle share of that run.
 
@@ -368,6 +433,14 @@ and relative in float32 (the kernel's FMA sums over up to 10,752 terms in
 ascending order against cuBLAS's order) and ``1e-2`` in bfloat16 (both
 round one float32 sum to bfloat16: one ulp apart at most); ``moe_gmm``
 against ``moe_dense`` in float32: ``1e-4``, the same sums again.
+``[ring]``: ``RING_TOL`` = 2e-2 of the largest |logit|.  Both runs are
+bf16 activations over the same keys, the ring's in other slots: the
+decode attention's float32 sums over 1,024 against 2,048 slots (the
+masked ones weigh exactly 0) run in another order, so now and then an
+output rounds to its other bf16 neighbour (2^-8 relative), and the flips
+spread through 20 layers.  ``[int8]``: 0.08 of the largest |logit|, the
+reference's bound for the same comparison (abs-max int8 per position and
+head: 1/254 of each head's range a value).
 """
 from __future__ import annotations
 
@@ -440,7 +513,8 @@ from repro_torch.core.plan_cache import PlanCache  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import CATALOG  # noqa: E402
 from repro_torch.models.decode import (DecodeGraph,  # noqa: E402
-                                       decode_step_batched, init_cache)
+                                       decode_step, decode_step_batched,
+                                       init_cache, seed_cache_from_prefill)
 from repro_torch.serving import (AnalysisRequest,  # noqa: E402
                                  AsyncServingRuntime, DegradePolicy,
                                  ServeRequest, bucket_len, serve_sequential)
@@ -514,6 +588,34 @@ DBRX = {"arch": "dbrx-132b", "n_layers": 2, "requests": 8,
                "44.0 GB at 3, with 19.6 GB of bf16 expert copies: 3 do not "
                "fit 80 GB"}
 DSUB = {"prompt_lens": (100, 500), "gen": 8, "moe_bucket": 512}
+# deepseek_serve / stablelm_serve / gemma3_serve: the other dense configs
+# at full width through prefill_kv, one at a time; gemma3 at 20 of its 62
+# layers (one layer is 412,876,800 parameters, 2.48 GB in float32 plus
+# its bf16 copy; 26 layers would hold 70.1 GB before the activations)
+DENSE = {
+    "deepseek-7b": {"path": "deepseek_serve", "n_layers": 30, "cut": None},
+    "stablelm-12b": {"path": "stablelm_serve", "n_layers": 40, "cut": None},
+    "gemma3-27b": {
+        "path": "gemma3_serve", "n_layers": 20,
+        "cut": "n_layers 62 -> 20: 3 periods of 5 local + 1 global and the "
+               "2-layer local remainder group the 62-layer stack also has; "
+               "float32 38.7 GB + bf16 copies 16.5 GB + the 4 x 2048 "
+               "prefill's float32 logits 8.6 GB (twice, masked); 26 layers "
+               "do not fit 80 GB"}}
+# prefill width 1: the 4 requests fall in 4 buckets, so the runtime never
+# batches two, and the warmup's width-4 prefill at 2048 does not fit
+# beside stablelm-12b's 72.7 GB of parameters, bf16 copies and pool
+DENSE_SERVE = {"requests": 4, "prompt_lens": (100, 500, 1000, 2000),
+               "gen": 16, "max_batch": 4, "max_seq": 2048,
+               "prefill_batch": 1}
+DENSE_SUB = {"prompt_lens": (100, 500), "gen": 8}
+# gemma3's [banded] shape, [ring] and [int8] runs; RING_TOL: relative to
+# the largest |logit|, bf16 activations both ways (see the docstring)
+BANDED = {"batch": 1, "seq": 4096}
+RING = {"prompt_len": 2000, "steps": 32, "max_seq": 2048}
+RING_TOL = 2e-2
+INT8 = {"prompt_len": 256, "steps": 16, "max_seq": 512}
+INT8_REL_TOL = 0.08           # tests/test_integration.py's int8 bound
 # multi_query: benchmarks/multi_query.py's 16 clients and programs (the
 # heavy one at its full iters=24) over hashtag_pulse's stores; the subplan
 # budget is budget_factor x the bytes a probe pass caches (room for all)
@@ -2131,9 +2233,6 @@ FLASH_EDGES = (
     ("head_dim 112 GQA 6", 1, 300, 300, 12, 2, 112, torch.bfloat16, True, 0,
      False),
 )
-# stablelm-12b's prefill at width 4 and bucket 2048 (32 / 8 heads of 160):
-# timed beside SDPA, not served here
-STABLELM_FLASH = (4, 2048, 32, 8, 160)
 
 
 def check_flash(dev, gen, cfg, batched_width) -> dict:
@@ -2198,24 +2297,6 @@ def check_flash(dev, gen, cfg, batched_width) -> dict:
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": lib_ms}
             del q, k, v, qh, kh, vh
-    b, s, h, kvh, d = STABLELM_FLASH
-    q, k, v = flash_inputs(gen, dev, b, s, s, h, kvh, d, torch.bfloat16)
-    e = flash_compare(q, k, v)
-    err = max(err, e)
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True))
-    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, enable_gqa=True))
-    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d)
-    nops = 4 * b * h * d * attention_pairs(s, s, True, 0)
-    bound_ms, bound_by = bound(nbytes, nops, BF16_FLOPS)
-    phase("serve-kernel", name="flash_attention", shape="stablelm-12b", b=b,
-          seq=s, heads=h, kv_heads=kvh, head_dim=d, dtype="bfloat16",
-          causal=True, max_abs_err=e, ms=ms, plain_ms=plain_ms,
-          library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-          share_of_bound=bound_ms / ms, tflops=nops / ms / 1e9)
-    del q, k, v, qh, kh, vh
     record["max_abs_err"] = err
     return record
 
@@ -2502,15 +2583,18 @@ def cpu_subtrace(cfg, model32, params, syscat, dev, reqs, max_seq) -> dict:
 
 
 @contextlib.contextmanager
-def recording_shapes(module, name, calls, arg=0):
+def recording_shapes(module, name, calls, arg=0, kwarg=None):
     """Keep in ``calls`` the arguments of the first call of ``module.name``
     (a kernel wrapper or layer, under the name its caller uses) at each new
-    shape of its argument ``arg``: one planned prefill's arguments per
-    bucket, without holding every layer's."""
+    shape of its argument ``arg`` (and each new value of its keyword
+    ``kwarg``, if given: flash attention's window): one planned prefill's
+    arguments per bucket, without holding every layer's."""
     wrapped = getattr(module, name)
 
     def record(*args, **kwargs):
         key = tuple(args[arg].shape)
+        if kwarg is not None:
+            key += (kwargs.get(kwarg),)
         if key not in calls:
             calls[key] = (args, kwargs)
         return wrapped(*args, **kwargs)
@@ -2745,38 +2829,51 @@ def check_recurrence(dev, gen, cfg, spec, calls) -> dict:
 
 def check_flash_calls(calls, path) -> dict:
     """flash_attention on the arguments a served model's planned prefill
-    gave it at each bucket (timed, beside scaled_dot_product_attention);
-    returns its JSON record (the largest bucket)."""
+    gave it at each bucket and window (timed, beside
+    scaled_dot_product_attention, which takes a window as an explicit
+    boolean mask); ``ms`` one call, ``device_ms`` 64 calls in one CUDA
+    graph.  Returns its JSON record (the largest bucket, the largest
+    window)."""
     err, record = 0.0, None
-    for _shape, (args, kwargs) in sorted(calls.items(),
-                                         key=lambda kv: kv[0][1]):
+    order = sorted(calls.values(),
+                   key=lambda c: (c[0][0].shape[1], c[1].get("window", 0)))
+    for args, kwargs in order:
         q, k, v = args
         causal, window = kwargs.get("causal", True), kwargs.get("window", 0)
         e = flash_compare(q, k, v, causal=causal, window=window)
         err = max(err, e)
         b, s, h, d = q.shape
         kvh = k.shape[2]
-        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
-                                             window=window))
+        call = lambda: flash_attention(  # noqa: E731
+            q, k, v, causal=causal, window=window)
+        ms = cuda_ms(call)
+        dev_ms, _via = device_ms(call)
         plain_ms = cuda_ms(lambda: flash_attention_plain(
             q, k, v, causal=causal, window=window))
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        mask = (attention_mask(s, s, causal=causal, window=window,
+                               device=q.device)
+                if window and window < s else None)
         lib_ms = cuda_ms(lambda: torch.nn.functional
                          .scaled_dot_product_attention(
-                             qh, kh, vh, is_causal=causal, enable_gqa=True))
+                             qh, kh, vh, attn_mask=mask,
+                             is_causal=causal and mask is None,
+                             enable_gqa=True))
         nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kvh * d)
         nops = 4 * b * h * d * attention_pairs(s, s, causal, window)
         bound_ms, bound_by = bound(nbytes, nops, BF16_FLOPS)
         phase(f"{path}-kernel", name="flash_attention", b=b, seq=s,
-              heads=h, kv_heads=kvh, head_dim=d,
+              heads=h, kv_heads=kvh, head_dim=d, window=window,
               dtype=str(q.dtype).split(".")[1], max_abs_err=e, ms=ms,
-              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-              bound_by=bound_by, share_of_bound=bound_ms / ms)
+              device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+              bound_ms=bound_ms, bound_by=bound_by,
+              share_of_bound=bound_ms / dev_ms)
         record = {"name": "flash_attention", "route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                   "replaces": "src/repro/kernels/flash_attention/ops.py:110",
-                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": bound_by, "library_ms": lib_ms}
+                  "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": lib_ms}
     check(record is not None, f"{path}: no flash_attention call recorded")
     record["max_abs_err"] = err
     return record
@@ -3352,6 +3449,357 @@ def dbrx_path(args, dev, syscat) -> list:
     return records
 
 
+# -- phases 27a-27g: the other dense configs served ------------------------
+
+
+def attention_blocks(model) -> int:
+    """Attention nodes in one pass over the scan groups' subplans."""
+    return sum(len(g.blocks) for g in model.groups)
+
+
+def check_banded(model32, params, syscat, dev) -> dict:
+    """[banded]: the float32 model planned at BANDED with ``("xla",)``
+    bands every windowed layer (``sdpa_banded_xla``; the global ones
+    ``sdpa_xla``) and launches no kernel; its last-position logits against
+    the ``("xla", "pallas")`` plan's (flash on every layer) within
+    LOGIT_TOL."""
+    b, s = BANDED["batch"], BANDED["seq"]
+    toks = torch.randint(0, model32.cfg.vocab, (b, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED))
+    windowed = sum(blk.window > 0 for g in model32.groups
+                   for blk in g.blocks)
+    last, out = {}, {}
+    for engines in (("xla",), ("xla", "pallas")):
+        fwd = plan_and_compile(model32.build_plan(b, s, mode="prefill"),
+                               CATALOG, syscat, engines=engines,
+                               cache=False, device=dev)
+        inner = bucket_impls(fwd)[1]
+        if "pallas" in engines:
+            want = Counter({"attn_flash_pallas": attention_blocks(model32)})
+        else:
+            want = Counter({"sdpa_banded_xla": windowed, "sdpa_xla":
+                            attention_blocks(model32) - windowed})
+        got = Counter({k: v for k, v in inner.items() if k in (
+            "attn_flash_pallas", "sdpa_banded_xla", "sdpa_xla")})
+        check(got == want, f"[banded] {engines}: attention impls {dict(got)}"
+                           f" != {dict(want)}")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        logits = fwd(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        out[engines] = {"ms": round((time.perf_counter() - t0) * 1e3, 2),
+                        "launches": kernels.launches()["flash_attention"]}
+        last[engines] = logits[:, -1, :model32.cfg.vocab].float()
+        del logits
+        torch.cuda.empty_cache()
+    check(out[("xla",)]["launches"] == 0,
+          f"[banded] the xla plan launched {out[('xla',)]['launches']}")
+    check(out[("xla", "pallas")]["launches"] == model32.cfg.n_layers,
+          f"[banded] the kernel plan launched "
+          f"{out[('xla', 'pallas')]['launches']}")
+    a, c = last[("xla",)], last[("xla", "pallas")]
+    torch.testing.assert_close(a, c, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    res = {"banded_layers": windowed, "banded_ms": out[("xla",)]["ms"],
+           "flash_plan_ms": out[("xla", "pallas")]["ms"],
+           "banded_vs_flash_max_abs_err": float((a - c).abs().max())}
+    phase("banded", b=b, seq=s, **res)
+    return res
+
+
+def greedy(model, params, cache, tok, start, steps, ring_local=False):
+    """``steps`` greedy decode steps from position ``start``: the logits
+    (steps, V) in float32 and the tokens chosen."""
+    logits, toks = [], []
+    for t in range(steps):
+        lg, _ = decode_step(model, params, cache, tok, start + t,
+                            ring_local=ring_local)
+        lg = lg[0, 0, :model.cfg.vocab].float()
+        logits.append(lg)
+        tok = lg.argmax().view(1, 1)
+        toks.append(int(tok))
+    return torch.stack(logits), toks
+
+
+def leaf_bytes(cache, keys=None) -> int:
+    """The bytes of a cache's leaves (those named in ``keys``, if given)."""
+    return sum(t.nbytes for gc in cache.values() for k, t in gc.items()
+               if keys is None or k in keys)
+
+
+def check_ring(model, params, syscat, dev) -> dict:
+    """[ring]: a full-length bf16 cache seeded from a planned prefill_kv
+    of one RING prompt, and a ``ring_local`` cache holding, in each local
+    layer's leaf, that prompt's last W positions at slot ``pos % W`` (the
+    global layers copied whole); RING steps greedy decode with each.
+    Logits within RING_TOL x the largest |logit| up to the first step whose
+    tokens differ; that step's top-2 margin within twice that."""
+    cfg = model.cfg
+    n, w = RING["prompt_len"], cfg.window
+    bucket = bucket_len(n, hi=RING["max_seq"])
+    toks = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+    toks[0, :n] = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab, n))
+    fwd = plan_and_compile(model.build_plan(1, bucket, mode="prefill_kv"),
+                           CATALOG, syscat, engines=("xla", "pallas"),
+                           cache=False, device=dev)
+    out = fwd(params, {"tokens": toks})
+    first = out[0][0, n - 1, :cfg.vocab].argmax().view(1, 1)
+    full = init_cache(model, 1, RING["max_seq"], device=dev)
+    seed_cache_from_prefill(model, full, out[1:], n)
+    del out
+    ring = init_cache(model, 1, RING["max_seq"], device=dev, ring_local=True)
+    pos = torch.arange(n - w, n, device=dev)
+    local = set()
+    for g in model.groups:
+        for key, leaf in ring[g.name].items():
+            src = full[g.name][key]
+            if leaf.shape[2] == w:
+                leaf[:, :, pos % w] = src[:, :, pos]
+                local.add(key)
+            else:
+                leaf.copy_(src)
+    ring_bytes, full_bytes = leaf_bytes(ring, local), leaf_bytes(full, local)
+    check(ring_bytes * RING["max_seq"] == full_bytes * w,
+          f"[ring] local leaves hold {ring_bytes} of {full_bytes} bytes")
+    t0 = time.perf_counter()
+    lf, tf = greedy(model, params, full, first, n, RING["steps"])
+    lr, tr = greedy(model, params, ring, first, n, RING["steps"],
+                    ring_local=True)
+    decode_s = time.perf_counter() - t0
+    t = next((j for j, (x, y) in enumerate(zip(tf, tr)) if x != y), None)
+    upto = RING["steps"] if t is None else t + 1
+    scale = float(lf[:upto].abs().max())
+    err = float((lf[:upto] - lr[:upto]).abs().max())
+    check(err <= RING_TOL * scale, f"[ring] logits differ by {err} "
+                                   f"(largest |logit| {scale})")
+    if t is not None:
+        top = torch.topk(lf[t], 2).values
+        margin = float(top[0] - top[1])
+        check(margin <= 2 * RING_TOL * scale,
+              f"[ring] tokens differ at step {t} where the top-2 margin is "
+              f"{margin}")
+    res = {"ring_max_abs_err": err, "ring_rel_err": err / scale,
+           "ring_tokens_equal": t is None,
+           "ring_diverged_at_near_tie": t,
+           "ring_local_bytes": ring_bytes, "full_local_bytes": full_bytes,
+           "ring_decode_s": round(decode_s, 3)}
+    phase("ring", prompt=n, steps=RING["steps"], window=w, **res)
+    return res
+
+
+def check_int8(model, params, dev) -> dict:
+    """[int8]: a bf16 cache and an int8 cache (``quantize_kv``) each
+    filled by the decode step over one INT8 prompt, then INT8 steps more
+    on the bf16 run's greedy tokens: every step's logits within
+    INT8_REL_TOL of the largest |logit| (the reference's int8 test)."""
+    cfg = model.cfg
+    n = INT8["prompt_len"]
+    prompt = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
+        0, cfg.vocab, (1, n))).to(dev)
+
+    def feed(cache, toks, start):
+        return [decode_step(model, params, cache, toks[:, t:t + 1],
+                            start + t)[0][0, 0, :cfg.vocab].float()
+                for t in range(toks.shape[1])]
+
+    caches = {q: init_cache(model, 1, INT8["max_seq"], device=dev,
+                            quantize_kv=q) for q in (False, True)}
+    ref = feed(caches[False], prompt, 0)
+    tok = ref[-1].argmax().view(1, 1)
+    more, chosen = greedy(model, params, caches[False], tok, n,
+                          INT8["steps"])
+    ref = torch.cat([torch.stack(ref), more])
+    inputs = torch.tensor([[int(tok)] + chosen[:-1]], device=dev)
+    got = torch.stack(feed(caches[True], prompt, 0)
+                      + feed(caches[True], inputs, n))
+    err = float((ref - got).abs().max())
+    rel = err / float(ref.abs().max())
+    check(rel < INT8_REL_TOL, f"[int8] relative logit error {rel}")
+    res = {"int8_max_abs_err": err, "int8_rel_err": rel,
+           "int8_kv_bytes": leaf_bytes(caches[True]),
+           "bf16_kv_bytes": leaf_bytes(caches[False])}
+    phase("int8", prompt=n, steps=INT8["steps"], **res)
+    return res
+
+
+def dense_path(args, dev, syscat, arch) -> list:
+    """Phases 27a-27g: one of deepseek-7b, stablelm-12b and gemma3-27b
+    served at full width.  Returns the flash record."""
+    spec = DENSE[arch]
+    path = spec["path"]
+    t_path = time.perf_counter()
+    # 27a. data: the model at full width from a seeded generator on the card
+    cfg = get_config(arch).replace(n_layers=spec["n_layers"])
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [t for _k, t in _leaves(params)]
+    phase("data", path=path, arch=cfg.name, family=cfg.family,
+          layers=cfg.n_layers, cut=json.dumps(spec["cut"]),
+          d_model=cfg.d_model, heads=cfg.heads, kv_heads=cfg.kv_heads,
+          head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+          window=cfg.window, local_ratio=cfg.local_ratio, dtype=cfg.dtype,
+          param_dtype=cfg.param_dtype,
+          params=sum(int(t.numel()) for t in leaves),
+          config_param_count=cfg.param_count(),   # without the norm scales
+          param_gb=round(sum(stored_bytes(t) for t in leaves) / 1e9, 3),
+          seconds=round(init_s, 3),
+          init_peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    del leaves
+
+    # 27b. serve: the runtime through its entry points, flash's arguments
+    # recorded at each bucket and window
+    t0 = time.perf_counter()
+    reqs = serve_trace(cfg, DENSE_SERVE["prompt_lens"],
+                       DENSE_SERVE["requests"], DENSE_SERVE["gen"])
+    rt = serve_runtime(model, params, syscat, dev,
+                       max_batch=DENSE_SERVE["max_batch"],
+                       max_seq=DENSE_SERVE["max_seq"],
+                       prefill_batch=DENSE_SERVE["prefill_batch"])
+    check(rt.kv_mode, f"{arch}: the runtime is not in prefill_kv mode")
+    phase("data", path=path, after="inference_params",
+          mem_gb=round(torch.cuda.memory_allocated() / 1e9, 3),
+          peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    rt.warmup([r.prompt_len for r in reqs])
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    phase("data", path=path, after="warmup",
+          peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    for bucket, fwd in sorted(rt._prefill_fns.items()):
+        outer, inner = bucket_impls(fwd)
+        check(inner["attn_flash_pallas"] == attention_blocks(model)
+              and not {"sdpa_xla", "sdpa_banded_xla"} & set(inner),
+              f"bucket {bucket}: impls {dict(inner)}")
+        phase("serve", path=path, bucket=bucket, plan_id=fwd.plan_id[:12],
+              impls=json.dumps(dict(outer)),
+              layer_impls=json.dumps(dict(inner)))
+    s0 = rt.pc.stats()
+    fwd0 = rt.registry.count("lm.prefill_forwards", 0)
+    secs = {"prefill": 0.0, "decode": 0.0}
+    rt._try_join = timed(rt._try_join, secs, "prefill")
+    rt._decode_tick = timed(rt._decode_tick, secs, "decode")
+    flash_calls = {}
+    torch.cuda.reset_peak_memory_stats()
+    with recording_shapes(attention_layer, "flash_attention", flash_calls,
+                          kwarg="window"):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = rt.serve(reqs, timeout_s=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = kernels.launches()
+    forwards = rt.registry.count("lm.prefill_forwards", 0) - fwd0
+    s1 = rt.pc.stats()
+    hits, misses = s1["hits"] - s0["hits"], s1["misses"] - s0["misses"]
+    check([r.status for r in res] == ["ok"] * len(reqs),
+          f"{arch} serve statuses {[r.status for r in res]}")
+    check(all(len(r.tokens) == DENSE_SERVE["gen"] for r in res),
+          f"{arch}: a request generated the wrong number of tokens")
+    tokens = sum(len(r.tokens) for r in res)
+    occ = rt.pool.occupancy()
+    phase("serve", path=path, requests=len(reqs), wall_s=round(wall, 4),
+          warmup_s=round(warmup_s, 3), prefill_forwards=forwards,
+          launches=json.dumps({k: v for k, v in counted.items() if v}),
+          tokens=tokens, total_tok_s=tokens / wall,
+          decode_tok_s=sum(len(r.tokens) - 1 for r in res) / secs["decode"],
+          prefill_s=round(secs["prefill"], 4),
+          decode_s=round(secs["decode"], 4), ticks=rt.metrics.ticks,
+          ttft_ms=json.dumps([round(r.metrics.ttft_s * 1e3, 2)
+                              for r in res]),
+          prefill_ms=json.dumps([round(r.metrics.prefill_ms, 2)
+                                 for r in res]),
+          tpot_ms=json.dumps([round(r.metrics.tpot_s * 1e3, 3)
+                              for r in res]),
+          plan_hits_after_warmup=hits, plan_misses_after_warmup=misses,
+          pool_after=json.dumps(occ),
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
+          seconds=round(time.perf_counter() - t_path, 1))
+    expected = launch_counts(flash_attention=cfg.n_layers * forwards)
+    check(counted == expected, f"{arch} launches {counted} != {expected}")
+    check(misses == 0 and hits >= len(reqs),
+          f"plan cache after warmup: {hits} hits, {misses} misses")
+    check(occ["slots_used"] == 0 and occ["pages_used"] == 0,
+          f"pool not drained: {occ}")
+    if args.profile:
+        # the same runtime serves the trace again (its requests are reset)
+        profile_call(lambda: rt.serve(reqs, timeout_s=900), path)
+    del rt, res
+    free_memory()
+
+    # 27c. serve-kernel: flash against its plain version on the recorded
+    # arguments (gemma3: its local layers' window 1024 and its global
+    # layers' 0, each bucket)
+    t0 = time.perf_counter()
+    windows = sorted({kw.get("window", 0) for _a, kw in flash_calls.values()})
+    want_windows = sorted({blk.window for g in model.groups
+                           for blk in g.blocks})
+    check(windows == want_windows,
+          f"{arch}: flash windows {windows} != {want_windows}")
+    record = check_flash_calls(flash_calls, path)
+    record["launches"] = counted["flash_attention"]
+    record["path"] = path
+    del flash_calls
+    torch.cuda.empty_cache()
+    phase(f"{path}-kernel", seconds=round(time.perf_counter() - t0, 1))
+
+    # 27d. check: a float32 sub-trace through the runtime against
+    # serve_sequential; the CUDA-graph decode step against the eager one
+    t0 = time.perf_counter()
+    model32 = build_model(cfg.replace(dtype="float32"))
+    sub = serve_trace(cfg, DENSE_SUB["prompt_lens"],
+                      len(DENSE_SUB["prompt_lens"]), DENSE_SUB["gen"])
+    rt32 = serve_runtime(model32, params, syscat, dev,
+                         max_batch=DENSE_SERVE["max_batch"],
+                         max_seq=DENSE_SERVE["max_seq"],
+                         prefill_batch=DENSE_SERVE["prefill_batch"])
+    rt32.warmup([r.prompt_len for r in sub])
+    res32 = rt32.serve(sub, timeout_s=900)
+    del rt32
+    free_memory()
+    seq = serve_sequential(model32, params, sub,
+                           max_seq=DENSE_SERVE["max_seq"],
+                           engines=("xla", "pallas"), syscat=syscat,
+                           plan_cache=PlanCache(), device=dev)
+    check([r.status for r in res32] == ["ok"] * len(sub),
+          f"{arch} float32 serve failed")
+    differ = [r.rid for r, q in zip(res32, seq) if r.tokens != q.tokens]
+    check(not differ, f"{arch} float32 runtime and serve_sequential differ "
+                      f"on requests {differ}")
+    f32_s = time.perf_counter() - t0
+    free_memory()
+    graph_ms = check_decode_graph(model, params, dev,
+                                  DENSE_SERVE["max_batch"])
+    free_memory()
+    phase("check", path=path, launches_equal_layers_x_forwards=True,
+          decode_graph_bitwise_eager=True, **graph_ms,
+          plan_hit_rate_after_warmup=hits / (hits + misses),
+          f32_runtime_equal_sequential=True, f32_s=round(f32_s, 3),
+          cpu_check="left out: the float32 parameters on the host",
+          seconds=round(time.perf_counter() - t0, 1))
+
+    # 27e-27g. gemma3: the banded plan, the ring and the int8 caches
+    if cfg.local_ratio:
+        t0 = time.perf_counter()
+        extra = check_banded(model32, params, syscat, dev)
+        free_memory()
+        cast = model.inference_params(params)
+        extra.update(check_ring(model, cast, syscat, dev))
+        free_memory()
+        extra.update(check_int8(model, cast, dev))
+        del cast
+        free_memory()
+        phase("check", path=path, **extra,
+              seconds=round(time.perf_counter() - t0, 1))
+    del params, model, model32
+    free_memory()
+    return [record]
+
+
 # -- phases 28-32: many analysts at once and the resilience layer ---------
 
 
@@ -3916,6 +4364,8 @@ def main(argv=None) -> int:
     paths += [(spec["path"], lambda a, d, s, arch=arch: recurrent_path(
         a, d, s, arch)) for arch, spec in RECURRENT.items()]
     paths.append(("dbrx_serve", dbrx_path))
+    paths += [(spec["path"], lambda a, d, s, arch=arch: dense_path(
+        a, d, s, arch)) for arch, spec in DENSE.items()]
     paths.append(("multi_query", multi_query_path))
     if args.paths:
         wanted = args.paths.split(",")

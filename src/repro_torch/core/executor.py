@@ -14,8 +14,9 @@ nothing without a backward); ``attn_flash_pallas``, ``moe_gmm_pallas``,
 matmul, WKV6 and SSD kernels, ``moe_dense_onehot`` and ``moe_dropping``
 the capacity dispatch with einsum experts (cf 2.0 and 1.0),
 ``wkv6_scan_xla`` and ``ssd_chunked_xla`` the recurrences' chunked plain
-forms.  ``map`` / ``filter`` / ``reduce`` run ADIL's collection ops over
-a ``ListT`` value, a Python list of tensors (a ``filter`` predicate that
+forms, ``sdpa_banded_xla`` the chunked local-window attention.
+``map`` / ``filter`` / ``reduce`` run ADIL's collection ops over a
+``ListT`` value, a Python list of tensors (a ``filter`` predicate that
 reads a device value synchronizes with the host, as it must to decide).
 The moe impls ignore the ``pin_moe`` attr: the reference's sharding
 constraints have no counterpart on one card.  Planning is the
@@ -233,6 +234,15 @@ def _i_sdpa(ctx, args, node):
     _emit_kv(ctx, node, k, v)
     return A.sdpa_full(q, k, v, causal=node.attrs.get("causal", True),
                        window=node.attrs.get("window", 0) or 0)
+
+
+@impl("sdpa_banded_xla")
+def _i_banded(ctx, args, node):
+    q, k, v = args[0]
+    q, k = _prep(ctx, node, q, k)
+    _emit_kv(ctx, node, k, v)
+    return A.sdpa_banded(q, k, v, window=node.attrs.get("window", 0) or 0,
+                         causal=node.attrs.get("causal", True))
 
 
 @impl("attn_flash_pallas", engine="pallas")

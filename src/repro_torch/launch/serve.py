@@ -14,6 +14,8 @@ CPU-scale demo:
       --requests 8 --gen 16 --max-batch 4
   python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
   python -m repro_torch.launch.serve --arch dbrx-132b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch gemma3-27b --smoke --device cpu \
+      --engines xla
 """
 from __future__ import annotations
 

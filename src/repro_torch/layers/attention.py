@@ -1,14 +1,17 @@
 """Attention layer family: projections, SDPA candidates, KV-cache decode.
 
-The port of the reference's ``layers/attention.py``.  Two physical
-realizations of the logical sdpa (the planner's candidates on this slice):
+The port of the reference's ``layers/attention.py``.  Three physical
+realizations of the logical sdpa (the planner's candidates):
 
-  * :func:`sdpa_full`  — full masked attention, materialized logits (the
+  * :func:`sdpa_full`   — full masked attention, materialized logits (the
     ``sdpa_xla`` impl), plain PyTorch;
-  * :func:`sdpa_flash` — the flash-attention kernel (``attn_flash_pallas``),
+  * :func:`sdpa_banded` — O(S·W) chunked local-window attention (the
+    ``sdpa_banded_xla`` impl), plain PyTorch;
+  * :func:`sdpa_flash`  — the flash-attention kernel (``attn_flash_pallas``),
     ``kernels/csrc/flash_attention.cu`` on the card.
 
-``sdpa_banded`` and int8 KV quantization wait for the gemma3 slice.
+The decode side: :func:`decode_attend_gqa` (with the int8 caches' scales),
+:func:`decode_attend`, :func:`quantize_kv` and :func:`cache_update`.
 """
 from __future__ import annotations
 
@@ -91,6 +94,48 @@ def sdpa_full(q, k, v, *, causal=True, window=0):
     return flash_attention_plain(q, k, v, causal=causal, window=window)
 
 
+def sdpa_banded(q, k, v, *, window, causal=True):
+    """Chunked local attention: O(S·W) compute.  The sequence is cut into
+    chunks of W; each query chunk attends to its own chunk and the previous
+    one, masked to the sliding window — the reference's banding, op for
+    op (``causal`` reaches only the full fallback, as there)."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    w = int(window)
+    if w <= 0 or w >= s:
+        return sdpa_full(q, k, v, causal=causal, window=window)
+    groups = h // kh
+    pad = (-s) % w
+    sp = s + pad
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+                  for x in (q, k, v))
+    nc = sp // w
+    qc = qp.reshape(b, nc, w, h, d)
+    kc = kp.reshape(b, nc, w, kh, d)
+    vc = vp.reshape(b, nc, w, kh, d)
+    # keys: previous chunk ++ own chunk (window <= W, so covered); the
+    # first chunk's previous one is zeros
+    prev = (0, 0, 0, 0, 0, 0, 1, 0)
+    k2 = torch.cat([torch.nn.functional.pad(kc[:, :-1], prev), kc], dim=2)
+    v2 = torch.cat([torch.nn.functional.pad(vc[:, :-1], prev), vc], dim=2)
+    kr = k2.repeat_interleave(groups, dim=3)
+    vr = v2.repeat_interleave(groups, dim=3)
+    logits = torch.einsum("bcqhd,bckhd->bchqk", qc.float(),
+                          kr.float()) * (d ** -0.5)
+    dev = q.device
+    qi = torch.arange(w, device=dev)[:, None] + w      # position in 2W axis
+    ki = torch.arange(2 * w, device=dev)[None, :]
+    mask = (ki <= qi) & (ki > qi - w)                   # causal and window
+    # the first chunk's "previous" keys are padding
+    first = (torch.arange(nc, device=dev) == 0).reshape(1, nc, 1, 1, 1)
+    pad_keys = (ki < w)[None, None, None]
+    mask = mask[None, None, None] & ~(first & pad_keys)
+    logits = torch.where(mask, logits, torch.full((), -1e30, device=dev))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bchqk,bckhd->bcqhd", p, vr.float())
+    return out.reshape(b, sp, h, d)[:, :s].to(q.dtype)
+
+
 def sdpa_flash(q, k, v, *, causal=True, window=0):
     return flash_attention(q, k, v, causal=causal, window=window)
 
@@ -99,21 +144,64 @@ def sdpa_flash(q, k, v, *, causal=True, window=0):
 # KV-cache decode
 # --------------------------------------------------------------------------
 
-def decode_attend_gqa(q, cache_k, cache_v, valid_mask):
+def decode_attend_gqa(q, cache_k, cache_v, valid_mask, *, k_scale=None,
+                      v_scale=None):
     """Repeat-free GQA attention for decode: q (B, 1, H, D) grouped as
     (B, KV, G, D) against the cache (B, S, KV, D) directly, under the
     (B, S) ``valid_mask``.  Float32 logits and softmax, output in q's
-    dtype."""
+    dtype.  int8 caches pass their per-(position, head) scales
+    ``k_scale`` / ``v_scale`` (B, S, KV, 1): the k-scale multiplies the
+    logits, the v-scale the softmax weights."""
     b, _, h, d = q.shape
     kv = cache_k.shape[2]
     qg = q.reshape(b, kv, h // kv, d)
     logits = torch.einsum("bkgd,bskd->bkgs", qg.float(),
                           cache_k.float()) * (d ** -0.5)
+    if k_scale is not None:                  # (B, S, KV, 1) -> (B, KV, 1, S)
+        logits = logits * k_scale[..., 0].transpose(1, 2)[:, :, None, :] \
+            .float()
     logits = torch.where(valid_mask[:, None, None, :], logits,
                          torch.full((), -1e30, device=q.device))
     p = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[..., 0].transpose(1, 2)[:, :, None, :].float()
     out = torch.einsum("bkgs,bskd->bkgd", p, cache_v.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def quantize_kv(x, *, axis=-1):
+    """abs-max int8 quantization along ``axis``: returns (int8 values,
+    bfloat16 scales).  ``torch.round`` rounds half to even, as
+    ``jnp.round``."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=axis, keepdim=True)
+    sc = amax.clamp(min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / sc), -127, 127)
+    return q.to(torch.int8), sc.to(torch.bfloat16)
+
+
+def decode_attend(q, cache_k, cache_v, index, *, window=0):
+    """q: (B, 1, H, D); cache_k/v: (B, S_max, K, D); ``index``: the count
+    of valid cache entries *including* the newly written position.  The
+    reference's ``mha_reference`` under a key mask: keys repeated to the
+    query heads, float32 logits and softmax, output in q's dtype."""
+    b, _, h, d = q.shape
+    s_max = cache_k.shape[1]
+    keys = torch.arange(s_max, device=q.device)
+    valid = keys < index
+    if window and window > 0:
+        valid = valid & (keys >= index - window)
+    groups = h // cache_k.shape[2]
+    kr = cache_k.repeat_interleave(groups, dim=2)
+    vr = cache_v.repeat_interleave(groups, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          kr.float()) * (d ** -0.5)
+    logits = torch.where(valid, logits, torch.full((), -1e30,
+                                                   device=q.device))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vr.float())
+    return out.to(q.dtype)
 
 
 def cache_update(cache_k, cache_v, new_k, new_v, index):

@@ -62,18 +62,37 @@ def he_init(gen, shape, fan_in=None, dtype=torch.float32):
             * (fan ** -0.5)).to(dtype)
 
 
-def stack_params(trees):
-    """Stack a list of identical nested dicts of tensors along a new
-    leading 'layers' axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: stack_params([t[k] for t in trees]) for k in first}
-    return torch.stack(trees, dim=0)
+def stack_layers(make, count: int):
+    """Stack ``count`` identical nested dicts of tensors, made one at a
+    time by ``make()``, along a new leading 'layers' axis.  Each layer is
+    copied into the stacked leaves as soon as it is made, so the peak is
+    the stack plus one layer (a ``torch.stack`` over a list of layers holds
+    every layer twice)."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((count,) + tuple(t.shape))
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k, v in src.items():
+                put(dst[k], v, i)
+        else:
+            dst[i].copy_(src)
+
+    tree = make()
+    out = alloc(tree)
+    for i in range(count):
+        if i:
+            tree = make()
+        put(out, tree, i)
+        del tree
+    return out
 
 
 def layer_slice(tree, i: int):
     """Layer ``i`` of a stacked nested dict (views): the inverse of
-    :func:`stack_params`."""
+    :func:`stack_layers`."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     return tree[i]

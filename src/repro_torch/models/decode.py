@@ -1,5 +1,5 @@
-"""Serving path: cache construction, single-token decode, and seeding a
-cache from a ``prefill_kv`` plan's outputs.
+"""Serving path: cache construction, single-token decode, the sequential
+prefill, and seeding a cache from a ``prefill_kv`` plan's outputs.
 
 The port of the reference's ``models/decode.py`` for attention (with an
 mlp or a mixture-of-experts), rwkv and mamba blocks.  The cache is a dict
@@ -12,8 +12,14 @@ state ``b{i}_state`` (count, B, heads, N, P) and conv inputs ``b{i}_conv``
 immutable, every function here writes the cache **in place** (``copy_``
 into every leaf) and returns the same dict: a CUDA graph of the step
 (:class:`DecodeGraph`) replays into the same buffers.
-Ring-buffer local caches, int8 KV and TP-replicated KV heads wait for the
-gemma3 slice.
+
+``init_cache`` builds the reference's three cache variants too:
+``ring_local`` gives sliding-window layers a ring of ``window`` slots
+(position p at slot ``p % window``; gemma3's local layers), ``quantize_kv``
+int8 K/V with per-(position, head) bfloat16 abs-max scales ``b{i}_ksc`` /
+``b{i}_vsc`` (count, B, S, KV, 1), ``kv_repeat_to`` K/V heads replicated
+up to that count.  The decode step reads each layer's slot count off its
+own leaf, so ring and full-length leaves mix in one step.
 """
 from __future__ import annotations
 
@@ -43,15 +49,19 @@ def init_cache(model: LM, batch: int, max_seq: int, *, device=None,
                ring_local: bool = False, kv_repeat_to: int = 0,
                quantize_kv: bool = False) -> dict:
     """Zeroed caches for every block, on ``device`` (the card unless the
-    caller names another): full-length K/V for attention blocks, the
-    recurrent leaves for rwkv and mamba blocks."""
-    if ring_local or kv_repeat_to or quantize_kv:
-        raise NotImplementedError(
-            "ring-buffer, int8 and replicated-KV caches are not ported yet "
-            "(ROADMAP §1, the gemma3 slice)")
+    caller names another): K/V for attention blocks (a ring of ``window``
+    slots for a sliding-window layer under ``ring_local``; int8 with
+    bfloat16 scales under ``quantize_kv``; ``kv_repeat_to`` heads where
+    that is more than the model's), the recurrent leaves for rwkv and
+    mamba blocks."""
     dev = resolve_device(device)
     cfg = model.cfg
     _, kv, d = _attn_dims(cfg)
+    if kv_repeat_to and kv_repeat_to > kv:
+        if kv_repeat_to % kv:
+            raise ValueError(f"kv_repeat_to {kv_repeat_to} is no multiple "
+                             f"of the {kv} KV heads")
+        kv = kv_repeat_to
 
     def zeros(shape, dtype=model.dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -62,8 +72,17 @@ def init_cache(model: LM, batch: int, max_seq: int, *, device=None,
         for i, blk in enumerate(g.blocks):
             lead = (g.count, batch)
             if blk.kind in ("attn_mlp", "attn_moe", "shared_attn"):
-                gc[f"b{i}_k"] = zeros(lead + (max_seq, kv, d))
-                gc[f"b{i}_v"] = zeros(lead + (max_seq, kv, d))
+                s_alloc = max_seq
+                if ring_local and blk.window and blk.window < max_seq:
+                    s_alloc = blk.window
+                kv_dt = torch.int8 if quantize_kv else model.dtype
+                gc[f"b{i}_k"] = zeros(lead + (s_alloc, kv, d), kv_dt)
+                gc[f"b{i}_v"] = zeros(lead + (s_alloc, kv, d), kv_dt)
+                if quantize_kv:
+                    gc[f"b{i}_ksc"] = zeros(lead + (s_alloc, kv, 1),
+                                            torch.bfloat16)
+                    gc[f"b{i}_vsc"] = zeros(lead + (s_alloc, kv, 1),
+                                            torch.bfloat16)
             if blk.kind in ("mamba", "shared_attn"):
                 ei = cfg.expand * cfg.d_model
                 gc[f"b{i}_state"] = zeros(
@@ -85,9 +104,14 @@ def init_cache(model: LM, batch: int, max_seq: int, *, device=None,
 # single-token decode
 # --------------------------------------------------------------------------
 
-def _decode_attn(p, x, ck, cv, cfg: ModelConfig, window: int, step: dict):
+def _decode_attn(p, x, ck, cv, cfg: ModelConfig, window: int, step: dict,
+                 *, ring: bool = False, ksc=None, vsc=None):
     """x: (B, 1, E); ck/cv: one layer's (B, S, KV, D) cache, written in
-    place at each slot's own position ``step["pos"]``."""
+    place at each row's own position ``step["pos"]`` — at slot ``pos % S``
+    in a ring (``ring``), which holds the last S positions and needs no
+    window mask.  With int8 caches, ``ksc`` / ``vsc`` (B, S, KV, 1) take
+    the new entries' scales at the same slot.  S is this layer's own, read
+    off its leaf: a ring and a full-length layer may share the step."""
     h, kvh, d = _attn_dims(cfg)
     q = A.project_q(p, x, h, d)
     k, v = A.project_kv(p, x, kvh, d)
@@ -96,26 +120,44 @@ def _decode_attn(p, x, ck, cv, cfg: ModelConfig, window: int, step: dict):
         k = rmsnorm(k, p["k_norm"])
     q = rope_apply(q, step["cos"], step["sin"])
     k = rope_apply(k, step["cos"], step["sin"])
+    if ck.shape[2] > kvh:                   # a replicated-KV cache
+        reps = ck.shape[2] // kvh
+        k = k.repeat_interleave(reps, dim=2)
+        v = v.repeat_interleave(reps, dim=2)
     rows, pos = step["rows"], step["pos"]
-    ck[rows, pos] = k[:, 0].to(ck.dtype)
-    cv[rows, pos] = v[:, 0].to(cv.dtype)
-    valid = step["valid"]
-    if window and window > 0:
-        valid = valid & (step["keys"][None, :] > (pos - window)[:, None])
-    return A.out_project(p, A.decode_attend_gqa(q, ck, cv, valid))
+    s_alloc = ck.shape[1]
+    slot = pos % s_alloc if ring else pos
+    if ksc is not None:
+        k, k_s = A.quantize_kv(k)
+        v, v_s = A.quantize_kv(v)
+        ksc[rows, slot] = k_s[:, 0]
+        vsc[rows, slot] = v_s[:, 0]
+    ck[rows, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    keys = step["keys"][s_alloc]
+    valid = keys[None, :] < (pos + 1).clamp(max=s_alloc)[:, None]
+    if window and window > 0 and not ring:
+        valid = valid & (keys[None, :] > (pos - window)[:, None])
+    return A.out_project(p, A.decode_attend_gqa(q, ck, cv, valid,
+                                                k_scale=ksc, v_scale=vsc))
 
 
 def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, root, x, lc,
-                  step):
+                  step, ring_local: bool = False):
     """One block of the decode step.  ``p`` holds the layer's parameters,
     ``root`` the whole tree (the hybrid's shared attention reads
     ``root["shared"]``); ``lc`` the layer's cache leaves, each written in
-    place."""
+    place.  Under ``ring_local`` a windowed block whose leaf holds exactly
+    ``window`` slots decodes as a ring, as the reference decides."""
     pre = f"b{i}"
     if blk.kind in ("attn_mlp", "attn_moe") and not blk.cross:
         h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
+        ring = bool(ring_local and blk.window
+                    and lc[f"{pre}_k"].shape[1] == blk.window)
         x = x + _decode_attn(p[f"{pre}_attn"], h, lc[f"{pre}_k"],
-                             lc[f"{pre}_v"], cfg, blk.window, step)
+                             lc[f"{pre}_v"], cfg, blk.window, step,
+                             ring=ring, ksc=lc.get(f"{pre}_ksc"),
+                             vsc=lc.get(f"{pre}_vsc"))
         h = rmsnorm(x, p[f"{pre}_ln2"]["scale"])
         if blk.kind == "attn_moe":
             # capacity dispatch at s = 1: cap 8 a row, never drops
@@ -149,41 +191,39 @@ def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, root, x, lc,
             sp = root["shared"]
             h = rmsnorm(x, sp["ln1"]["scale"])
             x = x + _decode_attn(sp["attn"], h, lc[f"{pre}_k"],
-                                 lc[f"{pre}_v"], cfg, 0, step)
+                                 lc[f"{pre}_v"], cfg, 0, step,
+                                 ksc=lc.get(f"{pre}_ksc"),
+                                 vsc=lc.get(f"{pre}_vsc"))
             h = rmsnorm(x, sp["ln2"]["scale"])
             x = x + F.mlp_fused(sp["mlp"], h, gated=cfg.gated, act=cfg.act)
         return x
     raise NotImplementedError(f"block {blk} is not ported yet")
 
 
-def _seq_alloc(cache) -> int:
-    """The sequence length of the cache's K/V leaves (0 without any)."""
-    for gc in cache.values():
-        for key, leaf in gc.items():
-            if key.endswith("_k"):
-                return leaf.shape[2]
-    return 0
-
-
 @torch.inference_mode()
-def decode_step_batched(model: LM, params, cache, tokens, indices):
+def decode_step_batched(model: LM, params, cache, tokens, indices, *,
+                        ring_local: bool = False):
     """Continuous-batching decode: one token per batch slot at a per-slot
     position.  tokens: (B, 1) int; indices: (B,) int — slot b decodes
-    position ``indices[b]``: its K/V land there and it attends to
-    positions ``<= indices[b]``; its recurrent state advances one step.
-    Returns (logits (B, 1, V), cache), the cache updated in place.  The
+    position ``indices[b]``: its K/V land there (at ``indices[b] % W`` in a
+    ring of W slots under ``ring_local``) and it attends to positions
+    ``<= indices[b]``; its recurrent state advances one step.  Returns
+    (logits (B, 1, V), cache), the cache updated in place.  The
     reference's ``vmap`` over ``decode_step`` becomes this batch dimension
     written out."""
     cfg = model.cfg
     pos = indices.to(device=tokens.device, dtype=torch.long)
-    s_alloc = _seq_alloc(cache)
-    keys = torch.arange(s_alloc, device=tokens.device)
     cos, sin = rope_tables(pos[:, None], cfg.resolved_head_dim,
                            theta=cfg.rope_theta)
+    # key positions for each slot count the K/V leaves hold (a ring's
+    # window, the full length)
+    lens = {leaf.shape[2] for gc in cache.values()
+            for key, leaf in gc.items() if key.endswith("_k")}
     step = {"pos": pos, "rows": torch.arange(pos.shape[0],
                                              device=tokens.device),
-            "cos": cos, "sin": sin, "keys": keys,
-            "valid": keys[None, :] < (pos + 1).clamp(max=s_alloc)[:, None]}
+            "cos": cos, "sin": sin,
+            "keys": {n: torch.arange(n, device=tokens.device)
+                     for n in lens}}
     x = E.embed(params["embed"], tokens.long(),
                 scale=cfg.embed_scale).to(model.dtype)
     for g in model.groups:
@@ -191,7 +231,8 @@ def decode_step_batched(model: LM, params, cache, tokens, indices):
         for layer in range(g.count):
             lp, lc = layer_slice(gp, layer), layer_slice(gc, layer)
             for i, blk in enumerate(g.blocks):
-                x = _decode_block(cfg, blk, i, lp, params, x, lc, step)
+                x = _decode_block(cfg, blk, i, lp, params, x, lc, step,
+                                  ring_local)
     x = rmsnorm(x, params["final_norm"]["scale"])
     logits = E.mask_padded_logits(E.unembed(params["embed"], x), cfg.vocab)
     return logits, cache
@@ -240,12 +281,31 @@ class DecodeGraph:
         return self.logits
 
 
-def decode_step(model: LM, params, cache, tokens, index):
+def decode_step(model: LM, params, cache, tokens, index, *,
+                ring_local: bool = False):
     """tokens: (B, 1) int; index: the position every row decodes.
     Returns (logits (B, 1, V), cache), the cache updated in place."""
     idx = torch.full((tokens.shape[0],), int(index), dtype=torch.long,
                      device=tokens.device)
-    return decode_step_batched(model, params, cache, tokens, idx)
+    return decode_step_batched(model, params, cache, tokens, idx,
+                               ring_local=ring_local)
+
+
+def prefill(model: LM, params, tokens, max_seq: int, *,
+            ring_local: bool = False):
+    """Sequential prefill through the decode step, one position at a time
+    (the reference's small-scale serving example; the throughput prefill
+    is the planned forward).  tokens: (B, S) int on the cache's device.
+    Returns (the last position's logits (B, 1, V), the cache)."""
+    b, s = tokens.shape
+    cache = init_cache(model, b, max_seq, device=tokens.device,
+                       ring_local=ring_local)
+    logits = None
+    for t in range(s):
+        logits, cache = decode_step(model, params, cache,
+                                    tokens[:, t:t + 1], t,
+                                    ring_local=ring_local)
+    return logits, cache
 
 
 def attn_block_indices(group) -> list:
@@ -267,9 +327,10 @@ def seed_cache_from_prefill(model: LM, cache, kv_groups, prompt_len: int, *,
     for g, kv_g in zip(model.groups, kv_groups):
         gc = cache[g.name]
         for bi, (k, v) in zip(attn_block_indices(g), kv_g):
-            if gc[f"b{bi}_k"].shape[2] < prompt_len:
-                raise ValueError("prefill_kv seeding needs full-length "
-                                 "caches")
+            if f"b{bi}_ksc" in gc or gc[f"b{bi}_k"].shape[2] < prompt_len:
+                raise ValueError(
+                    "prefill_kv seeding needs full-length, unquantized "
+                    "caches (no ring_local/quantize_kv)")
             for key, val in ((f"b{bi}_k", k), (f"b{bi}_v", v)):
                 leaf = gc[key]
                 val = val[:, :, :prompt_len].to(leaf.dtype)

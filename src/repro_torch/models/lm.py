@@ -1,7 +1,8 @@
 """Config-driven language model: the logical plan for the planner (prefill,
 ``prefill_kv`` and training shapes) and its parameters.
 
-The port of the reference's ``models/lm.py`` for the ``dense`` (qwen3-0.6b),
+The port of the reference's ``models/lm.py`` for the ``dense`` (qwen3-0.6b,
+deepseek-7b, stablelm-12b, gemma3-27b with its 5:1 local:global windows),
 ``moe`` (dbrx-132b, llama4-maverick: attention + mixture-of-experts blocks),
 ``rwkv`` (rwkv6-3b) and ``hybrid`` (zamba2-7b: mamba blocks and a
 weight-shared attention block) families.  The plan builders are the
@@ -27,7 +28,7 @@ from ..layers import mamba as M
 from ..layers import mlp as F
 from ..layers import moe as X
 from ..layers import rwkv as R
-from ..layers.common import stack_params, torch_dtype
+from ..layers.common import stack_layers, torch_dtype
 
 CATALOG = standard_catalog()
 # the parameters the layers cast to the activation dtype at every call
@@ -199,13 +200,12 @@ class LM:
         if cfg.family == "hybrid":
             params["shared"] = _init_shared(gen, cfg, self.pdtype)
         for g in self.groups:
-            layers = []
-            for _ in range(g.count):
+            def layer(g=g):
                 lp: dict = {}
                 for i, blk in enumerate(g.blocks):
                     lp.update(_init_block(gen, cfg, blk, i, self.pdtype))
-                layers.append(lp)
-            params[g.name] = stack_params(layers)
+                return lp
+            params[g.name] = stack_layers(layer, g.count)
         params["final_norm"] = {"scale": torch.zeros(
             (cfg.d_model,), dtype=self.pdtype, device=gen.device)}
         return params

@@ -195,8 +195,17 @@ def test_init_cache_layout(models):
         for key in jc[g]:
             assert tuple(tc[g][key].shape) == jc[g][key].shape
             assert not tc[g][key].any()
-    with pytest.raises(NotImplementedError):
-        tdec.init_cache(tm, 1, 8, device="cpu", quantize_kv=True)
+    # int8 K/V with bfloat16 scales: the reference's leaves and dtypes
+    jq = jdec.init_cache(jm, 1, 8, quantize_kv=True)
+    tq = tdec.init_cache(tm, 1, 8, device="cpu", quantize_kv=True)
+    for g in jq:
+        assert tq[g].keys() == jq[g].keys()
+        for key in jq[g]:
+            assert tuple(tq[g][key].shape) == jq[g][key].shape
+            assert str(tq[g][key].dtype).split(".")[1] == \
+                str(jq[g][key].dtype)
+    assert tq["layers_0"]["b0_k"].dtype == torch.int8
+    assert tq["layers_0"]["b0_ksc"].dtype == torch.bfloat16
 
 
 def test_decode_step_matches_reference(models, rng):

@@ -309,6 +309,50 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      below 0.08, ``tests/test_integration.py``'s bound; the K/V leaves'
      bytes, int8 with scales against bf16;
 
+  ``llava_forward`` and ``seamless_forward`` (the vlm and encdec families'
+  planned forward and decode step, slice 14), each in turn:
+
+ 27h. data    — llava-next-34b at full width and depth (60 layers, d_model
+     7168, 56 / 8 heads of 128, d_ff 20480, untied vocab 64,000, a
+     576-token vision-stub prefix): the bf16 inference tree streamed from
+     a seeded generator on the card (``LM.init_inference_params``: each
+     layer cast as it is stacked, 70.6 GB with the float32 tables; the
+     float32 tree would be 137.6 GB); parameter count, bytes, seconds,
+     peak memory; the runtime and ``serve_sequential`` refuse the model
+     (``'frontend_embeds'``);
+ 27i. main    — the planned ``prefill`` forward at 4 x 2048 (576 frontend
+     embeddings from ``synth_batch`` + 1,472 text tokens, engines xla +
+     pallas): one ``concat_seq``, flash on the layer's attention; flash
+     launches exactly 60 (counts set to 0 just before it), finite logits,
+     a second plan a plan-cache hit, the wall of 3 forwards;
+ 27j. decode  — a 64-token text prompt at 4 slots through ``prefill()``
+     (``frontend_embeds`` accepted and ignored, as the reference), then
+     16 greedy steps through ``DecodeGraph``, each step's logits bitwise
+     the eager ``decode_step_batched``'s; graph and eager step times;
+ 27k. kernel  — flash on the forward's recorded arguments (GQA 7: 56 / 8
+     heads) against its plain version, timed as in phase 27c, and the
+     "GQA 7" edge case at a ragged 1,000;
+ 27l. check   — once the tree is freed, float32 at full width and 2
+     layers: the kernel plan against the ``("xla",)`` plan at 4 x 2048
+     (2 launches against 0), and against the port's plain path on the
+     CPU at 1 x 640: logits within 2e-3 of the largest |logit|;
+ 27m. data    — seamless-m4t-medium at full width and depth (12 encoder
+     and 12 decoder layers, d_model 1024, 16 heads of 64, vocab 256,206):
+     float32 parameters and their bf16 cast; the refusal as in 27h;
+ 27n. main    — the planned forward at 4 x 1024 (encoder frames and
+     decoder tokens of equal length): flash launches exactly 24 (12
+     non-causal in the encoder, 12 causal in the decoder),
+     ``cross_attention_xla`` 12 calls of the plain attention launching no
+     kernel, finite logits, a plan-cache hit, the wall of 3 forwards;
+ 27o. decode  — 16 ``DecodeGraph`` steps at 4 slots from position 0,
+     bitwise the eager step; the cross leaves and the encoder's K/V stay
+     zero (nothing writes them, as in the reference);
+ 27p. kernel  — flash on the encoder's and the decoder's recorded
+     arguments, and the "non-causal d 64 ragged" edge case;
+ 27q. check   — the float32 forward at full depth: the kernel plan
+     against the ``("xla",)`` plan at 4 x 1024 and against the CPU at 1 x
+     128, within 2e-3 of the largest |logit|;
+
   ``multi_query`` (many analysts over one tri-store, and the resilience
   layer, slice 12):
 
@@ -402,7 +446,8 @@ the paths above:
 ``--paths a,b`` runs only the named paths (``[time]`` lines name them).
 With ``--profile`` it also runs each path's default plan (a second
 serve of the qwen3, dbrx and dense traces on the same runtime; for each
-recurrent family a serve of one request of 100 prompt tokens) once under
+recurrent family a serve of one request of 100 prompt tokens; llava's
+and seamless's forward) once under
 ``torch.profiler`` and prints the device time of the 15 costliest kernels
 and the device's idle share of that run.
 
@@ -510,11 +555,13 @@ from repro_torch.kernels.masked_kernels import (  # noqa: E402
     masked_segment_agg, masked_segment_agg_plain, masked_tfidf,
     masked_tfidf_plain)
 from repro_torch.core.plan_cache import PlanCache  # noqa: E402
+from repro_torch.data import DataConfig, synth_batch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import CATALOG  # noqa: E402
 from repro_torch.models.decode import (DecodeGraph,  # noqa: E402
                                        decode_step, decode_step_batched,
-                                       init_cache, seed_cache_from_prefill)
+                                       init_cache, prefill,
+                                       seed_cache_from_prefill)
 from repro_torch.serving import (AnalysisRequest,  # noqa: E402
                                  AsyncServingRuntime, DegradePolicy,
                                  ServeRequest, bucket_len, serve_sequential)
@@ -616,6 +663,18 @@ RING = {"prompt_len": 2000, "steps": 32, "max_seq": 2048}
 RING_TOL = 2e-2
 INT8 = {"prompt_len": 256, "steps": 16, "max_seq": 512}
 INT8_REL_TOL = 0.08           # tests/test_integration.py's int8 bound
+# llava_forward / seamless_forward: the vlm and encdec families' planned
+# forward at full width (llava: 576 frontend tokens + 1,472 text tokens;
+# seamless: frames and tokens of equal length, as its plan ties them), a
+# float32 check at ref_layers (llava) against the xla plan and the CPU at
+# cpu_seq, and DecodeGraph steps at 4 slots (llava after a text prompt
+# replayed through prefill())
+LLAVA = {"arch": "llava-next-34b", "batch": 4, "seq": 2048, "cut": None,
+         "ref_layers": 2, "cpu_seq": 640, "prompt_len": 64, "steps": 16,
+         "max_seq": 128, "slots": 4}
+SEAMLESS = {"arch": "seamless-m4t-medium", "batch": 4, "seq": 1024,
+            "cpu_seq": 128, "steps": 16, "max_seq": 128, "slots": 4}
+FORWARD_RUNS = 3
 # multi_query: benchmarks/multi_query.py's 16 clients and programs (the
 # heavy one at its full iters=24) over hashtag_pulse's stores; the subplan
 # budget is budget_factor x the bytes a probe pass caches (room for all)
@@ -2232,16 +2291,21 @@ FLASH_EDGES = (
     ("head_dim 72", 1, 300, 300, 4, 2, 72, torch.bfloat16, True, 0, False),
     ("head_dim 112 GQA 6", 1, 300, 300, 12, 2, 112, torch.bfloat16, True, 0,
      False),
+    # llava-next-34b's odd group (56 / 8 heads) and seamless-m4t-medium's
+    # encoder (non-causal, head_dim 64), each at a ragged length
+    ("GQA 7", 1, 1000, 1000, 56, 8, 128, torch.bfloat16, True, 0, False),
+    ("non-causal d 64 ragged", 1, 1000, 1000, 16, 16, 64, torch.bfloat16,
+     False, 0, False),
 )
 
 
-def check_flash(dev, gen, cfg, batched_width) -> dict:
-    """flash_attention at the serving prefill's shapes (timed) and at the
-    edge cases; returns its JSON record (the served width at bucket
-    2048)."""
-    h, kvh, d = cfg.heads, cfg.kv_heads, cfg.resolved_head_dim
+def check_flash_edges(dev, gen, names, tag) -> float:
+    """The FLASH_EDGES cases named in ``names`` (every case for None)
+    against the plain version; returns the largest max abs error."""
     err = 0.0
     for name, b, sq, skv, hh, kk, dd, dt, causal, window, hm in FLASH_EDGES:
+        if names is not None and name not in names:
+            continue
         q, k, v = flash_inputs(gen, dev, b, sq, skv, hh, kk, dd, dt)
         e = flash_compare(q, k, v, causal=causal, window=window, hmajor=hm)
         if name == "fully-masked rows":
@@ -2252,10 +2316,19 @@ def check_flash(dev, gen, cfg, batched_width) -> dict:
                                        mean_v[:, None].expand(-1, 20, -1, -1),
                                        atol=FLASH_TOL[dt], rtol=FLASH_TOL[dt])
         err = max(err, e)
-        phase("serve-kernel", case=json.dumps(name), b=b, q_len=sq,
-              kv_len=skv, heads=hh, kv_heads=kk, head_dim=dd,
+        phase(tag, case=json.dumps(name), b=b, q_len=sq, kv_len=skv,
+              heads=hh, kv_heads=kk, head_dim=dd,
               dtype=str(dt).split(".")[1], causal=causal, window=window,
               max_abs_err=e)
+    return err
+
+
+def check_flash(dev, gen, cfg, batched_width) -> dict:
+    """flash_attention at the serving prefill's shapes (timed) and at the
+    edge cases; returns its JSON record (the served width at bucket
+    2048)."""
+    h, kvh, d = cfg.heads, cfg.kv_heads, cfg.resolved_head_dim
+    err = check_flash_edges(dev, gen, None, "serve-kernel")
     # each bucket of the trace at the served width (two prompts of the
     # bucket's length, two pad rows) and at batch 1, the warmup's shape
     lens_of = {}
@@ -2490,28 +2563,50 @@ def check_serve_ledger(rt):
 def check_decode_graph(model, params, dev, batch) -> dict:
     """The runtime's CUDA-graph decode step against the eager step on
     equal random caches, slots at different positions: logits and caches
-    bitwise equal.  Returns the two steps' CUDA-event medians."""
+    bitwise equal (:func:`graph_decode`, one step).  Returns the two
+    steps' CUDA-event medians."""
     params = model.inference_params(params)
-    cache = init_cache(model, batch, 512, device=dev)
-    graph = DecodeGraph(model, params, cache, batch)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for _key, leaf in _leaves(cache):
-        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev))
-    twin = {g: {k: v.clone() for k, v in gc.items()}
-            for g, gc in cache.items()}
+
+    def fill(cache):
+        for _key, leaf in _leaves(cache):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev))
+
     tok = torch.randint(0, model.cfg.vocab, (batch, 1), generator=gen,
                         device=dev)
     idx = torch.arange(batch, device=dev) * 100 + 7
-    got = graph(tok, idx).clone()
-    want, _ = decode_step_batched(model, params, twin, tok, idx)
-    check(torch.equal(got, want), "DecodeGraph logits differ from the "
-                                  "eager step's")
+    return graph_decode(model, params, dev, tok, idx, 1, 512, fill)[1]
+
+
+def graph_decode(model, params, dev, tok, idx, steps, max_seq,
+                 fill) -> tuple:
+    """A DecodeGraph over a fresh cache at ``tok``'s slots (built first:
+    building writes position 0), then ``fill(cache)`` writing every leaf
+    and a twin cloned; ``steps`` greedy steps from the slots' positions
+    ``idx``, each graph step's logits bitwise the eager
+    ``decode_step_batched``'s on the twin, and both caches bitwise equal
+    at the end.  Returns the graph's cache and the two steps' CUDA-event
+    medians."""
+    cache = init_cache(model, tok.shape[0], max_seq, device=dev)
+    graph = DecodeGraph(model, params, cache, tok.shape[0])
+    fill(cache)
+    twin = {g: {k: v.clone() for k, v in gc.items()}
+            for g, gc in cache.items()}
+    idx = idx.clone()
+    for t in range(steps):
+        got = graph(tok, idx).clone()
+        want, _ = decode_step_batched(model, params, twin, tok, idx)
+        check(torch.equal(got, want),
+              f"DecodeGraph step {t}: logits differ from the eager step's")
+        tok = got[:, 0, :model.cfg.vocab].argmax(-1, keepdim=True)
+        idx += 1
     check(all(torch.equal(cache[g][k], twin[g][k])
               for g in cache for k in cache[g]),
           "DecodeGraph cache writes differ from the eager step's")
-    return {"decode_graph_ms": cuda_ms(lambda: graph(tok, idx), reps=5),
-            "decode_eager_ms": cuda_ms(lambda: decode_step_batched(
-                model, params, twin, tok, idx), reps=5)}
+    res = {"decode_graph_ms": cuda_ms(lambda: graph(tok, idx), reps=5),
+           "decode_eager_ms": cuda_ms(lambda: decode_step_batched(
+               model, params, twin, tok, idx), reps=5)}
+    return cache, res
 
 
 def params_to(tree, device):
@@ -2583,12 +2678,13 @@ def cpu_subtrace(cfg, model32, params, syscat, dev, reqs, max_seq) -> dict:
 
 
 @contextlib.contextmanager
-def recording_shapes(module, name, calls, arg=0, kwarg=None):
+def recording_shapes(module, name, calls, arg=0, kwarg=None, counts=None):
     """Keep in ``calls`` the arguments of the first call of ``module.name``
     (a kernel wrapper or layer, under the name its caller uses) at each new
     shape of its argument ``arg`` (and each new value of its keyword
-    ``kwarg``, if given: flash attention's window): one planned prefill's
-    arguments per bucket, without holding every layer's."""
+    ``kwarg``, if given: flash attention's window or causal flag): one
+    planned prefill's arguments per bucket, without holding every layer's.
+    With ``counts`` (a Counter) every call adds one under its key."""
     wrapped = getattr(module, name)
 
     def record(*args, **kwargs):
@@ -2597,6 +2693,8 @@ def recording_shapes(module, name, calls, arg=0, kwarg=None):
             key += (kwargs.get(kwarg),)
         if key not in calls:
             calls[key] = (args, kwargs)
+        if counts is not None:
+            counts[key] += 1
         return wrapped(*args, **kwargs)
 
     setattr(module, name, record)
@@ -2829,54 +2927,60 @@ def check_recurrence(dev, gen, cfg, spec, calls) -> dict:
 
 def check_flash_calls(calls, path) -> dict:
     """flash_attention on the arguments a served model's planned prefill
-    gave it at each bucket and window (timed, beside
-    scaled_dot_product_attention, which takes a window as an explicit
-    boolean mask); ``ms`` one call, ``device_ms`` 64 calls in one CUDA
-    graph.  Returns its JSON record (the largest bucket, the largest
-    window)."""
+    gave it at each bucket and window (see :func:`flash_call_record`).
+    Returns the JSON record of the largest bucket and the largest
+    window."""
     err, record = 0.0, None
     order = sorted(calls.values(),
                    key=lambda c: (c[0][0].shape[1], c[1].get("window", 0)))
     for args, kwargs in order:
-        q, k, v = args
-        causal, window = kwargs.get("causal", True), kwargs.get("window", 0)
-        e = flash_compare(q, k, v, causal=causal, window=window)
-        err = max(err, e)
-        b, s, h, d = q.shape
-        kvh = k.shape[2]
-        call = lambda: flash_attention(  # noqa: E731
-            q, k, v, causal=causal, window=window)
-        ms = cuda_ms(call)
-        dev_ms, _via = device_ms(call)
-        plain_ms = cuda_ms(lambda: flash_attention_plain(
-            q, k, v, causal=causal, window=window))
-        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-        mask = (attention_mask(s, s, causal=causal, window=window,
-                               device=q.device)
-                if window and window < s else None)
-        lib_ms = cuda_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(
-                             qh, kh, vh, attn_mask=mask,
-                             is_causal=causal and mask is None,
-                             enable_gqa=True))
-        nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kvh * d)
-        nops = 4 * b * h * d * attention_pairs(s, s, causal, window)
-        bound_ms, bound_by = bound(nbytes, nops, BF16_FLOPS)
-        phase(f"{path}-kernel", name="flash_attention", b=b, seq=s,
-              heads=h, kv_heads=kvh, head_dim=d, window=window,
-              dtype=str(q.dtype).split(".")[1], max_abs_err=e, ms=ms,
-              device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-              bound_ms=bound_ms, bound_by=bound_by,
-              share_of_bound=bound_ms / dev_ms)
-        record = {"name": "flash_attention", "route": "cuda",
-                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                  "replaces": "src/repro/kernels/flash_attention/ops.py:110",
-                  "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "library_ms": lib_ms}
+        record = flash_call_record(args, kwargs, path)
+        err = max(err, record["max_abs_err"])
     check(record is not None, f"{path}: no flash_attention call recorded")
     record["max_abs_err"] = err
     return record
+
+
+def flash_call_record(args, kwargs, path) -> dict:
+    """flash_attention on one recorded call's arguments against its plain
+    version, timed beside scaled_dot_product_attention (which takes a
+    window as an explicit boolean mask); ``ms`` one call, ``device_ms`` 64
+    calls in one CUDA graph.  Returns its JSON record."""
+    q, k, v = args
+    causal, window = kwargs.get("causal", True), kwargs.get("window", 0)
+    e = flash_compare(q, k, v, causal=causal, window=window)
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    call = lambda: flash_attention(  # noqa: E731
+        q, k, v, causal=causal, window=window)
+    ms = cuda_ms(call)
+    dev_ms, _via = device_ms(call)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(
+        q, k, v, causal=causal, window=window))
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    mask = (attention_mask(s, s, causal=causal, window=window,
+                           device=q.device)
+            if window and window < s else None)
+    lib_ms = cuda_ms(lambda: torch.nn.functional
+                     .scaled_dot_product_attention(
+                         qh, kh, vh, attn_mask=mask,
+                         is_causal=causal and mask is None,
+                         enable_gqa=True))
+    nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kvh * d)
+    nops = 4 * b * h * d * attention_pairs(s, s, causal, window)
+    bound_ms, bound_by = bound(nbytes, nops, BF16_FLOPS)
+    phase(f"{path}-kernel", name="flash_attention", b=b, seq=s,
+          heads=h, kv_heads=kvh, head_dim=d, causal=causal, window=window,
+          dtype=str(q.dtype).split(".")[1], max_abs_err=e, ms=ms,
+          device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+          bound_ms=bound_ms, bound_by=bound_by,
+          share_of_bound=bound_ms / dev_ms)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/ops.py:110",
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "max_abs_err": e}
 
 
 def prefill_engines_agree(model32, params, syscat, dev, spec) -> float:
@@ -3800,6 +3904,382 @@ def dense_path(args, dev, syscat, arch) -> list:
     return [record]
 
 
+# -- phases 27h-27q: the vlm and encdec families' planned forward ---------
+
+
+def forward_inputs(cfg, batch, seq, dev, dtype) -> dict:
+    """The planned forward's inputs from ``synth_batch`` (seed SEED, step
+    0) on ``dev``: tokens, and ``frontend_embeds`` in ``dtype`` (the vlm's
+    prefix of ``frontend_tokens``, the encdec's frames of ``seq``)."""
+    batch_np = synth_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=SEED,
+        frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model,
+        encdec=cfg.family == "encdec", dtype=dtype), 0)
+    return {"tokens": torch.from_numpy(batch_np["tokens"]).to(dev),
+            "frontend_embeds": torch.from_numpy(
+                batch_np["frontend_embeds"]).to(
+                    dev, dtype=getattr(torch, dtype))}
+
+
+def planned(model, b, s, syscat, dev, engines, pc=False):
+    """The model's planned ``prefill`` forward at b x s on ``dev``."""
+    return plan_and_compile(model.build_plan(b, s, mode="prefill"), CATALOG,
+                            syscat, engines=engines, cache=pc, device=dev)
+
+
+def logits_agree(got, want, what) -> float:
+    """``got`` within LOGIT_TOL of the largest |want| everywhere; returns
+    the error relative to that scale."""
+    scale = float(want.abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= LOGIT_TOL * scale,
+          f"{what}: logits differ by {err} (largest |logit| {scale})")
+    return err / scale
+
+
+def check_refusal(model, params, dev) -> bool:
+    """The runtime and ``serve_sequential`` refuse a model whose forward
+    needs ``frontend_embeds``, naming the input, when they are built."""
+    for build_it in (
+            lambda: AsyncServingRuntime(model, params, device=dev),
+            lambda: serve_sequential(model, params,
+                                     [ServeRequest(0, (1, 2, 3), 2)],
+                                     device=dev)):
+        try:
+            build_it()
+        except ValueError as exc:
+            check("'frontend_embeds'" in str(exc), f"refusal: {exc}")
+        else:
+            check(False, f"{model.cfg.name}: the runtime was built")
+    return True
+
+
+def timed_forwards(fwd, params, inputs, runs) -> list:
+    """Host seconds of ``runs`` forwards, each ending in a device sync."""
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = fwd(params, inputs)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+        del logits
+    return out
+
+
+def llava_path(args, dev, syscat) -> list:
+    """Phases 27h-27l: llava-next-34b's planned forward at full width and
+    depth.  Returns the flash record."""
+    path = "llava_forward"
+    cfg = get_config(LLAVA["arch"])
+    model = build_model(cfg)
+    b, s = LLAVA["batch"], LLAVA["seq"]
+    # 27h. data: the bf16 inference tree, streamed from a seeded generator
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_inference_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    leaves = [t for _k, t in _leaves(params)]
+    phase("data", path=path, arch=cfg.name, family=cfg.family,
+          layers=cfg.n_layers, cut=json.dumps(LLAVA["cut"]),
+          d_model=cfg.d_model, heads=cfg.heads, kv_heads=cfg.kv_heads,
+          head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+          frontend_tokens=cfg.frontend_tokens,
+          params=sum(int(t.numel()) for t in leaves),
+          config_param_count=cfg.param_count(),
+          param_gb=round(sum(stored_bytes(t) for t in leaves) / 1e9, 3),
+          seconds=round(time.perf_counter() - t0, 3),
+          init_peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    del leaves
+    refused = check_refusal(model, params, dev)
+    inputs = forward_inputs(cfg, b, s, dev, cfg.dtype)
+
+    # 27i. main: the planned forward, flash's arguments recorded
+    pc = PlanCache()
+    fwd = planned(model, b, s, syscat, dev, ("xla", "pallas"), pc)
+    outer, inner = bucket_impls(fwd)
+    check(outer["concat_seq"] == 1 and inner["attn_flash_pallas"] == 1
+          and not {"sdpa_xla", "sdpa_banded_xla"} & set(inner),
+          f"{path}: impls {dict(outer)} {dict(inner)}")
+    flash_calls, per_key = {}, Counter()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_shapes(attention_layer, "flash_attention", flash_calls,
+                          kwarg="causal", counts=per_key):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        logits = fwd(params, inputs)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counted = kernels.launches()
+    check(tuple(logits.shape) == (b, s, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          f"{path}: logits {tuple(logits.shape)} not finite")
+    del logits
+    expected = launch_counts(flash_attention=cfg.n_layers)
+    check(counted == expected, f"{path} launches {counted} != {expected}")
+    s0 = pc.stats()
+    fwd = planned(model, b, s, syscat, dev, ("xla", "pallas"), pc)
+    s1 = pc.stats()
+    hits, misses = s1["hits"] - s0["hits"], s1["misses"] - s0["misses"]
+    check(hits == 1 and misses == 0, f"{path}: second plan {hits} hits, "
+                                     f"{misses} misses")
+    walls = timed_forwards(fwd, params, inputs, FORWARD_RUNS)
+    phase("main", path=path, b=b, seq=s, plan_id=fwd.plan_id[:12],
+          impls=json.dumps(dict(outer)), layer_impls=json.dumps(dict(inner)),
+          launches=json.dumps({k: v for k, v in counted.items() if v}),
+          first_s=round(first_s, 4), forward_s=json.dumps(
+              [round(w, 4) for w in walls]),
+          plan_hits_second_call=hits, refused_by_runtime=refused,
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    if args.profile:
+        profile_call(lambda: fwd(params, inputs), path)
+
+    # 27j. decode: a text prompt through prefill(), then greedy steps
+    t0 = time.perf_counter()
+    n = LLAVA["prompt_len"]
+    prompt = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (LLAVA["slots"], n))).to(dev)
+    last, pcache = prefill(model, params, prompt, LLAVA["max_seq"],
+                           frontend_embeds=inputs["frontend_embeds"])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = last[:, 0, :cfg.vocab].argmax(-1, keepdim=True)
+    idx = torch.full((LLAVA["slots"],), n, dtype=torch.long, device=dev)
+
+    def from_prefill(cache):
+        for g, gc in cache.items():
+            for key, leaf in gc.items():
+                leaf.copy_(pcache[g][key])
+
+    cache, steps = graph_decode(model, params, dev, tok, idx, LLAVA["steps"],
+                                LLAVA["max_seq"], from_prefill)
+    del cache, pcache, last
+    phase("decode", path=path, slots=LLAVA["slots"], prompt=n,
+          steps=LLAVA["steps"], prefill_replay_s=round(prefill_s, 3),
+          graph_bitwise_eager=True, **steps,
+          weight_read_ms=sum(stored_bytes(t) for _k, t in _leaves(params))
+          / HBM_BYTES_PER_S * 1e3)
+    del params, fwd, inputs
+    free_memory()
+
+    # 27k. kernel: flash on the recorded arguments and at its edge case
+    ((key, (fargs, fkw)),) = flash_calls.items()
+    record = flash_call_record(fargs, fkw, path)
+    record["launches"] = per_key[key]
+    record["path"] = path
+    record["max_abs_err"] = max(record["max_abs_err"], check_flash_edges(
+        dev, torch.Generator(device=dev).manual_seed(SEED), ("GQA 7",),
+        f"{path}-kernel"))
+    del flash_calls, fargs
+    free_memory()
+
+    # 27l. check: float32 at full width and reduced depth, the kernel plan
+    # against the plain ("xla",) plan, and against the CPU at a shorter
+    # length
+    t0 = time.perf_counter()
+    model32 = build_model(cfg.replace(n_layers=LLAVA["ref_layers"],
+                                      dtype="float32"))
+    params32 = model32.init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    res = check_f32_forward(model32, params32, syscat, dev, b, s,
+                            LLAVA["cpu_seq"], path)
+    del params32
+    free_memory()
+    phase("check", path=path, ref_layers=LLAVA["ref_layers"], **res,
+          seconds=round(time.perf_counter() - t0, 1))
+    return [record]
+
+
+def check_f32_forward(model32, params32, syscat, dev, b, s, cpu_seq,
+                      path) -> dict:
+    """The float32 forward planned with the kernel slot against the
+    ``("xla",)`` plan at b x s on the card (flash on every self-attention
+    node against none), and against the port's plain path on the CPU at 1
+    x ``cpu_seq``: logits within LOGIT_TOL of the largest |logit|."""
+    cfg = model32.cfg
+    inputs = forward_inputs(cfg, b, s, dev, "float32")
+    out, launched = {}, {}
+    for engines in (("xla", "pallas"), ("xla",)):
+        fwd = planned(model32, b, s, syscat, dev, engines)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out[engines] = fwd(params32, inputs)[..., :cfg.vocab]
+        torch.cuda.synchronize()
+        launched[engines] = kernels.launches()["flash_attention"]
+    attn = sum(g.count * len(g.blocks) for g in model32.groups)
+    check(launched[("xla", "pallas")] == attn and launched[("xla",)] == 0,
+          f"{path} float32 launches {launched}")
+    rel_xla = logits_agree(out[("xla", "pallas")], out[("xla",)],
+                           f"{path} float32 kernel against xla")
+    del out, inputs
+    torch.cuda.empty_cache()
+    card_in = forward_inputs(cfg, 1, cpu_seq, dev, "float32")
+    cpu_in = {k: v.cpu() for k, v in card_in.items()}
+    card = planned(model32, 1, cpu_seq, syscat, dev, ("xla", "pallas"))(
+        params32, card_in)[..., :cfg.vocab].cpu()
+    t0 = time.perf_counter()
+    params_cpu = params_to(params32, "cpu")
+    cpu = planned(model32, 1, cpu_seq, syscat, "cpu", ("xla", "pallas"))(
+        params_cpu, cpu_in)[..., :cfg.vocab]
+    cpu_s = time.perf_counter() - t0
+    rel_cpu = logits_agree(card, cpu, f"{path} float32 card against CPU")
+    return {"f32_kernel_vs_xla_rel_err": rel_xla,
+            "f32_card_vs_cpu_rel_err": rel_cpu, "cpu_seq": cpu_seq,
+            "cpu_s": round(cpu_s, 2), "f32_flash_launches": launched[
+                ("xla", "pallas")]}
+
+
+def seamless_path(args, dev, syscat) -> list:
+    """Phases 27m-27q: seamless-m4t-medium's planned forward at full width
+    and depth.  Returns the flash records (encoder, decoder)."""
+    path = "seamless_forward"
+    cfg = get_config(SEAMLESS["arch"])
+    model = build_model(cfg)
+    b, s = SEAMLESS["batch"], SEAMLESS["seq"]
+    # 27m. data: float32 parameters (the float32 check reads them) and
+    # their bf16 inference cast
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params32 = model.init_params(torch.Generator(device=dev).manual_seed(
+        SEED))
+    params = model.inference_params(params32)
+    torch.cuda.synchronize()
+    leaves = [t for _k, t in _leaves(params32)]
+    phase("data", path=path, arch=cfg.name, family=cfg.family,
+          enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers,
+          d_model=cfg.d_model, heads=cfg.heads, kv_heads=cfg.kv_heads,
+          head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+          params=sum(int(t.numel()) for t in leaves),
+          config_param_count=cfg.param_count(),
+          param_gb=round(sum(stored_bytes(t) for t in leaves) / 1e9, 3),
+          seconds=round(time.perf_counter() - t0, 3),
+          init_peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    del leaves
+    refused = check_refusal(model, params, dev)
+    inputs = forward_inputs(cfg, b, s, dev, cfg.dtype)
+
+    # 27n. main: the planned forward; flash's arguments recorded by causal
+    # flag; the cross-attention's plain attention counted, with the
+    # kernels it launches
+    pc = PlanCache()
+    fwd = planned(model, b, s, syscat, dev, ("xla", "pallas"), pc)
+    outer, inner = bucket_impls(fwd)
+    check(inner["attn_flash_pallas"] == 2
+          and inner["cross_attention_xla"] == 1
+          and not {"sdpa_xla", "sdpa_banded_xla"} & set(inner),
+          f"{path}: impls {dict(outer)} {dict(inner)}")
+    flash_calls, per_key, cross = {}, Counter(), Counter()
+    plain = attention_layer.sdpa_full
+
+    def counted_sdpa(*a, **kw):
+        before = kernels.launches()
+        out = plain(*a, **kw)
+        cross["calls"] += 1
+        cross["kernel_launches"] += sum(
+            kernels.launches().values()) - sum(before.values())
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    attention_layer.sdpa_full = counted_sdpa
+    try:
+        with recording_shapes(attention_layer, "flash_attention",
+                              flash_calls, kwarg="causal", counts=per_key):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            logits = fwd(params, inputs)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counted = kernels.launches()
+    finally:
+        attention_layer.sdpa_full = plain
+    check(tuple(logits.shape) == (b, s, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          f"{path}: logits {tuple(logits.shape)} not finite")
+    del logits
+    expected = launch_counts(flash_attention=cfg.enc_layers + cfg.dec_layers)
+    check(counted == expected, f"{path} launches {counted} != {expected}")
+    by_causal = {causal: n for (*_shape, causal), n in per_key.items()}
+    check(by_causal == {False: cfg.enc_layers, True: cfg.dec_layers},
+          f"{path}: flash launches by causal flag {by_causal}")
+    check(cross == Counter({"calls": cfg.dec_layers}),
+          f"{path}: cross-attention {dict(cross)}")
+    s0 = pc.stats()
+    fwd = planned(model, b, s, syscat, dev, ("xla", "pallas"), pc)
+    s1 = pc.stats()
+    hits, misses = s1["hits"] - s0["hits"], s1["misses"] - s0["misses"]
+    check(hits == 1 and misses == 0, f"{path}: second plan {hits} hits, "
+                                     f"{misses} misses")
+    walls = timed_forwards(fwd, params, inputs, FORWARD_RUNS)
+    phase("main", path=path, b=b, seq=s, plan_id=fwd.plan_id[:12],
+          impls=json.dumps(dict(outer)), layer_impls=json.dumps(dict(inner)),
+          launches=json.dumps({k: v for k, v in counted.items() if v}),
+          flash_by_causal=json.dumps({str(k): v
+                                      for k, v in by_causal.items()}),
+          cross_attention_calls=cross["calls"],
+          cross_attention_kernel_launches=cross["kernel_launches"],
+          first_s=round(first_s, 4), forward_s=json.dumps(
+              [round(w, 4) for w in walls]),
+          plan_hits_second_call=hits, refused_by_runtime=refused,
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    if args.profile:
+        profile_call(lambda: fwd(params, inputs), path)
+    del fwd, inputs
+
+    # 27o. decode: DecodeGraph over the cross leaves, which stay zero
+    tok = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (SEAMLESS["slots"], 1))).to(dev)
+    idx = torch.zeros((SEAMLESS["slots"],), dtype=torch.long, device=dev)
+
+    def zeros(cache):
+        for _key, leaf in _leaves(cache):
+            leaf.zero_()
+
+    cache, steps = graph_decode(model, params, dev, tok, idx,
+                                SEAMLESS["steps"], SEAMLESS["max_seq"], zeros)
+    untouched = [f"{g}/{k}" for g, gc in cache.items() for k, leaf in
+                 gc.items() if (g.startswith("enc") or "_x" in k)
+                 and bool(leaf.any())]
+    check(not untouched, f"{path}: written leaves {untouched}")
+    check(bool(cache["dec_0"]["b0_k"].any()), f"{path}: no K written")
+    del cache
+    phase("decode", path=path, slots=SEAMLESS["slots"],
+          steps=SEAMLESS["steps"], graph_bitwise_eager=True,
+          cross_and_encoder_leaves_zero=True, **steps)
+    del params
+    free_memory()
+
+    # 27p. kernel: flash on the encoder's and the decoder's arguments
+    records = []
+    for key, (fargs, fkw) in sorted(flash_calls.items(),
+                                    key=lambda kv: kv[0][-1]):
+        sub = f"{path}/{'decoder' if key[-1] else 'encoder'}"
+        record = flash_call_record(fargs, fkw, sub)
+        record["launches"] = per_key[key]
+        record["path"] = sub
+        records.append(record)
+    records[0]["max_abs_err"] = max(records[0]["max_abs_err"],
+                                    check_flash_edges(
+        dev, torch.Generator(device=dev).manual_seed(SEED),
+        ("non-causal d 64 ragged",), f"{path}-kernel"))
+    del flash_calls
+    free_memory()
+
+    # 27q. check: the float32 forward, kernel plan against the xla plan
+    # and against the CPU
+    t0 = time.perf_counter()
+    model32 = build_model(cfg.replace(dtype="float32"))
+    res = check_f32_forward(model32, params32, syscat, dev, b, s,
+                            SEAMLESS["cpu_seq"], path)
+    del params32
+    free_memory()
+    phase("check", path=path, **res,
+          seconds=round(time.perf_counter() - t0, 1))
+    return records
+
+
 # -- phases 28-32: many analysts at once and the resilience layer ---------
 
 
@@ -4366,6 +4846,8 @@ def main(argv=None) -> int:
     paths.append(("dbrx_serve", dbrx_path))
     paths += [(spec["path"], lambda a, d, s, arch=arch: dense_path(
         a, d, s, arch)) for arch, spec in DENSE.items()]
+    paths += [("llava_forward", llava_path),
+              ("seamless_forward", seamless_path)]
     paths.append(("multi_query", multi_query_path))
     if args.paths:
         wanted = args.paths.split(",")

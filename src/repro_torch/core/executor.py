@@ -6,7 +6,7 @@ execution context, the impl table over the port's own engine registry (the
 generic and the language-model impls live here; the store impls register
 from ``repro_torch.stores.runtime``), the fast ``run_plan`` path, and
 :class:`PlannedFunction`, the staged plan bound to a device.  The LM impls
-cover the dense, moe, rwkv and hybrid families' prefill:
+cover every family's prefill (dense, moe, rwkv, hybrid, vlm, encdec):
 ``scan_layers_xla`` runs its subplan in a Python loop over the stacked
 per-layer parameters under ``torch.inference_mode()`` (``remat`` means
 nothing without a backward); ``attn_flash_pallas``, ``moe_gmm_pallas``,
@@ -14,7 +14,9 @@ nothing without a backward); ``attn_flash_pallas``, ``moe_gmm_pallas``,
 matmul, WKV6 and SSD kernels, ``moe_dense_onehot`` and ``moe_dropping``
 the capacity dispatch with einsum experts (cf 2.0 and 1.0),
 ``wkv6_scan_xla`` and ``ssd_chunked_xla`` the recurrences' chunked plain
-forms, ``sdpa_banded_xla`` the chunked local-window attention.
+forms, ``sdpa_banded_xla`` the chunked local-window attention,
+``concat_seq`` the vlm's frontend prefix and ``cross_attention_xla`` the
+encdec decoder's plain attention to the encoder's output.
 ``map`` / ``filter`` / ``reduce`` run ADIL's collection ops over a
 ``ListT`` value, a Python list of tensors (a ``filter`` predicate that
 reads a device value synchronizes with the host, as it must to decide).
@@ -259,6 +261,19 @@ def _i_outproj(ctx, args, node):
     return A.out_project(ctx.params_for(node), args[0])
 
 
+@impl("cross_attention_xla")
+def _i_xattn(ctx, args, node):
+    """The decoder's attention to the encoder's output: q from x, K/V from
+    ``memory``, no RoPE or qk-norm, full non-causal attention in plain
+    PyTorch (the reference computes it in XLA, outside any kernel)."""
+    x, mem = args
+    p = ctx.params_for(node)
+    h, k, d = _attn_cfg(node)
+    q = A.project_q(p, x, h, d)
+    kk, vv = A.project_kv(p, mem, k, d)
+    return A.out_project(p, A.sdpa_full(q, kk, vv, causal=False))
+
+
 @impl("ffn_up_xla")
 def _i_ffn_up(ctx, args, node):
     return F.ffn_up(ctx.params_for(node), args[0])
@@ -360,6 +375,14 @@ def _i_unembed(ctx, args, node):
     return out
 
 
+@impl("concat_seq")
+def _i_concat_seq(ctx, args, node):
+    """The vlm's frontend prefix before the text embeddings: ``a`` cast to
+    ``b``'s dtype, then joined along ``axis``."""
+    a, b = args
+    return torch.cat([a.to(b.dtype), b], dim=node.attrs.get("axis", 1))
+
+
 @impl("tuple_get_xla")
 def _i_tuple_get(ctx, args, node):
     return args[0][node.attrs["index"]]
@@ -368,7 +391,9 @@ def _i_tuple_get(ctx, args, node):
 @impl("scan_layers_xla")
 def _i_scan(ctx, args, node):
     """The reference's ``lax.scan`` over stacked layers as a Python loop.
-    With ``collect_kv`` each layer's emitting sdpa impls append (K, V) to a
+    Inputs after the carry (the encdec decoder's ``memory``) reach every
+    layer unchanged, bound to the subplan's later inputs.  With
+    ``collect_kv`` each layer's emitting sdpa impls append (K, V) to a
     fresh sink, stacked over layers to ``(layers, B, S, KV, D)`` — the
     decode cache layout; returns ``(carry, ((K, V), ...))`` then."""
     carry = args[0]

@@ -7,7 +7,9 @@ paged KV pool directly) — or, for the recurrent families (rwkv6-3b,
 zamba2-7b), through the planned ``prefill`` forward and a replay of the
 prompt through the decode step (``mode=replay``) — and decoded with
 continuous batching.  Runs on the card unless ``--device cpu``; without a
-card it raises.
+card it raises.  The vlm and encdec families (llava-next-34b,
+seamless-m4t-medium) are refused before their parameters are made: their
+forward needs ``frontend_embeds``, which no request carries.
 
 CPU-scale demo:
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu \
@@ -28,7 +30,7 @@ import torch
 from ..configs import get_config, get_smoke_config
 from ..core.executor import resolve_device
 from ..models import build_model
-from ..serving import AsyncServingRuntime, ServeRequest
+from ..serving import AsyncServingRuntime, ServeRequest, check_servable
 
 
 def make_trace(rng, cfg, n_requests: int, prompt_lens, gen: int,
@@ -75,6 +77,7 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.replace(dtype="float32")
     model = build_model(cfg)
+    check_servable(model)
     params = model.init_params(
         torch.Generator(device=dev).manual_seed(args.seed))
     rng = np.random.RandomState(args.seed)

@@ -2,14 +2,16 @@
 prefill, and seeding a cache from a ``prefill_kv`` plan's outputs.
 
 The port of the reference's ``models/decode.py`` for attention (with an
-mlp or a mixture-of-experts), rwkv and mamba blocks.  The cache is a dict
-``{group: {leaf: (count, B, ...)}}``, the reference's layout: attention
-K/V ``b{i}_k``, ``b{i}_v`` (count, B, S, KV, D) in the model's dtype; an
-rwkv block's float32 WKV state ``b{i}_state`` (count, B, H, D, D) and last
-inputs ``b{i}_last_tm``, ``b{i}_last_cm``; a mamba block's float32 SSD
-state ``b{i}_state`` (count, B, heads, N, P) and conv inputs ``b{i}_conv``
-(count, B, 3, inner + 2N).  Unlike the reference, whose JAX arrays are
-immutable, every function here writes the cache **in place** (``copy_``
+mlp or a mixture-of-experts, and the encdec decoder's cross-attention),
+rwkv and mamba blocks.  The cache is a dict ``{group: {leaf: (count, B,
+...)}}``, the reference's layout: attention K/V ``b{i}_k``, ``b{i}_v``
+(count, B, S, KV, D) in the model's dtype; an rwkv block's float32 WKV
+state ``b{i}_state`` (count, B, H, D, D) and last inputs ``b{i}_last_tm``,
+``b{i}_last_cm``; a mamba block's float32 SSD state ``b{i}_state`` (count,
+B, heads, N, P) and conv inputs ``b{i}_conv`` (count, B, 3, inner + 2N); a
+cross-attention block's K/V of the encoder's output ``b{i}_xk``,
+``b{i}_xv`` (count, B, S, KV, D).  Unlike the reference, whose JAX arrays
+are immutable, every function here writes the cache **in place** (``copy_``
 into every leaf) and returns the same dict: a CUDA graph of the step
 (:class:`DecodeGraph`) replays into the same buffers.
 
@@ -20,6 +22,13 @@ int8 K/V with per-(position, head) bfloat16 abs-max scales ``b{i}_ksc`` /
 ``b{i}_vsc`` (count, B, S, KV, 1), ``kv_repeat_to`` K/V heads replicated
 up to that count.  The decode step reads each layer's slot count off its
 own leaf, so ring and full-length leaves mix in one step.
+
+The encdec family decodes as the reference does: the encoder's groups are
+skipped (their K/V leaves exist and stay untouched), and each decoder
+block attends over its cross leaves under an all-valid mask.  Nothing
+writes those leaves: ``init_cache`` makes them zeros, so the cross term
+is ``out_project(0) = 0``.  Seeding them from the encoder's output is a
+feature neither package has (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -53,7 +62,8 @@ def init_cache(model: LM, batch: int, max_seq: int, *, device=None,
     slots for a sliding-window layer under ``ring_local``; int8 with
     bfloat16 scales under ``quantize_kv``; ``kv_repeat_to`` heads where
     that is more than the model's), the recurrent leaves for rwkv and
-    mamba blocks."""
+    mamba blocks, the cross-attention K/V (``max_seq`` slots) for an
+    encdec decoder block."""
     dev = resolve_device(device)
     cfg = model.cfg
     _, kv, d = _attn_dims(cfg)
@@ -96,6 +106,9 @@ def init_cache(model: LM, batch: int, max_seq: int, *, device=None,
                                           torch.float32)
                 gc[f"b{i}_last_tm"] = zeros(lead + (cfg.d_model,))
                 gc[f"b{i}_last_cm"] = zeros(lead + (cfg.d_model,))
+            if blk.cross:
+                gc[f"b{i}_xk"] = zeros(lead + (max_seq, kv, d))
+                gc[f"b{i}_xv"] = zeros(lead + (max_seq, kv, d))
         cache[g.name] = gc
     return cache
 
@@ -148,9 +161,11 @@ def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, root, x, lc,
     ``root`` the whole tree (the hybrid's shared attention reads
     ``root["shared"]``); ``lc`` the layer's cache leaves, each written in
     place.  Under ``ring_local`` a windowed block whose leaf holds exactly
-    ``window`` slots decodes as a ring, as the reference decides."""
+    ``window`` slots decodes as a ring, as the reference decides.  A cross
+    block attends over its cross leaves, which it reads and never
+    writes."""
     pre = f"b{i}"
-    if blk.kind in ("attn_mlp", "attn_moe") and not blk.cross:
+    if blk.kind in ("attn_mlp", "attn_moe"):
         h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
         ring = bool(ring_local and blk.window
                     and lc[f"{pre}_k"].shape[1] == blk.window)
@@ -158,6 +173,14 @@ def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, root, x, lc,
                              lc[f"{pre}_v"], cfg, blk.window, step,
                              ring=ring, ksc=lc.get(f"{pre}_ksc"),
                              vsc=lc.get(f"{pre}_vsc"))
+        if blk.cross:
+            xp, xk = p[f"{pre}_xattn"], lc[f"{pre}_xk"]
+            hq = A.project_q(xp, rmsnorm(x, p[f"{pre}_lnx"]["scale"]),
+                             cfg.heads, cfg.resolved_head_dim)
+            valid = torch.ones((x.shape[0], xk.shape[1]), dtype=torch.bool,
+                               device=x.device)
+            x = x + A.out_project(xp, A.decode_attend_gqa(
+                hq, xk, lc[f"{pre}_xv"], valid))
         h = rmsnorm(x, p[f"{pre}_ln2"]["scale"])
         if blk.kind == "attn_moe":
             # capacity dispatch at s = 1: cap 8 a row, never drops
@@ -197,7 +220,7 @@ def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, root, x, lc,
             h = rmsnorm(x, sp["ln2"]["scale"])
             x = x + F.mlp_fused(sp["mlp"], h, gated=cfg.gated, act=cfg.act)
         return x
-    raise NotImplementedError(f"block {blk} is not ported yet")
+    raise ValueError(blk.kind)
 
 
 @torch.inference_mode()
@@ -227,6 +250,8 @@ def decode_step_batched(model: LM, params, cache, tokens, indices, *,
     x = E.embed(params["embed"], tokens.long(),
                 scale=cfg.embed_scale).to(model.dtype)
     for g in model.groups:
+        if g.name.startswith("enc"):
+            continue
         gp, gc = params[g.name], cache[g.name]
         for layer in range(g.count):
             lp, lc = layer_slice(gp, layer), layer_slice(gc, layer)
@@ -292,11 +317,13 @@ def decode_step(model: LM, params, cache, tokens, index, *,
 
 
 def prefill(model: LM, params, tokens, max_seq: int, *,
-            ring_local: bool = False):
+            frontend_embeds=None, ring_local: bool = False):
     """Sequential prefill through the decode step, one position at a time
     (the reference's small-scale serving example; the throughput prefill
     is the planned forward).  tokens: (B, S) int on the cache's device.
-    Returns (the last position's logits (B, 1, V), the cache)."""
+    ``frontend_embeds`` is accepted and ignored, as the reference's
+    (its decode step has no frontend input).  Returns (the last
+    position's logits (B, 1, V), the cache)."""
     b, s = tokens.shape
     cache = init_cache(model, b, max_seq, device=tokens.device,
                        ring_local=ring_local)

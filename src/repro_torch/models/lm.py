@@ -1,12 +1,16 @@
 """Config-driven language model: the logical plan for the planner (prefill,
 ``prefill_kv`` and training shapes) and its parameters.
 
-The port of the reference's ``models/lm.py`` for the ``dense`` (qwen3-0.6b,
-deepseek-7b, stablelm-12b, gemma3-27b with its 5:1 local:global windows),
-``moe`` (dbrx-132b, llama4-maverick: attention + mixture-of-experts blocks),
-``rwkv`` (rwkv6-3b) and ``hybrid`` (zamba2-7b: mamba blocks and a
-weight-shared attention block) families.  The plan builders are the
-reference's node for node, so a plan's id equals the reference's under an
+The port of the reference's ``models/lm.py`` for every family: ``dense``
+(qwen3-0.6b, deepseek-7b, stablelm-12b, gemma3-27b with its 5:1
+local:global windows), ``moe`` (dbrx-132b, llama4-maverick: attention +
+mixture-of-experts blocks), ``rwkv`` (rwkv6-3b), ``hybrid`` (zamba2-7b:
+mamba blocks and a weight-shared attention block), ``vlm`` (llava-next-34b:
+the dense stack behind a prefix of ``frontend_tokens`` precomputed
+embeddings, joined by ``concat_seq``) and ``encdec`` (seamless-m4t-medium:
+a non-causal encoder over precomputed frames, ``enc_norm``, and a decoder
+whose blocks cross-attend to the encoder's output).  The plan builders are
+the reference's node for node, so a plan's id equals the reference's under an
 equal ``SystemCatalog``.
 Parameters are a nested dict of tensors keyed exactly as the reference's
 tree (``layers_0`` → ``b0_attn`` → ``wq`` …, each leaf stacked over the
@@ -65,6 +69,11 @@ class Group:
 
 
 def layer_groups(cfg: ModelConfig) -> list:
+    if cfg.family == "encdec":
+        return [
+            Group("enc_0", cfg.enc_layers, (Block("attn_mlp", causal=False),)),
+            Group("dec_0", cfg.dec_layers, (Block("attn_mlp", cross=True),)),
+        ]
     if cfg.family == "rwkv":
         return [Group("layers_0", cfg.n_layers, (Block("rwkv"),))]
     if cfg.family == "hybrid":
@@ -85,11 +94,8 @@ def layer_groups(cfg: ModelConfig) -> list:
                 groups.append(Group("layers_1", rem, (Block("attn_mlp"),)))
             return groups
         return [Group("layers_0", cfg.n_layers, (Block("attn_moe"),))]
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"§1, the LM stack); the port runs the dense, moe, rwkv and "
-            f"hybrid families")
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.local_ratio > 0:
         period = cfg.local_ratio + 1
         sup = tuple([Block("attn_mlp", window=cfg.window)] * cfg.local_ratio
@@ -119,15 +125,16 @@ def _mamba_cfg(cfg: ModelConfig) -> dict:
 
 
 def _init_block(gen, cfg: ModelConfig, block: Block, i: int, dtype):
-    if block.cross:
-        raise NotImplementedError(f"block {block} is not ported yet")
     e = cfg.d_model
     zeros = lambda: {"scale": torch.zeros(  # noqa: E731
         (e,), dtype=dtype, device=gen.device)}
     if block.kind in ("attn_mlp", "attn_moe"):
         p = {f"b{i}_ln1": zeros(),
-             f"b{i}_attn": A.init_attention(gen, _attn_cfg(cfg), dtype),
-             f"b{i}_ln2": zeros()}
+             f"b{i}_attn": A.init_attention(gen, _attn_cfg(cfg), dtype)}
+        if block.cross:
+            p[f"b{i}_lnx"] = zeros()
+            p[f"b{i}_xattn"] = A.init_attention(gen, _attn_cfg(cfg), dtype)
+        p[f"b{i}_ln2"] = zeros()
         if block.kind == "attn_moe":
             p[f"b{i}_moe"] = X.init_moe(
                 gen, {"embed": e, "ffn": cfg.d_ff, "experts": cfg.experts},
@@ -151,7 +158,7 @@ def _init_block(gen, cfg: ModelConfig, block: Block, i: int, dtype):
         # shared_attn reads its attention and mlp from the root "shared"
         return {f"b{i}_ln1": zeros(),
                 f"b{i}_mamba": M.init_mamba2(gen, _mamba_cfg(cfg), dtype)}
-    raise NotImplementedError(f"block {block} is not ported yet")
+    raise ValueError(block.kind)
 
 
 def _init_shared(gen, cfg: ModelConfig, dtype) -> dict:
@@ -193,21 +200,38 @@ class LM:
     def init_params(self, gen: torch.Generator) -> dict:
         """He-initialized parameters drawn from ``gen``, made on its
         device, in ``cfg.param_dtype`` (the reference's tree)."""
+        return self._init(gen, cast=False)
+
+    def init_inference_params(self, gen: torch.Generator) -> dict:
+        """``inference_params(init_params(gen))``, bitwise, without the
+        float32 tree: the same draws in the same order, each layer's
+        ``_CAST`` leaves cast to the activation dtype as the layer is
+        copied into its stack.  The peak is the cast tree plus one float32
+        layer (llava-next-34b: 70.6 GB against 137.6 GB for the float32
+        tree)."""
+        return self._init(gen, cast=True)
+
+    def _init(self, gen, *, cast: bool) -> dict:
         cfg = self.cfg
         params: dict = {"embed": E.init_embedding(
             gen, cfg.padded_vocab, cfg.d_model, self.pdtype,
             tied=cfg.tied_embeddings)}
         if cfg.family == "hybrid":
-            params["shared"] = _init_shared(gen, cfg, self.pdtype)
+            shared = _init_shared(gen, cfg, self.pdtype)
+            params["shared"] = self.inference_params(shared) if cast \
+                else shared
         for g in self.groups:
             def layer(g=g):
                 lp: dict = {}
                 for i, blk in enumerate(g.blocks):
                     lp.update(_init_block(gen, cfg, blk, i, self.pdtype))
-                return lp
+                return self.inference_params(lp) if cast else lp
             params[g.name] = stack_layers(layer, g.count)
         params["final_norm"] = {"scale": torch.zeros(
             (cfg.d_model,), dtype=self.pdtype, device=gen.device)}
+        if cfg.family == "encdec":
+            params["enc_norm"] = {"scale": torch.zeros(
+                (cfg.d_model,), dtype=self.pdtype, device=gen.device)}
         return params
 
     def inference_params(self, params: dict) -> dict:
@@ -229,8 +253,6 @@ class LM:
     def _block_nodes(self, sub: Plan, x: str, i: int, blk: Block,
                      emit_kv: bool = False) -> str:
         cfg = self.cfg
-        if blk.cross:
-            raise NotImplementedError(f"block {blk} is not ported yet")
         pp = "b" + str(i)
 
         def norm(src, name):
@@ -244,6 +266,11 @@ class LM:
                 "rope_theta": cfg.rope_theta,
                 **({"emit_kv": True} if emit_kv else {})})
             x = sub.add("residual_add", [x, att])
+            if blk.cross:
+                hx = norm(x, "lnx")
+                xa = sub.add("cross_attention", [hx, "memory"], {
+                    "pp": (f"{pp}_xattn",), **_attn_cfg(cfg)})
+                x = sub.add("residual_add", [x, xa])
             h = norm(x, "ln2")
             if blk.kind == "attn_moe":
                 m = sub.add("moe", [h], {
@@ -291,14 +318,19 @@ class LM:
                     "embed": cfg.d_model})
                 x = sub.add("residual_add", [x, m])
             return x
-        raise NotImplementedError(f"block {blk} is not ported yet")
+        raise ValueError(blk.kind)
 
     def _group_subplan(self, g: Group, batch: int, seq: int,
+                       with_memory: bool = False,
                        emit_kv: bool = False) -> Plan:
         cfg = self.cfg
         sub = Plan(name=f"{cfg.name}_{g.name}")
         sub.add_input("h", TensorT((batch, seq, cfg.d_model), cfg.dtype,
                                    ("batch", "seq", "embed")))
+        if with_memory:
+            sub.add_input("memory", TensorT((batch, seq, cfg.d_model),
+                                            cfg.dtype,
+                                            ("batch", "seq", "embed")))
         x = "h"
         for i, blk in enumerate(g.blocks):
             x = self._block_nodes(sub, x, i, blk, emit_kv=emit_kv)
@@ -310,7 +342,9 @@ class LM:
         ``prefill_kv`` plan captures the entire decode state.  The
         recurrent families (rwkv, hybrid) carry state the planned forward
         does not expose: the serving runtime rebuilds it by replaying the
-        prompt through the decode step."""
+        prompt through the decode step.  The vlm and encdec families take
+        ``frontend_embeds``, which no serving path supplies: the runtime
+        refuses them."""
         return self.cfg.family in ("dense", "moe") and \
             self.cfg.frontend == "none"
 
@@ -319,7 +353,10 @@ class LM:
         serving prefill: like ``prefill`` but every attention carries
         ``emit_kv`` and every scan group collects the per-layer K/V as an
         extra plan output — (logits, kv_g0, kv_g1, ...) — so the KV cache is
-        seeded directly from the planned forward."""
+        seeded directly from the planned forward.  A vlm plan takes
+        ``frontend_embeds`` (batch, frontend_tokens, d_model) and the
+        ``seq - frontend_tokens`` text tokens, joined by ``concat_seq``;
+        an encdec plan is :meth:`_build_encdec_plan`'s."""
         cfg = self.cfg
         collect_kv = mode == "prefill_kv"
         if collect_kv and not self.supports_prefill_kv():
@@ -328,12 +365,21 @@ class LM:
                 f"{cfg.name} (family={cfg.family}, frontend={cfg.frontend}) "
                 f"carries recurrent/frontend state — use mode='prefill' and "
                 f"decode replay")
+        if cfg.family == "encdec":
+            return self._build_encdec_plan(batch, seq, mode)
         plan = Plan(name=f"{cfg.name}-{mode}")
-        tokens = plan.add_input("tokens", TensorT((batch, seq), "int32",
-                                                  ("batch", "seq")))
+        n_front = cfg.frontend_tokens if cfg.frontend != "none" else 0
+        tokens = plan.add_input("tokens", TensorT((batch, seq - n_front),
+                                                  "int32", ("batch", "seq")))
         x = plan.add("embed", [tokens], {
             "pp": ("embed",), "vocab": cfg.vocab, "embed": cfg.d_model,
             "dtype": cfg.dtype, "scale": cfg.embed_scale})
+        if n_front:
+            front = plan.add_input(
+                "frontend_embeds",
+                TensorT((batch, n_front, cfg.d_model), cfg.dtype,
+                        ("batch", "seq", "embed")))
+            x = plan.add("concat_seq", [front, x], {"axis": 1})
         kv_outs = []
         for g in self.groups:
             sub = self._group_subplan(g, batch, seq, emit_kv=collect_kv)
@@ -359,6 +405,45 @@ class LM:
             out = plan.add("store", [logits])
             kv_stores = [plan.add("store", [k]) for k in kv_outs]
             plan.set_outputs(out, *kv_stores)
+        return plan
+
+    def _build_encdec_plan(self, batch: int, seq: int, mode: str) -> Plan:
+        """The encoder over ``frontend_embeds`` (batch, seq, d_model), its
+        output normed by ``enc_norm`` and passed to every decoder layer as
+        the scan's broadcast ``memory``; the decoder over ``tokens``
+        (batch, seq).  Its scans carry no ``unroll`` attr, as the
+        reference's."""
+        cfg = self.cfg
+        plan = Plan(name=f"{cfg.name}-{mode}")
+        frames = plan.add_input(
+            "frontend_embeds", TensorT((batch, seq, cfg.d_model), cfg.dtype,
+                                       ("batch", "seq", "embed")))
+        enc_g, dec_g = self.groups
+        enc_sub = self._group_subplan(enc_g, batch, seq)
+        mem = plan.add("scan_layers", [frames], {
+            "n_layers": enc_g.count, "pp": (enc_g.name,),
+            "param_group": enc_g.name, "remat": cfg.remat}, subplan=enc_sub)
+        mem = plan.add("rmsnorm", [mem], {"pp": ("enc_norm",)})
+        tokens = plan.add_input("tokens", TensorT((batch, seq), "int32",
+                                                  ("batch", "seq")))
+        x = plan.add("embed", [tokens], {
+            "pp": ("embed",), "vocab": cfg.vocab, "embed": cfg.d_model,
+            "dtype": cfg.dtype, "scale": cfg.embed_scale})
+        dec_sub = self._group_subplan(dec_g, batch, seq, with_memory=True)
+        x = plan.add("scan_layers", [x, mem], {
+            "n_layers": dec_g.count, "pp": (dec_g.name,),
+            "param_group": dec_g.name, "remat": cfg.remat}, subplan=dec_sub)
+        x = plan.add("rmsnorm", [x], {"pp": ("final_norm",)})
+        logits = plan.add("unembed", [x], {"pp": ("embed",),
+                                           "vocab": cfg.padded_vocab,
+                                           "true_vocab": cfg.vocab})
+        if mode == "train":
+            labels = plan.add_input("labels", TensorT((batch, seq), "int32",
+                                                      ("batch", "seq")))
+            loss = plan.add("softmax_xent", [logits, labels])
+            plan.set_outputs(plan.add("store", [loss]))
+        else:
+            plan.set_outputs(plan.add("store", [logits]))
         return plan
 
 

@@ -11,7 +11,8 @@ from .degrade import DegradePolicy
 from .kv_pool import PagedKVPool, PageTable
 from .metrics import MetricsRegistry, RequestMetrics, ServingMetrics
 from .runtime import (AnalysisRequest, AnalysisResult, AsyncServingRuntime,
-                      ServeRequest, ServeResult, serve_sequential)
+                      ServeRequest, ServeResult, check_servable,
+                      serve_sequential)
 from .scheduler import ContinuousBatchScheduler, SlotState, TenantScheduler
 
 __all__ = [
@@ -20,6 +21,7 @@ __all__ = [
     "PagedKVPool", "PageTable",
     "MetricsRegistry", "RequestMetrics", "ServingMetrics",
     "AnalysisRequest", "AnalysisResult",
-    "AsyncServingRuntime", "ServeRequest", "ServeResult", "serve_sequential",
+    "AsyncServingRuntime", "ServeRequest", "ServeResult", "check_servable",
+    "serve_sequential",
     "ContinuousBatchScheduler", "SlotState", "TenantScheduler",
 ]

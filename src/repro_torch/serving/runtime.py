@@ -20,6 +20,12 @@ The port of the language-model part of the reference's
   * an asyncio event loop that interleaves admission, planned prefill of
     incoming requests and decode of in-flight ones at token boundaries.
 
+A model whose forward takes ``frontend_embeds`` (the vlm and encdec
+families) is refused when the runtime (or ``serve_sequential``) is built
+(:func:`check_servable`): a request carries tokens only.  The reference
+builds such a runtime and fails at its first prefill with ``KeyError:
+'frontend_embeds'``.
+
 In ``kv_mode``, same-bucket waiting requests prefill together: the
 bucket's batch-1 plan runs on a ``(w, bucket)`` token batch (every impl is
 batch-polymorphic), which is what the reference's ``vmap`` of the planned
@@ -167,6 +173,19 @@ def _first_tokens(logits, ns, vocab: int):
     return torch.argmax(logits[rows, ns - 1, :vocab], dim=-1)
 
 
+def check_servable(model: LM) -> None:
+    """Raise ``ValueError`` for a model whose planned forward needs a
+    ``frontend_embeds`` input, which no request supplies."""
+    cfg = model.cfg
+    if cfg.frontend != "none":
+        raise ValueError(
+            f"{cfg.name} (family={cfg.family}, frontend={cfg.frontend}): "
+            f"its forward needs a 'frontend_embeds' input that a serve "
+            f"request does not carry; run the planned forward with "
+            f"frontend_embeds (repro_torch.data.synth_batch) and the "
+            f"decode step (models.decode) instead")
+
+
 class AsyncServingRuntime:
     def __init__(self, model: LM, params, *, max_batch: int = 4,
                  max_seq: int = 128, page_size: int = 16,
@@ -189,6 +208,7 @@ class AsyncServingRuntime:
                  tenant_weights: Optional[dict] = None,
                  analysis_tick: int = 16,
                  prefill_batch: int = 4, device=None):
+        check_servable(model)
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
@@ -1212,6 +1232,7 @@ def serve_sequential(model: LM, params, requests: Sequence[ServeRequest], *,
     token-by-token decode at batch 1.  One batch-1 cache serves every
     request in turn (zeroed for each, as a fresh one); on the card its
     decode step is a CUDA graph, as the runtime's."""
+    check_servable(model)
     dev = resolve_device(device)
     syscat = syscat or default_syscat(dev)
     pc = plan_cache if plan_cache is not None else default_plan_cache()

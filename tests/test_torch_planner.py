@@ -88,6 +88,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.configs.rwkv6_3b, repro_torch.configs.zamba2_7b\n"
         "import repro_torch.configs.dbrx_132b\n"
         "import repro_torch.configs.llama4_maverick_400b_a17b\n"
+        "import repro_torch.configs.llava_next_34b\n"
+        "import repro_torch.configs.seamless_m4t_medium\n"
+        "import repro_torch.data, repro_torch.data.pipeline\n"
         "import repro_torch.layers.common, repro_torch.layers.embedding\n"
         "import repro_torch.layers.mlp, repro_torch.layers.attention\n"
         "import repro_torch.layers.rwkv, repro_torch.layers.mamba\n"

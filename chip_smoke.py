@@ -407,7 +407,57 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      boundary, its partial tokens a prefix of the fault-free run's, its
      pages returned;
 
- 33. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+  ``qwen3_train`` (qwen3-0.6b trained at full width and depth through
+  ``python -m repro_torch.launch.train``'s ``main``, slice 15):
+
+ 33. [train-plan] — the train plan at 4 x 2048 under ("xla", "pallas"):
+     ``attn_flash_pallas`` in the layer, 28 layers, ``remat="full"``,
+     ``softmax_xent_xla``; its plan id;
+ 34. [train-kernel] — each kernel entry's backward (``PlainVJP``: the
+     kernel forward, the plain version's VJP) on the card: the gradients
+     of q, k, v (x, w; r, k, v, w, u; x, a, b, c) through the entry
+     against the autograd of the plain version on the same inputs and
+     upstream gradient, and the outputs, within the forward checks'
+     tolerances; one kernel launch each.  Shapes: flash at qwen3's 4 x
+     2048, causal, bf16; gmm at dbrx's expert shape (16, 4096, 6144) @
+     (16, 6144, 10752); wkv6 / ssd at rwkv6's / zamba2's 1 x 512.  CUDA-
+     event times of the entry's forward + backward, the plain version's
+     and the plain backward alone, beside ``scaled_dot_product_attention``'s
+     forward + backward (flash) and ``torch.bmm``'s (gmm), timed only;
+ 35. [train]  — the CLI at 4 x 2048, 6 steps, lr 1e-3 on two alternating
+     batches (``--cycle-batches 2``), a checkpoint every 3 steps under a
+     temporary directory, the loss read every step: flash launches
+     exactly 56 a step (counts set to 0 just before ``main``), every loss
+     finite, every ``grad_norm`` above 0, the loss falling by at least
+     TRAIN_LOSS_DROP; step walls (between the per-step host reads), their
+     median, tokens/s, peak memory;
+ 36. [train-resume] — the run's step-6 checkpoint removed, a fresh
+     ``main()`` resumes from step 3: its losses of steps 4-6 against the
+     straight run's within TRAIN_RESUME_RTOL; ``run_resumable`` with
+     failures injected at steps 4 and 9 (SMOKE config) reaches step 12
+     after 2 restarts; then flash on the arguments the step gave it,
+     timed as in phase 27c;
+ 37. [train-split] — the step's parts timed alone: flash's forward
+     (device time x 56), the plain attention backward (x 28), the float32
+     unembed + loss forward and backward, clipping + AdamW; the rest is
+     the layers' GEMMs, norms and elementwise work; with ``--profile``
+     the profiler's table of one step and its idle share;
+ 38. [train-check] — the first step's loss and ``grad_norm`` under
+     ("xla", "pallas") against ("xla",) on the card (same parameters and
+     batch, bf16; 56 launches against 0) within TRAIN_ENGINE_RTOL; a
+     float32 2-layer cut at 1 x 256, card against the port's plain path
+     on the CPU, within TRAIN_F32_RTOL;
+ 39. [train-family] — one train step (AdamW) of rwkv6-3b (2 layers) and
+     zamba2-7b (2 layers: one mamba block and one shared-attention block)
+     at full width, and dbrx-132b's loss and gradients at 1 layer (3.17 B
+     parameters in its MoE block; its AdamW moments would not fit beside
+     them), all at 1 x 512 through the kernels and their ``PlainVJP``:
+     launches exact, loss and ``grad_norm`` finite, the loss within
+     TRAIN_ENGINE_RTOL of the ("xla",) plan's (dbrx: of the kernel plan
+     with flash and gmm on their plain versions, since its xla plan drops
+     at capacity factor 1.0);
+
+ 40. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Observability (EXPLAIN ANALYZE and the resource ledger, slice 11), inside
 the paths above:
@@ -485,14 +535,25 @@ masked ones weigh exactly 0) run in another order, so now and then an
 output rounds to its other bf16 neighbour (2^-8 relative), and the flips
 spread through 20 layers.  ``[int8]``: 0.08 of the largest |logit|, the
 reference's bound for the same comparison (abs-max int8 per position and
-head: 1/254 of each head's range a value).
+head: 1/254 of each head's range a value).  ``[train-kernel]``: the
+forward checks' tolerances (flash and gmm ``1e-2``, wkv6 / ssd ``1e-2``
+in bfloat16, absolute and relative); the gradients are the plain
+version's VJP on both sides, so the outputs are what differ.  The train
+checks (``TRAIN_*``): the loss falls by at least 0.5 over 6 steps; the
+kernel plan's first loss and ``grad_norm`` within ``5e-3`` relative of
+the xla plan's (bf16: the kernel rounds P to bf16, the plain attention
+does not), the families' losses too; float32 card against CPU ``1e-4``
+relative; resumed losses ``1e-5`` relative (every op of the step is
+deterministic on the card, so they come out bitwise).
 """
 from __future__ import annotations
 
 import contextlib
 import gc
 import json
+import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -517,7 +578,8 @@ from repro_torch.core.adil_parser import parse_adil  # noqa: E402
 from repro_torch.core import mqo, tracing  # noqa: E402
 from repro_torch.core.engines import dispatch  # noqa: E402
 from repro_torch.core.executor import (ExecContext,  # noqa: E402
-                                       plan_and_compile, run_plan_subset)
+                                       default_syscat, plan_and_compile,
+                                       run_plan_subset)
 from repro_torch.core.faults import FaultInjector  # noqa: E402
 from repro_torch.core.feedback import SelectivityFeedback  # noqa: E402
 from repro_torch.core.ir import (ListT, Plan, SystemCatalog,  # noqa: E402
@@ -544,7 +606,9 @@ from repro_torch.kernels.graph_kernels import (  # noqa: E402
     scatter_add, scatter_add_plain)
 from repro_torch.kernels.ssd import ssd, ssd_reference  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_reference  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.layers import attention as attention_layer  # noqa: E402
+from repro_torch.layers import embedding as embedding_layer  # noqa: E402
 from repro_torch.layers import mamba as mamba_layer  # noqa: E402
 from repro_torch.layers import moe as moe_layer  # noqa: E402
 from repro_torch.layers import rwkv as rwkv_layer  # noqa: E402
@@ -571,6 +635,15 @@ from repro_torch.stores import (BoundedRel, ColumnStore,  # noqa: E402
 from repro_torch.stores.column_store import (  # noqa: E402
     hash_join_nonunique)
 from repro_torch.stores.text_store import tfidf_scores  # noqa: E402
+from repro_torch.train.checkpoint import (  # noqa: E402
+    latest_checkpoint, restore_checkpoint, save_checkpoint)
+from repro_torch.train.fault_tolerance import (  # noqa: E402
+    FailureInjector, run_resumable)
+from repro_torch.train.optim import (  # noqa: E402
+    clip_by_global_norm, cosine_schedule, global_norm, make_optimizer,
+    tree_map)
+from repro_torch.train.train_step import (  # noqa: E402
+    init_state, loss_and_grads, make_train_step)
 
 FULL = {"tweets": 10_000_000, "users": 500_000, "hashtags": 131_072,
         "vocab": 65_536}
@@ -702,6 +775,53 @@ RECURRENT = {
         "source": "src/repro_torch/kernels/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:76", "cpu_check": False},
 }
+
+
+# qwen3_train: qwen3-0.6b trained through the CLI at full width and depth
+# (6 steps on two alternating batches, a checkpoint every 3 steps), its
+# float32 cut (ref_layers at 1 x cpu_seq) against the CPU; the other
+# families' one step at TRAIN_FAMILY_SHAPE; gmm's backward at PERF.md row
+# 8's dbrx expert shape
+TRAIN = {"arch": "qwen3-0.6b", "batch": 4, "seq": 2048, "steps": 6,
+         "lr": 1e-3, "cycle": 2, "ckpt_every": 3, "ref_layers": 2,
+         "cpu_seq": 256}
+# the checks' margins, against what an H100 80GB HBM3 at 700 W measured:
+# the loss fell 1.06 over the 6 steps (12.42 -> 11.36); the bf16 kernel
+# plan's first loss / grad_norm 1.5e-6 / 6.3e-4 off the xla plan's, the
+# families' losses up to 1.0e-4 off their references'; float32 card
+# against CPU 7.7e-8; the resumed losses bitwise the straight run's
+TRAIN_LOSS_DROP = 0.5
+TRAIN_ENGINE_RTOL = 5e-3
+TRAIN_F32_RTOL = 1e-4
+TRAIN_RESUME_RTOL = 1e-5
+TRAIN_GMM = (16, 4096, 6144, 10752)
+TRAIN_FAMILY_SHAPE = (1, 512)
+TRAIN_FAMILY = {
+    "rwkv6-3b": {"cut": {"n_layers": 2}, "impls": ("wkv6_pallas",),
+                 "launches": {"wkv6": 4}, "optimizer": True,
+                 "reference": "xla"},
+    "zamba2-7b": {"cut": {"n_layers": 2, "shared_attn_period": 2},
+                  "impls": ("ssd_pallas", "attn_flash_pallas"),
+                  "launches": {"ssd": 4, "flash_attention": 2},
+                  "optimizer": True, "reference": "xla"},
+    "dbrx-132b": {"cut": {"n_layers": 1},
+                  "impls": ("moe_gmm_pallas", "attn_flash_pallas"),
+                  "launches": {"gmm": 6, "flash_attention": 2},
+                  "optimizer": False, "reference": "plain"},
+}
+TRAIN_SOURCES = {
+    "flash_attention": "src/repro_torch/kernels/flash_attention.py",
+    "gmm": "src/repro_torch/kernels/moe_gmm.py",
+    "wkv6": "src/repro_torch/kernels/wkv6.py",
+    "ssd": "src/repro_torch/kernels/ssd.py"}
+# the reference's custom_vjp backward each replaces
+TRAIN_REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention/ops.py:55",
+    "gmm": "src/repro/kernels/moe_gmm/ops.py:37",
+    "wkv6": "src/repro/kernels/wkv6/ops.py:29",
+    "ssd": "src/repro/kernels/ssd/ops.py:29"}
+TRAIN_KERNEL_OF = {"gmm_backward": "gmm", "wkv6_backward": "wkv6",
+                   "ssd_backward": "ssd"}
 
 
 def launch_counts(**counts) -> dict:
@@ -4788,6 +4908,547 @@ def check_serve_faults(dev, syscat):
     del clean_rt, rt, cut_rt
 
 
+# -- phases 33-39: qwen3-0.6b trained --------------------------------------
+
+
+def train_argv(ckpt_dir) -> list:
+    """``repro_torch.launch.train`` arguments of the train path: TRAIN's
+    model, shape and learning rate, the two alternating batches, a
+    checkpoint every ``ckpt_every`` steps, the loss read every step (so
+    each step's wall ends in a sync)."""
+    return ["--arch", TRAIN["arch"], "--device", "cuda",
+            "--engines", "xla,pallas", "--steps", str(TRAIN["steps"]),
+            "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+            "--lr", str(TRAIN["lr"]), "--cycle-batches", str(TRAIN["cycle"]),
+            "--ckpt-every", str(TRAIN["ckpt_every"]), "--log-every", "1",
+            "--ckpt-dir", str(ckpt_dir)]
+
+
+def train_batch(cfg, b, s, dev, step=0) -> dict:
+    """``synth_batch`` (seed SEED) on ``dev``, as the CLI feeds it."""
+    return train_cli.device_batch(synth_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=s, global_batch=b, seed=SEED,
+        frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model,
+        encdec=cfg.family == "encdec", dtype=cfg.dtype), step), dev,
+        getattr(torch, cfg.dtype))
+
+
+def planned_train(model, b, s, syscat, dev, engines):
+    return plan_and_compile(model.build_plan(b, s, mode="train"), CATALOG,
+                            syscat, engines=engines, cache=False, device=dev)
+
+
+def grad_call(entry, inputs, cot):
+    """``entry(*inputs)`` and the gradients of ``sum(out * cot)`` with
+    respect to every input."""
+    xs = [x.detach().requires_grad_() for x in inputs]
+    out = entry(*xs)
+    return out, torch.autograd.grad(out, xs, cot)
+
+
+def backward_work(name, inputs, out) -> tuple:
+    """(bytes, operations, rate) of a forward + backward: every input and
+    the upstream gradient read once, the output and every input's gradient
+    written once; the operations of the forward and of the least backward
+    (flash: Q Kᵀ and P V, then dV, dP, dQ and dK, each 2 d a pair; gmm:
+    the product, then dx and dw; the recurrences: the chunked forward's
+    operations three times over, a backward twice the forward)."""
+    nbytes = 2 * sum(stored_bytes(t) for t in inputs) + 2 * stored_bytes(out)
+    if name == "flash_attention":
+        q, k, _v = inputs
+        b, s, h, d = q.shape
+        return nbytes, 12 * b * h * d * attention_pairs(s, s, True, 0), \
+            BF16_FLOPS
+    if name == "gmm":
+        x, w = inputs
+        e, c, d = x.shape
+        return nbytes, 6 * e * c * d * w.shape[2], BF16_FLOPS
+    spec = RECURRENT["rwkv6-3b" if name == "wkv6" else "zamba2-7b"]
+    work = recurrence_work(spec, inputs)
+    t_ops = 3 * (work["products"] / BF16_FLOPS + work["other"] / FP32_FLOPS)
+    return nbytes, t_ops * FP32_FLOPS, FP32_FLOPS
+
+
+def check_backward(name, entry, plain, inputs, tol, library=None) -> dict:
+    """[train-kernel]: the gradients through the kernel entry (forward the
+    kernel, backward ``PlainVJP``'s plain VJP) against the autograd of the
+    plain version, on the same inputs and upstream gradient, within
+    ``tol`` absolute and relative; the forward outputs too.  Times (CUDA
+    events, median of 3; a call takes 29-500 ms) of the entry's forward +
+    backward, of the plain version's, of the plain backward alone, and of
+    ``library`` (a PyTorch call computing the same forward + backward).
+    Returns its JSON record."""
+    gen = torch.Generator(device=inputs[0].device).manual_seed(SEED)
+    out_p = plain(*inputs)
+    cot = torch.randn(out_p.shape, generator=gen, device=out_p.device).to(
+        out_p.dtype)
+    del out_p
+    before = kernels.launches()
+    got, ggot = grad_call(entry, inputs, cot)
+    launched = {k: v - before[k] for k, v in kernels.launches().items()
+                if v != before[k]}
+    check(sum(launched.values()) == 1
+          and type(got.grad_fn).__name__ == "PlainVJPBackward",
+          f"{name}: the entry launched {launched}, grad_fn {got.grad_fn}")
+    want, gwant = grad_call(plain, inputs, cot)
+    err = 0.0
+    for what, a, b in (("output", got, want),
+                       *((f"grad {i}", x, y)
+                         for i, (x, y) in enumerate(zip(ggot, gwant)))):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"{name} {what}: {a.dtype} {tuple(a.shape)} against "
+              f"{b.dtype} {tuple(b.shape)}")
+        a, b = a.detach().float(), b.detach().float()
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol,
+                                   msg=lambda m: f"{name} {what}: {m}")
+        err = max(err, float((a - b).abs().max()))
+    del got, ggot, want, gwant
+    timer = lambda fn: cuda_ms(fn, reps=3, warmup=1)  # noqa: E731
+    ms = timer(lambda: grad_call(entry, inputs, cot))
+    plain_ms = timer(lambda: grad_call(plain, inputs, cot))
+    xs = [x.detach().requires_grad_() for x in inputs]
+    out = entry(*xs)
+    bwd_ms = timer(lambda: torch.autograd.grad(out, xs, cot,
+                                               retain_graph=True))
+    lib_ms = timer(library(cot)) if library is not None else None
+    nbytes, nops, rate = backward_work(name, inputs, out)
+    del out, xs
+    bound_ms, bound_by = bound(nbytes, nops, rate)
+    phase("train-kernel", name=f"{name}_backward",
+          shapes=json.dumps([list(t.shape) for t in inputs]),
+          dtype=str(inputs[0].dtype).split(".")[1], max_abs_err=err,
+          ms=ms, plain_ms=plain_ms, backward_ms=bwd_ms, library_ms=lib_ms,
+          bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms)
+    return {"name": f"{name}_backward", "route": "autograd of plain",
+            "source": TRAIN_SOURCES[name], "replaces": TRAIN_REPLACES[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "backward_ms": bwd_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "path": "qwen3_train"}
+
+
+def sdpa_train(q, k, v):
+    """``scaled_dot_product_attention``'s forward + backward at flash's
+    arguments (heads-major views, causal, GQA): timed only."""
+    def run(cot):
+        cot_h = cot.transpose(1, 2)
+
+        def call():
+            xs = [x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v)]
+            out = torch.nn.functional.scaled_dot_product_attention(
+                *xs, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(out, xs, cot_h)
+        return call
+    return run
+
+
+def bmm_train(x, w):
+    """``torch.bmm``'s forward + backward at gmm's arguments: timed only."""
+    def run(cot):
+        return lambda: grad_call(torch.bmm, (x, w), cot)
+    return run
+
+
+def train_kernels(dev, cfg) -> list:
+    """[train-kernel]: the four kernel entries' backward on the card."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    h, kvh, d = cfg.heads, cfg.kv_heads, cfg.resolved_head_dim
+    q, k, v = flash_inputs(gen, dev, b, s, s, h, kvh, d, torch.bfloat16)
+    records = [check_backward(
+        "flash_attention", flash_attention,
+        lambda *a: flash_attention_plain(*a, causal=True), (q, k, v),
+        FLASH_TOL[torch.bfloat16], library=sdpa_train(q, k, v))]
+    del q, k, v
+    free_memory()
+    x, w = gmm_inputs(gen, dev, *TRAIN_GMM, torch.bfloat16)
+    records.append(check_backward(
+        "gmm", moe_layer.grouped_matmul, gmm_reference, (x, w),
+        GMM_TOL[torch.bfloat16], library=bmm_train(x, w)))
+    del x, w
+    free_memory()
+    for arch, name in (("rwkv6-3b", "wkv6"), ("zamba2-7b", "ssd")):
+        fcfg = get_config(arch)
+        fb, ft = TRAIN_FAMILY_SHAPE
+        if name == "wkv6":
+            args, _ = wkv6_inputs(gen, dev, fb, ft, fcfg.heads,
+                                  fcfg.resolved_head_dim, torch.bfloat16)
+            entry, plain = rwkv_layer.wkv6_kernel, wkv6_reference
+        else:
+            args, _ = ssd_inputs(
+                gen, dev, fb, ft, fcfg.expand * fcfg.d_model //
+                fcfg.mamba_head_dim, fcfg.mamba_head_dim, fcfg.ssm_state,
+                torch.bfloat16)
+            entry, plain = mamba_layer.ssd_kernel, ssd_reference
+        records.append(check_backward(
+            name, entry, lambda *a, p=plain: p(*a)[0], args,
+            RECURRENT_TOL[torch.bfloat16]))
+        del args
+    free_memory()
+    return records
+
+
+def train_split(model, fwd, dev, flash_ms) -> dict:
+    """[train-split]: the step's parts timed alone with CUDA events at the
+    train shape: flash's forward (its device time x the step's 56
+    launches), the plain attention backward (28 of them), the float32
+    unembed + loss forward and backward, clipping + the AdamW update on
+    the whole tree; and the step itself (``slow_ms``: the median of 5
+    steps between CUDA events).  What is left is the layers' GEMMs, norms
+    and elementwise work, forward, recompute and backward."""
+    cfg = model.cfg
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    opt = make_optimizer(cfg.optimizer, cosine_schedule(
+        TRAIN["lr"], 1, TRAIN["steps"]))
+    state = init_state(model.init_params(gen), opt)
+    step = make_train_step(fwd, opt)
+    batch = train_batch(cfg, b, s, dev)
+    step_ms = slow_ms(lambda: step(state, batch))
+    # the plain attention backward of one layer
+    h, kvh, d = cfg.heads, cfg.kv_heads, cfg.resolved_head_dim
+    q, k, v = (x.requires_grad_() for x in flash_inputs(
+        gen, dev, b, s, s, h, kvh, d, torch.bfloat16))
+    out = flash_attention(q, k, v)
+    cot = torch.randn_like(out)
+    attn_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (q, k, v), cot, retain_graph=True), reps=5, warmup=1)
+    del q, k, v, out, cot
+    # the head: float32 unembed over the padded vocab, mask, loss
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    table = state.params["embed"]["table"].detach().requires_grad_()
+
+    def head():
+        logits = embedding_layer.mask_padded_logits(
+            embedding_layer.unembed({"table": table}, x), cfg.vocab)
+        loss = embedding_layer.softmax_xent(logits, batch["labels"])
+        return torch.autograd.grad(loss, (x, table))
+    head_ms = slow_ms(head)
+    del x, table
+    grads = tree_map(torch.zeros_like, state.params)
+    opt_ms = cuda_ms(lambda: opt.update(
+        clip_by_global_norm(grads, 1.0)[0], state.opt_state, state.params),
+        reps=5, warmup=1)
+    del grads, state
+    layers = cfg.n_layers
+    parts = {"flash_fwd_ms": 2 * layers * flash_ms,
+             "attention_bwd_ms": layers * attn_bwd_ms,
+             "unembed_loss_ms": head_ms, "optimizer_ms": opt_ms}
+    parts["rest_ms"] = step_ms - sum(parts.values())
+    phase("train-split", step_ms=step_ms,
+          **{k: round(v, 3) for k, v in parts.items()},
+          **{k.replace("_ms", "_share"): round(v / step_ms, 4)
+             for k, v in parts.items()},
+          attention_bwd_layer_ms=attn_bwd_ms)
+    return {"step_ms": step_ms, **parts}
+
+
+def check_train_engines(model, syscat, dev) -> dict:
+    """[train-check] 1: the first step's loss and gradient norm under
+    ("xla", "pallas") against ("xla",) on the card: same parameters and
+    batch, bf16 activations, within TRAIN_ENGINE_RTOL."""
+    cfg = model.cfg
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    batch = train_batch(cfg, b, s, dev)
+    got = {}
+    for engines in (("xla", "pallas"), ("xla",)):
+        fwd = planned_train(model, b, s, syscat, dev, engines)
+        kernels.reset_launches()
+        loss, grads = loss_and_grads(fwd, params, batch)
+        got[engines] = (float(loss), float(global_norm(grads)),
+                        kernels.launches()["flash_attention"])
+        del grads
+    (lk, nk, fk), (lx, nx, fx) = got[("xla", "pallas")], got[("xla",)]
+    check(fk == 2 * cfg.n_layers and fx == 0,
+          f"train-check flash launches {fk} / {fx}")
+    check(abs(lk - lx) <= TRAIN_ENGINE_RTOL * abs(lx)
+          and abs(nk - nx) <= TRAIN_ENGINE_RTOL * abs(nx),
+          f"train-check: kernel plan loss {lk} gnorm {nk} against xla "
+          f"{lx} / {nx}")
+    del params
+    return {"bf16_loss_kernel": lk, "bf16_loss_xla": lx,
+            "bf16_gnorm_kernel": nk, "bf16_gnorm_xla": nx,
+            "bf16_loss_rel_err": abs(lk - lx) / abs(lx),
+            "bf16_gnorm_rel_err": abs(nk - nx) / abs(nx)}
+
+
+def check_train_cpu(cfg, syscat, dev) -> dict:
+    """[train-check] 2: a float32 cut of the model (TRAIN["ref_layers"]
+    layers at full width) at 1 x cpu_seq, card against the port's plain
+    path on the CPU: loss and gradient norm within TRAIN_F32_RTOL."""
+    model32 = build_model(cfg.replace(n_layers=TRAIN["ref_layers"],
+                                      dtype="float32"))
+    s = TRAIN["cpu_seq"]
+    params = model32.init_params(torch.Generator(device=dev).manual_seed(
+        SEED))
+    batch = train_batch(model32.cfg, 1, s, dev)
+    out = []
+    for where, p, bt in (
+            (dev, params, batch),
+            (torch.device("cpu"), params_to(params, "cpu"),
+             {k: v.cpu() for k, v in batch.items()})):
+        fwd = planned_train(model32, 1, s, syscat, where, ("xla", "pallas"))
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(fwd, p, bt)
+        out.append((float(loss), float(global_norm(grads)),
+                    time.perf_counter() - t0))
+        del grads
+    (lc, nc, _), (lh, nh, cpu_s) = out
+    check(abs(lc - lh) <= TRAIN_F32_RTOL * abs(lh)
+          and abs(nc - nh) <= TRAIN_F32_RTOL * abs(nh),
+          f"train-check float32: card loss {lc} gnorm {nc} against the CPU "
+          f"{lh} / {nh}")
+    del params
+    return {"f32_loss_card": lc, "f32_loss_cpu": lh,
+            "f32_loss_rel_err": abs(lc - lh) / abs(lh),
+            "f32_gnorm_rel_err": abs(nc - nh) / abs(nh),
+            "f32_layers": TRAIN["ref_layers"], "cpu_seq": s,
+            "cpu_s": round(cpu_s, 2)}
+
+
+def check_supervisor(dev) -> dict:
+    """[train-resume]: ``run_resumable`` over the SMOKE config on the card
+    with failures injected at steps 4 and 9 reaches step 12."""
+    cfg = get_smoke_config(TRAIN["arch"])
+    model = build_model(cfg)
+    fwd = planned_train(model, 2, 16, default_syscat(dev), dev,
+                        ("xla", "pallas"))
+    opt = make_optimizer("adamw", cosine_schedule(1e-3, 2, 100))
+    step = make_train_step(fwd, opt)
+    state0 = init_state(model.init_params(
+        torch.Generator(device=dev).manual_seed(SEED)), opt)
+    inj = FailureInjector(fail_at=(4, 9))
+    with tempfile.TemporaryDirectory() as ckpt:
+        def make_loop(start):
+            latest = latest_checkpoint(ckpt)
+            st = restore_checkpoint(latest, state0) if latest else state0
+            for i in range(start, 12):
+                inj.maybe_fail(i)
+                st, m = step(st, train_batch(cfg, 2, 16, dev, i))
+                if (i + 1) % 2 == 0:
+                    save_checkpoint(ckpt, i + 1, st)
+            return 12, {"loss": float(m["loss"])}
+
+        out = run_resumable(12, make_loop=make_loop, ckpt_dir=ckpt)
+    check(out["final_step"] == 12 and out["restarts"] == 2,
+          f"run_resumable: {out}")
+    return {"supervisor_final_step": out["final_step"],
+            "supervisor_restarts": out["restarts"]}
+
+
+def reference_loss(model, fwd, params, batch, syscat, dev, how) -> float:
+    """The loss a family's step is held to: the ("xla",) plan's
+    (``how="xla"``), or the kernel plan's with flash attention and the
+    grouped matmul on their plain versions (``how="plain"``: dbrx's xla
+    plan picks ``moe_dropping``, capacity factor 1.0, which drops other
+    assignments than the kernel plan's 2.0)."""
+    fb, ft = TRAIN_FAMILY_SHAPE
+    if how == "xla":
+        return float(planned_train(model, fb, ft, syscat, dev, ("xla",))(
+            params, batch))
+    entries = ((attention_layer, "flash_attention", flash_attention_plain),
+               (moe_layer, "grouped_matmul", gmm_reference))
+    saved = [getattr(m, n) for m, n, _f in entries]
+    try:
+        for m, n, f in entries:
+            setattr(m, n, f)
+        kernels.reset_launches()
+        loss = float(fwd(params, batch))
+        check(not any(kernels.launches().values()),
+              f"plain reference launched {kernels.launches()}")
+        return loss
+    finally:
+        for (m, n, _f), f in zip(entries, saved):
+            setattr(m, n, f)
+
+
+def train_family(dev, syscat) -> Counter:
+    """[train-family]: one train step of rwkv6-3b and zamba2-7b at full
+    width and cut depth (TRAIN_FAMILY), and dbrx-132b's loss and gradients
+    at one layer (its AdamW state would not fit beside them), at
+    TRAIN_FAMILY_SHAPE through the kernels and their PlainVJP: the
+    launches exact, loss and gradient norm finite, the loss within
+    TRAIN_ENGINE_RTOL of :func:`reference_loss`.  Returns the kernels'
+    launches summed over the three."""
+    fb, ft = TRAIN_FAMILY_SHAPE
+    launched = Counter()
+    for arch, spec in TRAIN_FAMILY.items():
+        cfg = get_config(arch).replace(**spec["cut"])
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init_params(torch.Generator(device=dev).manual_seed(
+            SEED))
+        batch = train_batch(cfg, fb, ft, dev)
+        fwd = planned_train(model, fb, ft, syscat, dev, ("xla", "pallas"))
+        _outer, inner = bucket_impls(fwd)
+        check(all(inner[i] for i in spec["impls"]),
+              f"{arch} train plan impls {dict(inner)}")
+        with torch.no_grad():          # before the step updates params
+            ref_loss = reference_loss(model, fwd, params, batch, syscat,
+                                      dev, spec["reference"])
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        if spec["optimizer"]:
+            opt = make_optimizer(cfg.optimizer, cosine_schedule(1e-3, 1, 10))
+            state, m = make_train_step(fwd, opt)(init_state(params, opt),
+                                                 batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            del state
+        else:
+            loss, grads = loss_and_grads(fwd, params, batch)
+            loss, gnorm = float(loss), float(global_norm(grads))
+            del grads
+        torch.cuda.synchronize()
+        counted = kernels.launches()
+        launched.update(counted)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        expected = launch_counts(**spec["launches"])
+        check(counted == expected,
+              f"{arch} train launches {counted} != {expected}")
+        check(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0
+              and abs(loss - ref_loss) <= TRAIN_ENGINE_RTOL * abs(ref_loss),
+              f"{arch}: loss {loss} gnorm {gnorm} against {ref_loss}")
+        phase("train-family", arch=arch, cut=json.dumps(spec["cut"]),
+              b=fb, seq=ft, params=sum(int(t.numel())
+                                       for _k, t in _leaves(params)),
+              optimizer=spec["optimizer"], loss=loss, grad_norm=gnorm,
+              reference=spec["reference"], reference_loss=ref_loss,
+              loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
+              launches=json.dumps({k: v for k, v in counted.items() if v}),
+              peak_mem_gb=round(peak, 3),
+              seconds=round(time.perf_counter() - t0, 1))
+        del params, fwd, model, batch
+        free_memory()
+    return launched
+
+
+def train_path(args, dev, syscat) -> list:
+    """Phases 33-39: qwen3-0.6b trained at full width and depth through the
+    train CLI.  Returns the flash record of the train path and the four
+    backward records."""
+    path = "qwen3_train"
+    cfg = get_config(TRAIN["arch"])
+    model = build_model(cfg)
+    b, s, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+
+    # 33. [train-plan]: the train plan picks the flash kernel in each layer
+    fwd = planned_train(model, b, s, syscat, dev, ("xla", "pallas"))
+    outer, inner = bucket_impls(fwd)
+    (scan,) = [n for n in fwd.concrete.topo() if n.subplan is not None]
+    check(inner["attn_flash_pallas"] == 1 and not {
+        "sdpa_xla", "sdpa_banded_xla"} & set(inner)
+        and scan.attrs["n_layers"] == cfg.n_layers
+        and scan.attrs["remat"] == "full"
+        and outer["softmax_xent_xla"] == 1,
+        f"{path}: impls {dict(outer)} {dict(inner)} {scan.attrs}")
+    phase("train-plan", path=path, b=b, seq=s, plan_id=fwd.plan_id[:12],
+          impls=json.dumps(dict(outer)), layer_impls=json.dumps(dict(inner)),
+          layers=cfg.n_layers, remat=scan.attrs["remat"])
+
+    # 34. [train-kernel]: the four entries' backward against the plain VJP
+    records = train_kernels(dev, cfg)
+
+    # 35. [train]: the CLI, 6 steps on two alternating batches; then
+    # 36. [train-resume]: its step-6 checkpoint removed, a fresh main()
+    # resumes from step 3
+    flash_calls, per_key = {}, Counter()
+    with tempfile.TemporaryDirectory(prefix="train-ckpt-") as ckpt_dir:
+        torch.cuda.reset_peak_memory_stats()
+        with recording_shapes(attention_layer, "flash_attention",
+                              flash_calls, kwarg="causal", counts=per_key):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            run = train_cli.main(train_argv(ckpt_dir))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counted = kernels.launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        free_memory()
+        t0 = time.perf_counter()
+        shutil.rmtree(f"{ckpt_dir}/step_{steps:010d}")
+        resumed = train_cli.main(train_argv(ckpt_dir))
+        resume_s = time.perf_counter() - t0
+    free_memory()
+    per_step = 2 * cfg.n_layers               # forward + remat recompute
+    expected = launch_counts(flash_attention=per_step * steps)
+    check(counted == expected, f"{path} launches {counted} != {expected}")
+    losses, gnorms = run["losses"], run["grad_norms"]
+    check(len(losses) == steps and all(map(math.isfinite, losses))
+          and all(g > 0 and math.isfinite(g) for g in gnorms),
+          f"{path}: losses {losses} grad norms {gnorms}")
+    drop = losses[0] - losses[-1]
+    check(drop >= TRAIN_LOSS_DROP,
+          f"{path}: loss fell {drop} (< {TRAIN_LOSS_DROP}): {losses}")
+    times = [t for _i, t in run["logged"]]
+    walls = [b_ - a_ for a_, b_ in zip(times, times[1:])]
+    step_s = statistics.median(walls)
+    phase("train", path=path, arch=cfg.name, b=b, seq=s, steps=steps,
+          lr=TRAIN["lr"], cycle_batches=TRAIN["cycle"],
+          losses=json.dumps(losses), grad_norms=json.dumps(gnorms),
+          loss_drop=drop, launches=json.dumps(
+              {k: v for k, v in counted.items() if v}),
+          flash_per_step=counted["flash_attention"] / steps,
+          step_walls_s=json.dumps([round(w, 4) for w in walls]),
+          step_s=step_s, tokens_per_s=b * s / step_s,
+          run_wall_s=round(wall_s, 2), peak_mem_gb=round(peak, 3))
+    got, want = resumed["losses"], losses[TRAIN["ckpt_every"]:]
+    errs = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    check(resumed["start"] == TRAIN["ckpt_every"]
+          and len(got) == steps - TRAIN["ckpt_every"]
+          and max(errs) <= TRAIN_RESUME_RTOL,
+          f"{path} resume: losses {got} against {want}")
+    sup = check_supervisor(dev)
+    phase("train-resume", path=path, start=resumed["start"],
+          losses=json.dumps(got), straight=json.dumps(want),
+          rel_errs=json.dumps(errs), bitwise=got == want, **sup,
+          resume_run_s=round(resume_s, 1))
+
+    # the flash record: the kernel on the arguments the train step gave it
+    ((key, (fargs, fkw)),) = flash_calls.items()
+    check(per_key[key] == counted["flash_attention"],
+          f"{path}: {per_key[key]} flash calls recorded")
+    with torch.no_grad():
+        flash = flash_call_record(tuple(a.detach() for a in fargs), fkw,
+                                  path)
+    flash.update(launches=per_key[key], path=path)
+    records[0]["launches"] = counted["flash_attention"]
+    del flash_calls, fargs
+    free_memory()
+
+    # 37. [train-split] (and the profiler, with --profile)
+    train_split(model, fwd, dev, flash["device_ms"])
+    if args.profile:
+        opt = make_optimizer(cfg.optimizer, cosine_schedule(
+            TRAIN["lr"], 1, steps))
+        state = init_state(model.init_params(
+            torch.Generator(device=dev).manual_seed(SEED)), opt)
+        step_fn, batch = make_train_step(fwd, opt), train_batch(cfg, b, s,
+                                                                 dev)
+        step_fn(state, batch)
+        profile_call(lambda: step_fn(state, batch), path)
+        del state, batch
+    free_memory()
+
+    # 38. [train-check]: kernel plan against the xla plan; card against CPU
+    t0 = time.perf_counter()
+    res = check_train_engines(model, syscat, dev)
+    free_memory()
+    res.update(check_train_cpu(cfg, syscat, dev))
+    free_memory()
+    phase("train-check", path=path, **res,
+          seconds=round(time.perf_counter() - t0, 1))
+
+    # 39. [train-family]: the recurrent and MoE families' step
+    launched = train_family(dev, syscat)
+    for rec in records[1:]:
+        rec["launches"] = launched[TRAIN_KERNEL_OF[rec["name"]]]
+    return [flash, *records]
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4849,6 +5510,7 @@ def main(argv=None) -> int:
     paths += [("llava_forward", llava_path),
               ("seamless_forward", seamless_path)]
     paths.append(("multi_query", multi_query_path))
+    paths.append(("qwen3_train", train_path))
     if args.paths:
         wanted = args.paths.split(",")
         unknown = set(wanted) - {p for p, _ in paths}
@@ -4860,7 +5522,7 @@ def main(argv=None) -> int:
         free_memory()
         phase("time", path=path, seconds=round(time.perf_counter() - t0, 1))
 
-    # 33. results
+    # 40. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
     # device_ms / library_device_ms: the tri-store kernels' and the

@@ -6,13 +6,18 @@ execution context, the impl table over the port's own engine registry (the
 generic and the language-model impls live here; the store impls register
 from ``repro_torch.stores.runtime``), the fast ``run_plan`` path, and
 :class:`PlannedFunction`, the staged plan bound to a device.  The LM impls
-cover every family's prefill (dense, moe, rwkv, hybrid, vlm, encdec):
-``scan_layers_xla`` runs its subplan in a Python loop over the stacked
-per-layer parameters under ``torch.inference_mode()`` (``remat`` means
-nothing without a backward); ``attn_flash_pallas``, ``moe_gmm_pallas``,
+cover every family's prefill and train plans (dense, moe, rwkv, hybrid,
+vlm, encdec; ``softmax_xent_xla`` the loss): ``scan_layers_xla`` runs its
+subplan in a Python loop over the stacked per-layer parameters, under
+``torch.inference_mode()`` unless a parameter or an input requires grad;
+then each layer runs as its node's ``remat`` attr says, as the reference's
+``jax.checkpoint`` (``"full"``: ``torch.utils.checkpoint``; ``"dots"`` /
+``"dots_no_batch"``: selective checkpointing that keeps the matmuls'
+outputs; ``"none"``: plain).  ``attn_flash_pallas``, ``moe_gmm_pallas``,
 ``wkv6_pallas`` and ``ssd_pallas`` are the flash-attention, grouped expert
-matmul, WKV6 and SSD kernels, ``moe_dense_onehot`` and ``moe_dropping``
-the capacity dispatch with einsum experts (cf 2.0 and 1.0),
+matmul, WKV6 and SSD kernels (differentiable: the backward is each plain
+version's VJP, ``kernels/autograd.py``), ``moe_dense_onehot`` and
+``moe_dropping`` the capacity dispatch with einsum experts (cf 2.0 and 1.0),
 ``wkv6_scan_xla`` and ``ssd_chunked_xla`` the recurrences' chunked plain
 forms, ``sdpa_banded_xla`` the chunked local-window attention,
 ``concat_seq`` the vlm's frontend prefix and ``cross_attention_xla`` the
@@ -46,11 +51,14 @@ than carry on on the CPU.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .buffering import BufferingDecision
 from .cost_model import CostModel, raw_features
@@ -375,6 +383,11 @@ def _i_unembed(ctx, args, node):
     return out
 
 
+@impl("softmax_xent_xla")
+def _i_xent(ctx, args, node):
+    return E.softmax_xent(args[0], args[1])
+
+
 @impl("concat_seq")
 def _i_concat_seq(ctx, args, node):
     """The vlm's frontend prefix before the text embeddings: ``a`` cast to
@@ -388,6 +401,55 @@ def _i_tuple_get(ctx, args, node):
     return args[0][node.attrs["index"]]
 
 
+def _requires_grad(tree) -> bool:
+    return any(t.requires_grad for t in _tensors(tree))
+
+
+# the ops whose outputs selective checkpointing keeps: the reference's
+# ``checkpoint_dots`` / ``checkpoint_dots_with_no_batch_dims`` policies
+_SAVED_DOTS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default)}
+
+
+def _remat(remat: str):
+    """A layer runner ``run(fn, carry)`` for the scan node's ``remat``
+    attr: ``"none"`` calls ``fn``; ``"dots"`` / ``"dots_no_batch"``
+    checkpoint it keeping the matmuls' outputs; anything else (``"full"``,
+    and a name the reference's policy table lacks, which it checkpoints
+    with no policy) recomputes the whole layer in the backward."""
+    if remat in (None, "none"):
+        return lambda fn, carry: fn(carry)
+    kw = {}
+    if remat in _SAVED_DOTS:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(_SAVED_DOTS[remat]))
+    return lambda fn, carry: checkpoint(fn, carry, use_reentrant=False,
+                                        **kw)
+
+
+def _scan_grad(ctx, node, args):
+    """The scan with a gradient: every layer under :func:`_remat`.  A
+    ``collect_kv`` (serving) plan is refused."""
+    if node.attrs.get("collect_kv"):
+        raise NotImplementedError(
+            "scan_layers_xla: collect_kv plans serve; they take no gradient")
+    p_stack = ctx.params_for(node)
+    sub = node.subplan
+    in_names = list(sub.inputs.keys())
+    extra_env = dict(zip(in_names[1:], args[1:]))
+    run = _remat(node.attrs.get("remat", "none"))
+    carry = args[0]
+    for i in range(int(node.attrs["n_layers"])):
+        def layer(h, i=i):
+            ctx2 = replace(ctx, scope=layer_slice(p_stack, i))
+            return run_plan(sub, ctx2, {in_names[0]: h, **extra_env})[0]
+        carry = run(layer, carry)
+    return carry
+
+
 @impl("scan_layers_xla")
 def _i_scan(ctx, args, node):
     """The reference's ``lax.scan`` over stacked layers as a Python loop.
@@ -395,9 +457,14 @@ def _i_scan(ctx, args, node):
     layer unchanged, bound to the subplan's later inputs.  With
     ``collect_kv`` each layer's emitting sdpa impls append (K, V) to a
     fresh sink, stacked over layers to ``(layers, B, S, KV, D)`` — the
-    decode cache layout; returns ``(carry, ((K, V), ...))`` then."""
-    carry = args[0]
+    decode cache layout; returns ``(carry, ((K, V), ...))`` then.  When
+    grad mode is on and a parameter of the stack or an input requires
+    grad, :func:`_scan_grad` runs the layers instead, with ``remat``."""
     p_stack = ctx.params_for(node)
+    if torch.is_grad_enabled() and (_requires_grad(p_stack)
+                                    or _requires_grad(args)):
+        return _scan_grad(ctx, node, args)
+    carry = args[0]
     sub = node.subplan
     in_names = list(sub.inputs.keys())
     extra_env = dict(zip(in_names[1:], args[1:]))

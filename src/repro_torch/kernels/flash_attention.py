@@ -20,9 +20,11 @@ On a CUDA tensor they launch the kernel or raise; on CPU tensors they run
 :func:`flash_attention_plain`, the same function in plain PyTorch (the
 reference's ``mha_reference``), which the CPU tests hold against the
 reference and the chip smoke holds the kernel against.  The planner's
-``sdpa_xla`` impl computes it too.  No gradient yet: the reference's
-backward is the VJP of ``mha_reference`` and comes with the training
-slice.
+``sdpa_xla`` impl computes it too.  Under autograd (grad mode on and an
+input that requires grad) both entries run through
+:class:`~.autograd.PlainVJP`: the forward as above, the backward the VJP of
+:func:`flash_attention_plain`, as the reference's ``custom_vjp``
+(``ops.py:44-64``); the backward re-materializes the float32 S × S logits.
 
 Semantics (the reference's): q head h reads kv head ``h // (H / K)``;
 ``sm_scale`` defaults to ``D ** -0.5``; the causal mask aligns the ends
@@ -39,6 +41,7 @@ import ctypes
 import torch
 
 from . import build
+from .autograd import PlainVJP, needs_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -129,9 +132,9 @@ def _launch(qh, kh, vh, oh, *, causal, window, sm_scale) -> None:
     flash_attention.launches += 1
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, sm_scale=None):
-    """q: (B, Sq, H, D); k, v: (B, Skv, K, D) -> (B, Sq, H, D): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+def _forward(q, k, v, causal, window, sm_scale):
+    """(B, S, H, D) layout: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      sm_scale=sm_scale)
@@ -143,18 +146,53 @@ def flash_attention(q, k, v, *, causal=True, window=0, sm_scale=None):
     return out
 
 
-def flash_attention_hmajor(q, k, v, *, sm_scale=None, causal=True,
-                           window=0):
-    """q: (B, H, Sq, D); k, v: (B, K, Skv, D) -> (B, H, Sq, D): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+def _plain_hmajor(q, k, v, causal, window, sm_scale):
+    return flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, sm_scale=sm_scale).transpose(1, 2)
+
+
+def _forward_hmajor(q, k, v, causal, window, sm_scale):
+    """Heads-major layout: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_plain(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window, sm_scale=sm_scale).transpose(1, 2)
+        return _plain_hmajor(q, k, v, causal, window, sm_scale)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch(q, k, v, out, causal=causal, window=window, sm_scale=sm_scale)
     return out
+
+
+def _call(forward, plain, q, k, v, causal, window, sm_scale):
+    """``forward`` directly, or under autograd through PlainVJP with the
+    VJP of ``plain`` for its backward."""
+    if not needs_grad(q, k, v):
+        return forward(q, k, v, causal, window, sm_scale)
+
+    def bind(fn):
+        return lambda q_, k_, v_: fn(q_, k_, v_, causal, window, sm_scale)
+    return PlainVJP.apply(bind(forward), bind(plain), q, k, v)
+
+
+def _plain(q, k, v, causal, window, sm_scale):
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 sm_scale=sm_scale)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, sm_scale=None):
+    """q: (B, Sq, H, D); k, v: (B, Skv, K, D) -> (B, Sq, H, D): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors;
+    differentiable (the backward is the plain version's VJP)."""
+    return _call(_forward, _plain, q, k, v, causal, window, sm_scale)
+
+
+def flash_attention_hmajor(q, k, v, *, sm_scale=None, causal=True,
+                           window=0):
+    """q: (B, H, Sq, D); k, v: (B, K, Skv, D) -> (B, H, Sq, D): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors;
+    differentiable as :func:`flash_attention`."""
+    return _call(_forward_hmajor, _plain_hmajor, q, k, v, causal, window,
+                 sm_scale)
 
 
 flash_attention.launches = 0

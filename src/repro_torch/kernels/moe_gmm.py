@@ -24,10 +24,9 @@ with a float32 sum rounded once to x's dtype.
     ``ref.gmm_reference``): a float32 einsum cast back to x's dtype.
   * :func:`grouped_matmul` — the dispatch the MoE layer calls (the
     reference's ``ops.grouped_matmul``): the kernel for CUDA tensors,
-    :func:`gmm_reference` for CPU tensors.
-
-No gradient yet: the reference's backward is the VJP of
-``gmm_reference`` and comes with the training slice.
+    :func:`gmm_reference` for CPU tensors.  Under autograd it runs through
+    :class:`~.autograd.PlainVJP`: the backward is the VJP of
+    :func:`gmm_reference`, as the reference's ``custom_vjp``.
 """
 from __future__ import annotations
 
@@ -36,6 +35,7 @@ import ctypes
 import torch
 
 from . import build
+from .autograd import PlainVJP, needs_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -108,11 +108,18 @@ def gmm(x, w):
 gmm.launches = 0
 
 
-def grouped_matmul(x, w):
-    """The MoE layer's expert matmul: :func:`gmm` for CUDA tensors,
-    :func:`gmm_reference` for CPU tensors.  Unlike the reference's
-    ``ops.grouped_matmul`` nothing is padded: the kernel masks the true
-    sizes."""
+def _forward(x, w):
     if x.device.type == "cpu" and w.device.type == "cpu":
         return gmm_reference(x, w)
     return gmm(x, w)
+
+
+def grouped_matmul(x, w):
+    """The MoE layer's expert matmul: :func:`gmm` for CUDA tensors,
+    :func:`gmm_reference` for CPU tensors; differentiable (the backward is
+    :func:`gmm_reference`'s VJP).  Unlike the reference's
+    ``ops.grouped_matmul`` nothing is padded: the kernel masks the true
+    sizes."""
+    if needs_grad(x, w):
+        return PlainVJP.apply(_forward, gmm_reference, x, w)
+    return _forward(x, w)

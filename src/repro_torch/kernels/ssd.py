@@ -24,8 +24,9 @@ Shapes: x (B, T, H, P), a (B, T, H), b, c (B, T, H, N).
   * :func:`ssd_chunked` — the chunked matmul form, the ``ssd_chunked_xla``
     engine (chunk 128), copied from the reference.
 
-No gradient yet: the reference's backward is the VJP of ``ssd_reference``
-and comes with the training slice.
+Under autograd :func:`ssd` runs through :class:`~.autograd.PlainVJP`: the
+backward is the VJP of :func:`ssd_reference`'s output, as the reference's
+``custom_vjp``.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F_
 
 from . import build
+from .autograd import PlainVJP, needs_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 128
@@ -128,10 +130,20 @@ def _check(x, a, b, c):
         raise ValueError(f"ssd: batch x heads {bs * h} above 65535")
 
 
+def _plain(x, a, b, c):
+    return ssd_reference(x, a, b, c)[0]
+
+
 def ssd(x, a, b, c):
     """x (B, T, H, P), a (B, T, H), b, c (B, T, H, N) -> y (B, T, H, P) in
     x's dtype: the CUDA kernel for CUDA tensors, :func:`ssd_reference` for
-    CPU tensors."""
+    CPU tensors; differentiable (the backward is the reference's VJP)."""
+    if needs_grad(x, a, b, c):
+        return PlainVJP.apply(_forward, _plain, x, a, b, c)
+    return _forward(x, a, b, c)
+
+
+def _forward(x, a, b, c):
     if all(t.device.type == "cpu" for t in (x, a, b, c)):
         return ssd_reference(x, a, b, c)[0]
     _check(x, a, b, c)

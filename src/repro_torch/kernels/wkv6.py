@@ -23,8 +23,9 @@ with the data-dependent decay ``w_t`` in (0, 1) and the per-head bonus
   * :func:`wkv6_chunked` — the chunked form, the ``wkv6_scan_xla`` engine
     (chunk 32, clamp 60), copied from the reference.
 
-No gradient yet: the reference's backward is the VJP of
-``wkv6_reference`` and comes with the training slice.
+Under autograd :func:`wkv6` runs through :class:`~.autograd.PlainVJP`:
+the backward is the VJP of :func:`wkv6_reference`'s output, as the
+reference's ``custom_vjp``.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import torch
 import torch.nn.functional as F_
 
 from . import build
+from .autograd import PlainVJP, needs_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -132,10 +134,20 @@ def _check(r, k, v, w, u):
         raise ValueError(f"wkv6: batch x heads {b * h} above 65535")
 
 
+def _plain(r, k, v, w, u):
+    return wkv6_reference(r, k, v, w, u)[0]
+
+
 def wkv6(r, k, v, w, u):
     """r, k, v, w: (B, T, H, D); u: (H, D) -> y (B, T, H, D) in r's dtype:
     the CUDA kernel for CUDA tensors, :func:`wkv6_reference` for CPU
-    tensors."""
+    tensors; differentiable (the backward is the reference's VJP)."""
+    if needs_grad(r, k, v, w, u):
+        return PlainVJP.apply(_forward, _plain, r, k, v, w, u)
+    return _forward(r, k, v, w, u)
+
+
+def _forward(r, k, v, w, u):
     if all(t.device.type == "cpu" for t in (r, k, v, w, u)):
         return wkv6_reference(r, k, v, w, u)[0]
     _check(r, k, v, w, u)

@@ -1,5 +1,5 @@
-"""Token embedding and unembedding (the port of the reference's
-``layers/embedding.py``; the loss head waits for the training slice)."""
+"""Token embedding, unembedding and the loss head (the port of the
+reference's ``layers/embedding.py``)."""
 from __future__ import annotations
 
 import torch
@@ -35,3 +35,15 @@ def mask_padded_logits(logits, vocab):
     return torch.where(ids < vocab, logits,
                        torch.full((), -1e30, dtype=logits.dtype,
                                   device=logits.device))
+
+
+def softmax_xent(logits, labels, *, ignore_index=-100):
+    """Mean next-token cross-entropy over the labels that are not
+    ``ignore_index``: logits (..., V) in their own dtype (float32 from
+    :func:`unembed`), labels (...)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    weight = valid.to(logits.dtype)
+    return (logz - gold).mul(weight).sum() / weight.sum().clamp(min=1.0)

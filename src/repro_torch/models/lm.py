@@ -15,7 +15,8 @@ equal ``SystemCatalog``.
 Parameters are a nested dict of tensors keyed exactly as the reference's
 tree (``layers_0`` → ``b0_attn`` → ``wq`` …, each leaf stacked over the
 group's layers), so the plans' ``pp`` paths index them unchanged;
-:func:`params_from_numpy` carries the reference's parameters across.
+:func:`params_from_numpy` carries the reference's parameters across, and
+:func:`train_state_from_numpy` a whole train state.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ..layers import mlp as F
 from ..layers import moe as X
 from ..layers import rwkv as R
 from ..layers.common import stack_layers, torch_dtype
+from ..train.train_step import TrainState
 
 CATALOG = standard_catalog()
 # the parameters the layers cast to the activation dtype at every call
@@ -183,6 +185,13 @@ def params_from_numpy(tree, device="cpu"):
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
     return torch.from_numpy(arr).to(device)
+
+
+def train_state_from_numpy(state, device="cpu") -> TrainState:
+    """The reference's ``TrainState`` with numpy leaves (its ``step``,
+    ``params``, ``opt_state``) as the port's, on ``device``."""
+    return TrainState(*(params_from_numpy(t, device) for t in (
+        state.step, state.params, state.opt_state)))
 
 
 # --------------------------------------------------------------------------

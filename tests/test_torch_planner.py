@@ -105,6 +105,11 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.core.mqo, repro_torch.core.faults\n"
         "import repro_torch.core.resilience, repro_torch.serving.degrade\n"
         "import repro_torch.examples.multi_query\n"
+        "import repro_torch.kernels.autograd\n"
+        "import repro_torch.train.optim, repro_torch.train.train_step\n"
+        "import repro_torch.train.checkpoint\n"
+        "import repro_torch.train.fault_tolerance\n"
+        "import repro_torch.launch.train, repro_torch.examples.train_lm\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and m.split('.')[0] in ('repro', 'jax', 'jaxlib')]\n"

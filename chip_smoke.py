@@ -457,7 +457,37 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      with flash and gmm on their plain versions, since its xla plan drops
      at capacity factor 1.0);
 
- 40. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+  ``tri_sharded`` (the stores sharded over a ``torch.distributed`` world,
+  slice 16; runs last):
+
+ 41a. [sharded-data], [sharded-single] — ``tri_sharded.build_workload``
+     at ``INFLUENCE``'s sizes, one shard, on the card; each engine set's
+     unsharded run (its output, expand / PageRank / top-64 outputs and
+     scatter_add's arguments) and wall time (median of 5);
+ 41b. [sharded-plan] — for world 2 and 4 (``tri_sharded.rank_run`` on
+     spawned ranks that all share the card, gloo staged through pinned
+     host memory) and each engine set (``store_engines()`` and the port's
+     default): the plan id, the ``dist`` nodes with ``bucket_cap`` and the
+     xfer kinds, each exact against the reference's plan of the same
+     arrays under the H100 SXM catalog with mesh ``(world, 1)``;
+ 41c. [sharded]  — each rank's launches of one run (none under
+     ``store_engines()``; scatter_add 5 and join_probe 1 under the kernel
+     plan, whose kernel impls ignore ``dist`` and run dense on every
+     rank), wall time (median of 5 runs after a barrier, rank 0 and every
+     rank), the collectives' calls and bytes by kind and the bytes staged
+     through host memory in one run, beside the card's ``nvidia-smi`` name
+     and power limit;
+ 41d. [sharded-check] — every rank's output the same tensor, allclose
+     (``rtol=1e-4, atol=1e-5``, the reference benchmark's) to the
+     unsharded card run; the expand, PageRank and top-64 outputs bitwise
+     the unsharded run's; the partitioned join's match set and count equal
+     ``hash_join_nonunique`` on the card, no overflow; every ``dist`` node
+     of a plain impl carries its ``coll`` under ``analyze``;
+ 41e. [sharded-kernel] — scatter_add on the kernel plan's SpMV arguments
+     and join_probe on the scanned table against the top-64, against their
+     plain versions; their launches summed over every rank of both worlds;
+
+ 42. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Observability (EXPLAIN ANALYZE and the resource ledger, slice 11), inside
 the paths above:
@@ -595,6 +625,7 @@ from repro_torch.core.rewrite import (DEFAULT_PIPELINE,  # noqa: E402
                                       UNPUSHED_PIPELINE)
 from repro_torch.examples import multi_query as mq  # noqa: E402
 from repro_torch.examples import tri_influence  # noqa: E402
+from repro_torch.examples import tri_sharded  # noqa: E402
 from repro_torch.examples import windowed_ranking  # noqa: E402
 from repro_torch.examples.tri_model_analysis import (  # noqa: E402
     adil_script, build_social_data, inputs_for)
@@ -607,6 +638,7 @@ from repro_torch.kernels.graph_kernels import (  # noqa: E402
 from repro_torch.kernels.ssd import ssd, ssd_reference  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_reference  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import run_ranks  # noqa: E402
 from repro_torch.layers import attention as attention_layer  # noqa: E402
 from repro_torch.layers import embedding as embedding_layer  # noqa: E402
 from repro_torch.layers import mamba as mamba_layer  # noqa: E402
@@ -870,6 +902,45 @@ INFLUENCE_IMPLS = Counter({
     "graph_pagerank_pallas": 1, "text_topk_inv": 1,
     "rel_fused_agg_pallas": 2, "residual_add_xla": 2, "store": 1})
 INFLUENCE_LAUNCHES = launch_counts(scatter_add=5, masked_segment_agg=2)
+
+# tri_sharded: the sharded half of benchmarks/tri_store_sharded.py at
+# INFLUENCE's sizes, every store with_shards(world), on 2 and 4 ranks that
+# share the card.  The reference's plans of it under the H100 SXM catalog
+# with mesh (world, 1): its Analysis over its stores built from the
+# arrays tri_influence.influence_arrays draws at these sizes, planned by
+# its own planner.  Plan id, the dist nodes (impl, dist, bucket_cap) and
+# the xfer kinds, in topo order.
+SHARDED_WORLDS = (2, 4)
+SHARDED_TIMEOUT = 600.0       # one world's deadline (s)
+
+
+def sharded_plan(plan_id, pallas, bucket_cap):
+    expand, pagerank, join = (
+        ("graph_expand_pallas", "graph_pagerank_pallas",
+         "rel_join_probe_pallas") if pallas else
+        ("graph_expand_csr", "graph_pagerank_csr", "rel_hash_join"))
+    dist = [("rel_scan_col", "row", None), ("rel_fused_col", "row", None),
+            ("rel_group_agg_col", "row", None), (expand, "block", None),
+            (pagerank, "block", None), ("text_topk_inv", "doc", None),
+            (join, "broadcast", None), ("rel_group_agg_col", "row", None),
+            ("bounded_join_col", "partitioned", bucket_cap),
+            ("rel_group_agg_col", "row", None)]
+    xfers = ["local", "local", "local", "repartition", "spill", "replicate",
+             "local", "local"]
+    return plan_id, dist, xfers
+
+
+SHARDED_PLANS = {(2, "xla"): sharded_plan("760c11d73bfd", False, 888_889),
+                 (2, "xla,pallas"): sharded_plan("693427435f2f", True,
+                                                 888_889),
+                 (4, "xla"): sharded_plan("ed15cd30122d", False, 222_222),
+                 (4, "xla,pallas"): sharded_plan("071c2cd4a56e", True,
+                                                 222_222)}
+# each rank's launches in one run: the kernel impls ignore dist and run
+# dense (2 hops + 3 PageRank iterations, the text join's probe)
+SHARDED_LAUNCHES = {"xla": {},
+                    "xla,pallas": {"scatter_add": 5, "join_probe": 1}}
+BENCH_RTOL, BENCH_ATOL = 1e-4, 1e-5   # benchmarks/tri_store_sharded.py's
 
 
 # the SASS opcodes each library must hold: the tensor-core kernels'
@@ -2319,6 +2390,162 @@ def influence_path(args, dev, syscat) -> list:
     check_tricount(dev, syscat)
     free_memory()
     check_collections(dev, syscat)
+    return records
+
+
+# -- phase 41: tri_sharded, the stores sharded over 2 and 4 ranks ---------
+
+
+def sharded_world(world, size, dev, smi):
+    """``tri_sharded.rank_run`` on ``world`` ranks sharing the card, both
+    engine sets, RUNS timed runs each.  Returns ``{engine set: [rank
+    summaries]}`` after the [sharded-plan] and [sharded] phases."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(tri_sharded.rank_run, world, device=dev.type,
+                          init_file=Path(tmp) / "group",
+                          timeout=SHARDED_TIMEOUT,
+                          args=(size, tuple(tri_sharded.ENGINES), SEED,
+                                RUNS))
+    world_s = time.perf_counter() - t0
+    out = {}
+    for engines in tri_sharded.ENGINES:
+        runs = [r[engines] for r in ranks]
+        head = runs[0]
+        plan_id, dist, xfers = SHARDED_PLANS[(world, engines)]
+        check(all(r["plan_id"] == head["plan_id"] for r in runs),
+              "the ranks planned apart")
+        check(head["plan_id"][:12] == plan_id,
+              f"plan {head['plan_id'][:12]} != the reference's {plan_id}")
+        check(head["dist"] == dist, f"dist nodes {head['dist']} != {dist}")
+        check(head["xfers"] == xfers, f"xfer kinds {head['xfers']}")
+        phase("sharded-plan", world=world, engines=engines,
+              plan_id=head["plan_id"][:12], reference_plan_id=plan_id,
+              dist=json.dumps([f"{i}:{d}" + (f"@{b}" if b else "")
+                               for i, d, b in head["dist"]]),
+              xfers=json.dumps(head["xfers"]), exact=True)
+        for r in runs:
+            check(r["launches"] == SHARDED_LAUNCHES[engines],
+                  f"rank {r['rank']}'s launches {r['launches']} != "
+                  f"{SHARDED_LAUNCHES[engines]}")
+        walls = [r["wall_s"] * 1e3 for r in runs]
+        stats = head["stats"]
+        phase("sharded", world=world, engines=engines,
+              wall_ms=walls[0], wall_ms_ranks=json.dumps(walls),
+              runs=RUNS, launches_per_rank=json.dumps(head["launches"]),
+              coll_bytes=json.dumps({k: v for k, v in sorted(stats.items())
+                                     if k.endswith("_bytes")
+                                     and k != "staged_bytes"}),
+              coll_calls=json.dumps({k: v for k, v in sorted(stats.items())
+                                     if k.endswith("_calls")}),
+              staged_host_bytes=stats.get("staged_bytes", 0),
+              data_s=round(head["data_s"], 3), world_s=round(world_s, 1),
+              card=json.dumps(smi))
+        out[engines] = runs
+    return out
+
+
+def sharded_path(args, dev, syscat) -> list:
+    """Phases 41a-41e: ``tri_sharded``.  Returns its kernels' records."""
+    size = {k: v for k, v in INFLUENCE.items() if k != "cut"}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    # 41a. the unsharded card run of each engine set (the comparison)
+    t0 = time.perf_counter()
+    analysis, stores, query = tri_sharded.build_workload(
+        np.random.RandomState(SEED), 1, **size)
+    inputs = tri_influence.inputs_for(*stores, query, dev)
+    torch.cuda.synchronize()
+    phase("sharded-data", path="tri_sharded", tweets=stores[0].rows,
+          docs=stores[2].n_docs, hashtags=stores[1].n_nodes,
+          worlds=json.dumps(SHARDED_WORLDS),
+          cut=json.dumps(INFLUENCE["cut"]),
+          setup_s=round(time.perf_counter() - t0, 3))
+    single, scatter_calls = {}, []
+    for engines, pallas in tri_sharded.ENGINES.items():
+        fn = repro_torch.compile(analysis, syscat, device=dev,
+                                 engines=store_engines(pallas=pallas))
+        with recording(graph_store, "scatter_add",
+                       scatter_calls if pallas else []):
+            env = run_env(fn, inputs)
+        torch.cuda.synchronize()
+        out = env[fn.concrete.outputs[0]].cpu().numpy()
+        nodes = tri_sharded.node_outputs(fn, env)
+        hits = node_out(fn, env, "text_topk_inv")
+        del env
+        walls = []
+        for _ in range(RUNS):
+            t1 = time.perf_counter()
+            fn({}, inputs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        single[engines] = (out, nodes, statistics.median(walls) * 1e3)
+        phase("sharded-single", engines=engines, plan_id=fn.plan_id[:12],
+              wall_ms=single[engines][2], runs=RUNS, card=json.dumps(smi))
+
+    # 41b-41d. each world: plans, figures, checks
+    launches = Counter()
+    for world in SHARDED_WORLDS:
+        runs = sharded_world(world, size, dev, smi)
+        for engines, ranks in runs.items():
+            head = ranks[0]
+            out, nodes, single_ms = single[engines]
+            check(all(np.array_equal(r["out"], head["out"]) for r in ranks),
+                  "the ranks' outputs differ")
+            check(bool(np.isfinite(head["out"]).all()),
+                  "output is not finite")
+            err = float(np.abs(head["out"] - out).max())
+            check(np.allclose(head["out"], out, rtol=BENCH_RTOL,
+                              atol=BENCH_ATOL),
+                  f"world {world} {engines}: output differs from the "
+                  f"unsharded card run by {err}")
+            for k, v in nodes.items():
+                got = head["nodes"][k]
+                bad = np.flatnonzero(got != v)
+                check(bad.size == 0,
+                      f"world {world} {engines}: {k} not bitwise the "
+                      f"unsharded run's: at {bad[:4].tolist()} "
+                      f"{got[bad[:4]].tolist()} != {v[bad[:4]].tolist()}")
+            join = head["join"]
+            check(join["same_set"] and join["count"] == join["dense_count"]
+                  and not join["overflow"],
+                  f"the partitioned join {join} differs from the dense one")
+            for r in ranks:
+                plain = [sp for sp in r["spans"]
+                         if not sp[1].endswith("_pallas")]
+                check(len(r["spans"]) == len(r["dist"])
+                      and all(sp[3] for sp in plain),
+                      f"a dist node ran without its collective: "
+                      f"{r['spans']}")
+                launches.update(r["launches"])
+            phase("sharded-check", world=world, engines=engines,
+                  out_allclose_unsharded=True, out_max_abs_err=err,
+                  nodes_bitwise=",".join(nodes), ranks_bitwise=True,
+                  join_count=join["count"], join_overflow=join["overflow"],
+                  join_same_set=True, bucket_cap=join["bucket_cap"],
+                  spans_coll=json.dumps(sorted({
+                      f"{sp[1]}:{sp[3]}" for sp in head["spans"]})),
+                  wall_ms=head["wall_s"] * 1e3, unsharded_ms=single_ms)
+        del runs
+        free_memory()
+
+    # 41e. the kernel plan's kernels at the shapes its ranks give them
+    # (they run dense on every rank: the unsharded kernel plan's SpMVs, and
+    # the scanned table probing the top-64)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    check(len(scatter_calls) == 2 + size["iters"],   # 2 hops + iterations
+          f"{len(scatter_calls)} scatter_add calls")
+    records = [check_scatter(dev, gen, scatter_calls, edges=False),
+               check_join_probe(dev, gen, inputs["tweets"].cols["doc"],
+                                hits.cols["doc"], hits.valid)]
+    for rec in records:
+        # summed over every rank of both worlds
+        rec["launches"] = launches[rec["name"]]
+        rec["path"] = "tri_sharded"
+    phase("sharded-kernel", launches=json.dumps(dict(launches)),
+          note=json.dumps("launches summed over every rank of both worlds"))
     return records
 
 
@@ -5511,6 +5738,7 @@ def main(argv=None) -> int:
               ("seamless_forward", seamless_path)]
     paths.append(("multi_query", multi_query_path))
     paths.append(("qwen3_train", train_path))
+    paths.append(("tri_sharded", sharded_path))
     if args.paths:
         wanted = args.paths.split(",")
         unknown = set(wanted) - {p for p, _ in paths}
@@ -5522,7 +5750,7 @@ def main(argv=None) -> int:
         free_memory()
         phase("time", path=path, seconds=round(time.perf_counter() - t0, 1))
 
-    # 40. results
+    # 42. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
     # device_ms / library_device_ms: the tri-store kernels' and the

@@ -28,6 +28,8 @@ Without a card they raise.
 """
 from __future__ import annotations
 
+from dataclasses import replace
+
 from .core.executor import PlannedFunction, default_syscat, resolve_device
 from .core.ir import SystemCatalog  # noqa: F401  (repro_torch.SystemCatalog)
 from . import stores
@@ -37,16 +39,22 @@ __all__ = ["compile", "PlannedFunction", "resolve_device", "stores"]
 
 
 def compile(analysis, syscat=None, *, engines=None, device="cuda",
-            **kw) -> PlannedFunction:
-    """Plan ``analysis`` (a port ``Analysis``) and bind it to ``device``.
+            mesh=None, **kw) -> PlannedFunction:
+    """Plan ``analysis`` (a port ``Analysis``) and bind it to ``device``
+    and, on a ``mesh`` (``repro_torch.launch.mesh.DataMesh``), to the
+    calling rank.
 
     ``syscat`` defaults to the data sheet of the card in use (of the H100
-    SXM when planning for the CPU); ``engines`` defaults to the tri-store
-    engines with the kernel slot.  Raises without a card unless
-    ``device="cpu"``."""
+    SXM when planning for the CPU), with the mesh's shape on a mesh;
+    ``engines`` defaults to the tri-store engines with the kernel slot.
+    Raises without a card unless ``device="cpu"``."""
     dev = resolve_device(device)
     if syscat is None:
         syscat = default_syscat(dev)
+        if mesh is not None:
+            syscat = replace(syscat, mesh_axes=("data", "model"),
+                             mesh_shape=(int(mesh.world), 1))
     if engines is None:
         engines = store_engines(pallas=True)
-    return analysis.compile(syscat, engines=engines, device=dev, **kw)
+    return analysis.compile(syscat, engines=engines, device=dev, mesh=mesh,
+                            **kw)

@@ -45,6 +45,12 @@ checks it at every node boundary (``_run_plan_faulted``, or inside each
 span of the traced path), wrapping any impl exception into the
 :class:`~repro_torch.core.resilience.ExecError` taxonomy with its site.
 
+On a mesh (``plan_and_compile(..., mesh=)``, a
+:class:`~repro_torch.launch.mesh.DataMesh` whose rank device is the plan's)
+every rank runs the same plan on the same global values, and the store
+impls of ``dist``-stamped nodes run their sharded operators through the
+mesh's collectives (``ExecContext.mesh``).
+
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; without a card they raise (:func:`resolve_device`) rather
 than carry on on the CPU.
@@ -88,6 +94,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """One device, where ``cuda`` names the current card."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    here = torch.cuda.current_device()
+    return (a.index if a.index is not None else here) == (
+        b.index if b.index is not None else here)
+
+
 def default_syscat(device) -> SystemCatalog:
     """The system catalog to plan for on ``device``: the data sheet of the
     card in use, or of the H100 SXM when planning for the CPU."""
@@ -124,6 +141,7 @@ class ExecContext:
     aux: dict = field(default_factory=dict)   # count_sink, positions, ...
     tracer: Optional[Any] = None    # core.tracing.Tracer; None = fast path
     faults: Optional[Any] = None    # core.faults.FaultInjector; None = off
+    mesh: Optional[Any] = None      # launch.mesh.DataMesh; None = one rank
 
     def params_for(self, node):
         """The parameters under the node's ``pp`` path: from the root for
@@ -580,7 +598,7 @@ def _run_plan_traced(pplan: PhysPlan, ctx: ExecContext,
     path only."""
     from .tracing import tree_bytes, xfer_wire_bytes
     tracer = ctx.tracer
-    n_data = 1                       # one device: no data axis
+    n_data = 1 if ctx.mesh is None else int(ctx.mesh.world)
     env = dict(values)
     for n in pplan.topo():
         fn = _impl_fn(n)
@@ -641,7 +659,7 @@ def _drain_counts(resolved, feedback) -> None:
 
 @dataclass
 class PlannedFunction:
-    """A staged plan bound to one device."""
+    """A staged plan bound to one device, and on a mesh to its rank."""
 
     logical: Plan
     pplan: PhysPlan                  # with virtual nodes (pre-choice)
@@ -656,13 +674,18 @@ class PlannedFunction:
     faults: Optional[Any] = None     # core.faults.FaultInjector; None = off
     last_run_trace: Optional[Any] = None   # RunTrace of the last analyze()
     _predicted: Optional[dict] = None      # node id -> (seconds, features)
+    mesh: Optional[Any] = None       # launch.mesh.DataMesh; None = one rank
 
     @classmethod
     def from_staged(cls, staged, syscat: SystemCatalog, *,
-                    device="cuda") -> "PlannedFunction":
+                    device="cuda", mesh=None) -> "PlannedFunction":
+        dev = resolve_device(device)
+        if mesh is not None and not _same_device(mesh.device, dev):
+            raise ValueError(f"the mesh's rank runs on {mesh.device}, but "
+                             f"the plan is compiled for {dev}")
         return cls(staged.logical, staged.pplan, staged.concrete,
                    staged.choices, staged.report, staged.buffering,
-                   syscat, resolve_device(device), staged.plan_id, staged)
+                   syscat, dev, staged.plan_id, staged, mesh=mesh)
 
     def explain(self, analyze=False) -> str:
         """The plan-time EXPLAIN report; with ``analyze`` the runtime
@@ -696,7 +719,8 @@ class PlannedFunction:
                         f"this plan runs on {dev}: build it with "
                         f"payload(device={str(dev)!r})")
         return ExecContext(root=params, scope=params, device=dev,
-                           aux=aux or {}, tracer=tracer, faults=self.faults)
+                           aux=aux or {}, tracer=tracer, faults=self.faults,
+                           mesh=self.mesh)
 
     def __call__(self, params, inputs: dict, aux: Optional[dict] = None):
         outs = run_plan(self.concrete, self._context(params, inputs, aux),
@@ -844,10 +868,12 @@ def plan_and_compile(logical: Plan, catalog: FunctionCatalog,
                      plan_threads: int = 1,
                      feedback=None,
                      store_versions: tuple = (),
-                     device="cuda") -> PlannedFunction:
+                     device="cuda", mesh=None) -> PlannedFunction:
     """Run — or fetch from the plan cache — the staged plan pipeline and
-    bind the staged plan to ``device``.  The options are the reference
-    package's, so equal options give an equal plan id."""
+    bind the staged plan to ``device`` and, on a mesh
+    (:class:`~repro_torch.launch.mesh.DataMesh`, whose rank device must be
+    ``device``), to the rank.  The options are the reference package's, so
+    equal options give an equal plan id."""
     from .pipeline import PlanOptions, compile_staged
     from .rewrite import DEFAULT_PIPELINE
     dev = resolve_device(device)
@@ -864,4 +890,4 @@ def plan_and_compile(logical: Plan, catalog: FunctionCatalog,
                             cost_model=cost_model, pipeline=pipeline,
                             cache=cache, feedback=feedback,
                             extra_key=extra_key)
-    return PlannedFunction.from_staged(staged, syscat, device=dev)
+    return PlannedFunction.from_staged(staged, syscat, device=dev, mesh=mesh)

@@ -91,13 +91,13 @@ def stores_from_arrays(arrays, *, hashtags, vocab, **_):
 
 
 def influence_rollup(table, graph, corpus, infl, *, iters, k=64,
-                     capacity=None) -> Analysis:
+                     capacity=None, name="tri_sharded_s1") -> Analysis:
     """The analysis over the four stores; ``capacity`` of the bounded join
-    defaults to the tweet count, as in the reference."""
+    defaults to the tweet count, as in the reference.  ``name`` is the
+    reference's for its one-shard build (plan ids hash it)."""
     hashtags, vocab = graph.n_nodes, corpus.vocab
     cap = table.rows if capacity is None else int(capacity)
-    # the reference's name for its one-shard build: plan ids hash it
-    with Analysis("tri_sharded_s1", standard_catalog()) as a:
+    with Analysis(name, standard_catalog()) as a:
         tw = a.bind("tweets", table)
         gr = a.bind("g", graph)
         cx = a.bind("cx", corpus)

@@ -51,10 +51,14 @@ class ColumnStore:
     Every append bumps the monotonic ``version``, which the planner folds
     into the plan-cache key, so plans priced against the old rows are not
     reused.
+
+    ``shards > 1`` declares the table row-partitioned over the mesh's
+    ``data`` axis: the capacity rounds up to a shard multiple (the pad
+    rows are ``valid=False``) and the type says ``partitioning="row"``.
     """
 
     def __init__(self, columns: Dict[str, np.ndarray],
-                 capacity: Optional[int] = None):
+                 capacity: Optional[int] = None, shards: int = 1):
         if not columns:
             raise ValidationError("ColumnStore needs >= 1 column")
         lens = {k: len(v) for k, v in columns.items()}
@@ -67,7 +71,19 @@ class ColumnStore:
         if self.capacity < self.rows:
             raise ValidationError(
                 f"capacity {self.capacity} < ingested rows {self.rows}")
+        self.shards = int(shards)
+        if self.shards < 1:
+            raise ValidationError(f"shards {self.shards} < 1")
+        self.capacity += (-self.capacity) % self.shards
         self.version = 0
+
+    def with_shards(self, shards: int) -> "ColumnStore":
+        """This table re-declared as row-partitioned over ``shards`` mesh
+        slices (shares the ingested column data)."""
+        out = ColumnStore(self._cols, capacity=self.capacity, shards=shards)
+        out.rows = self.rows
+        out.version = self.version
+        return out
 
     @staticmethod
     def _canon_col(name: str, col: np.ndarray) -> np.ndarray:
@@ -87,7 +103,7 @@ class ColumnStore:
         # expected_count only when headroom exists, as in the reference
         exp = None if self.rows == self.capacity else self.rows
         return TableT(tuple((k, str(v.dtype)) for k, v in self._cols.items()),
-                      self.capacity, exp, None)
+                      self.capacity, exp, "row" if self.shards > 1 else None)
 
     def payload(self, device="cuda") -> BoundedRel:
         """The table on ``device`` (the card unless the caller asks for the
@@ -130,6 +146,7 @@ class ColumnStore:
             self._cols[k] = np.concatenate([self._cols[k], v])
         self.rows += next(iter(lens.values()))
         self.capacity = max(self.capacity, self.rows)
+        self.capacity += (-self.capacity) % self.shards
         self.version += 1
         return self
 

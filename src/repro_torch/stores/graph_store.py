@@ -20,7 +20,10 @@ each run of equal ``dst`` in registers and adds it with one atomic, so a
 hub node's millions of edges cost a few thousand atomics instead of one
 each.  The sort is stable, so every node's contributions keep their CSR
 order.  The copy costs 12 bytes an edge (209 MB at 17.4M edges).  The
-plain path and the block-skipping SpMV read the CSR order.
+plain path and the block-skipping SpMV read the CSR order.  A store
+declared sharded (:meth:`GraphStore.with_shards`) also carries the
+dst-block edge arrays (``blk_*``) that the sharded SpMV of
+:mod:`.sharded` reads.
 
 Frontier ops built on the SpMV:
 
@@ -51,16 +54,41 @@ from ..kernels.graph_kernels import scatter_add, scatter_add_plain
 
 
 class GraphStore:
-    """Host-side CSR container built from an edge list."""
+    """Host-side CSR container built from an edge list.  ``shards > 1``
+    declares it dst-block partitioned over the mesh's ``data`` axis
+    (:meth:`with_shards`)."""
 
-    def __init__(self, indptr, indices, src, weights, n_nodes: int):
+    def __init__(self, indptr, indices, src, weights, n_nodes: int,
+                 shards: int = 1):
         self.indptr = np.asarray(indptr, np.int32)
         self.indices = np.asarray(indices, np.int32)
         self.src = np.asarray(src, np.int32)
         self.weights = np.asarray(weights, np.float32)
         self.n_nodes = int(n_nodes)
         self.n_edges = int(self.indices.shape[0])
+        self.shards = int(shards)
+        if self.shards < 1:
+            raise ValidationError(f"shards {self.shards} < 1")
+        if self.n_nodes % self.shards:
+            raise ValidationError(
+                f"shards {self.shards} must divide n_nodes {self.n_nodes}; "
+                f"pad the node domain (with_shards pads automatically)")
         self.version = 0
+
+    def with_shards(self, shards: int) -> "GraphStore":
+        """This graph re-declared as dst-block partitioned over ``shards``
+        mesh slices.  The node domain pads up to a shard multiple with
+        isolated (edgeless) vertices; ``payload()`` then also carries the
+        dst-block edge arrays the block-partitioned SpMV runs on."""
+        n = self.n_nodes + (-self.n_nodes) % int(shards)
+        indptr = self.indptr
+        if n != self.n_nodes:
+            pad = np.full(n - self.n_nodes, self.indptr[-1], np.int32)
+            indptr = np.concatenate([self.indptr, pad])
+        out = GraphStore(indptr, self.indices, self.src, self.weights, n,
+                         shards=int(shards))
+        out.version = self.version
+        return out
 
     @classmethod
     def from_edges(cls, src, dst, n_nodes: int, weights=None,
@@ -94,12 +122,12 @@ class GraphStore:
     def type(self) -> GraphT:
         return GraphT(self.n_nodes, self.n_edges,
                       weighted=bool((self.weights != 1.0).any()),
-                      partitioning=None)
+                      partitioning="block" if self.shards > 1 else None)
 
     def payload(self, device="cuda") -> dict:
         """The CSR and its dst-ordered edge copy on ``device`` (the card
-        unless the caller asks for the CPU), registered in the default
-        memory ledger."""
+        unless the caller asks for the CPU), with the dst-block edge arrays
+        when sharded, registered in the default memory ledger."""
         dev = resolve_device(device)
         out_deg = np.maximum(np.diff(self.indptr), 1).astype(np.float32)
         out = with_dst_order({
@@ -109,9 +137,39 @@ class GraphStore:
             "weights": torch.from_numpy(self.weights).to(dev),
             "out_deg": torch.from_numpy(out_deg).to(dev),
         })
+        if self.shards > 1:
+            out.update({k: torch.from_numpy(v).to(dev)
+                        for k, v in self._block_payload().items()})
         return register_store_payload(
             self, out, "graph_store",
             extra=tree_bytes([out[k] for k in DST_ORDER_KEYS]))
+
+    def _block_payload(self) -> dict:
+        """Dst-block edge partition for the block-partitioned SpMV: shard
+        d owns dst nodes ``[d*n/s, (d+1)*n/s)`` and exactly the edges
+        landing there, as ``(s, e_max)`` arrays flattened.  The selection
+        is *stable* over the CSR (src-sorted) edge order, so within every
+        dst segment the contributions keep the dense SpMV's order.  Pad
+        slots carry ``dst_local = n_local`` (out of range: the scatter
+        drops them) and weight 0."""
+        s, n = self.shards, self.n_nodes
+        n_local = n // s
+        block = self.indices // n_local                # dst block per edge
+        counts = np.bincount(block, minlength=s)
+        e_max = max(int(counts.max()) if counts.size else 0, 1)
+        src_b = np.zeros((s, e_max), np.int32)
+        dstl_b = np.full((s, e_max), n_local, np.int32)    # pad -> dropped
+        w_b = np.zeros((s, e_max), np.float32)
+        order = np.argsort(block, kind="stable")       # dst-block grouping
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        for d in range(s):
+            sel = order[starts[d]:starts[d + 1]]
+            src_b[d, :sel.size] = self.src[sel]
+            dstl_b[d, :sel.size] = self.indices[sel] - d * n_local
+            w_b[d, :sel.size] = self.weights[sel]
+        return {"blk_src": src_b.reshape(-1),
+                "blk_dst_local": dstl_b.reshape(-1),
+                "blk_weights": w_b.reshape(-1)}
 
 
 # the keys with_dst_order adds: the port's payload holds them beyond the

@@ -11,6 +11,15 @@ and the fused-chain impls (``rel_fused_*``): a fused chain runs the same
 steps in the same order.  The ``pallas`` impls are the kernel slot: they
 call the hand-written CUDA kernels of :mod:`repro_torch.kernels`, which
 take their plain PyTorch version only for CPU tensors.
+
+On a mesh (``ExecContext.mesh``, a
+:class:`~repro_torch.launch.mesh.DataMesh`) the plain impls of a node the
+planner stamped with a ``dist`` attr run the sharded operators of
+:mod:`.sharded`, as the reference's do: a filter's observed count, the
+group-by, the broadcast and partitioned joins, expansion, PageRank and the
+text top-k.  Values stay global, so a node whose shapes do not divide the
+mesh runs dense.  The kernel impls ignore ``dist`` and run dense on every
+rank, as the reference's do.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ import torch
 
 from ..core.engines import get_engine
 from ..core.feedback import filter_site, sel_mask_site
+from ..core.ledger import default_ledger
 from ..kernels.masked_kernels import (compact_prefix, join_probe,
                                       masked_segment_agg, masked_tfidf)
 from .base import GRAPH_ENGINE, REL_ENGINE, TEXT_ENGINE
@@ -26,6 +36,11 @@ from .column_store import (filter_mask, group_agg, hash_join,
                            hash_join_nonunique)
 from .graph_store import (expand_frontier, expand_frontier_blockskip,
                           pagerank, triangle_count)
+from .sharded import (_shardable, coll_all_to_all_bytes, coll_allgather_bytes,
+                      coll_psum_bytes, data_axis_size, sharded_broadcast_join,
+                      sharded_count, sharded_expand, sharded_group_agg,
+                      sharded_pagerank, sharded_partitioned_join,
+                      sharded_tfidf_topk)
 from .text_store import (masked_topk, tfidf_scores, tfidf_topk,
                          tfidf_topk_blockskip, tfidf_topk_masked)
 
@@ -46,8 +61,7 @@ def _annotate(ctx, **attrs):
     """Runtime-attribution hook: when the executor traced this op
     (``ExecContext.tracer``), report which dist strategy the impl actually
     dispatched and the per-shard collective bytes its kernel moves.  A
-    cheap no-op when tracing is off.  Its callers are the sharded stores'
-    branches, which the port does not have yet."""
+    cheap no-op when tracing is off."""
     tr = None if ctx is None else getattr(ctx, "tracer", None)
     if tr is not None:
         tr.annotate(**attrs)
@@ -76,7 +90,16 @@ def _step_rel_filter(tbl, attrs, ctx=None):
         site = attrs.get("site")
         if site is None:
             site = filter_site(attrs, rel.col_names(), rel.capacity)
-        _record_count(ctx, tuple(site), out.count,
+        count = out.count
+        mesh = ctx.mesh
+        if (attrs.get("dist") == "row"
+                and _shardable(mesh, out.valid.shape[0])):
+            # shard-local survivor count + psum: integer addition is
+            # associative, so SelectivityFeedback sees the exact count
+            count = sharded_count(out.valid, mesh)
+            _annotate(ctx, dist="row", coll="psum",
+                      coll_bytes=coll_psum_bytes(4, data_axis_size(mesh)))
+        _record_count(ctx, tuple(site), count,
                       torch.clamp(rel.count, min=1))
     return out
 
@@ -219,8 +242,18 @@ def _run_chain(args, chain, ctx=None, *, stop_before_last=False):
     return prev
 
 
+def _annotate_local(ctx, node, rel):
+    """A ``dist="row"`` scan or filter chain is shard-local: on a mesh its
+    span says so (``coll="none"``), where the reference's says nothing."""
+    if (node.attrs.get("dist") == "row"
+            and _shardable(ctx.mesh,
+                           as_bounded(rel).capacity)):
+        _annotate(ctx, dist="row", coll="none", coll_bytes=0.0)
+
+
 @REL_ENGINE.impl("rel_scan_col")
 def _i_rel_scan(ctx, args, node):
+    _annotate_local(ctx, node, args[0])
     return _step_rel_scan(args[0], node.attrs, ctx)
 
 
@@ -231,6 +264,24 @@ def _i_rel_filter(ctx, args, node):
 
 @REL_ENGINE.impl("rel_hash_join")
 def _i_rel_join(ctx, args, node):
+    a = node.attrs
+    mesh = ctx.mesh
+    if a.get("dist") == "broadcast":
+        left, right = as_bounded(args[0]), as_bounded(args[1])
+        if _shardable(mesh, left.capacity):
+            # probe side row-partitioned, build side whole on every rank:
+            # each shard probes its block (bitwise = dense)
+            idx, matched = sharded_broadcast_join(
+                left.cols[a["left_on"]], right.cols[a["right_on"]], mesh)
+            n = data_axis_size(mesh)
+            build_b = sum(v.numel() * v.element_size()
+                          for v in right.cols.values()) + right.capacity
+            _annotate(ctx, dist="broadcast", coll="all_gather",
+                      coll_bytes=coll_allgather_bytes(build_b, n))
+            cols = _merge_join_cols(left, right, a["right_on"], idx)
+            valid = left.valid & matched & right.valid[idx]
+            return BoundedRel(cols, valid, None,
+                              left.overflow | right.overflow)
     return _step_rel_join(args[0], args[1], node.attrs, ctx)
 
 
@@ -241,17 +292,63 @@ def _i_rel_join_probe(ctx, args, node):
 
 @REL_ENGINE.impl("bounded_join_col")
 def _i_bounded_join(ctx, args, node):
-    if node.attrs.get("dist") == "partitioned":
-        # the co-partitioned join needs the sharded stores (ROADMAP item
-        # 17); the dense join's slot order differs, so it is no stand-in
-        raise NotImplementedError(
-            "bounded_join_col with dist='partitioned' needs the sharded "
-            "stores, which are not ported yet (ROADMAP §1 item 17)")
+    a = node.attrs
+    mesh = ctx.mesh
+    if a.get("dist") == "partitioned":
+        left, right = as_bounded(args[0]), as_bounded(args[1])
+        cap = int(a["capacity"])
+        if _shardable(mesh, left.capacity, right.capacity, cap):
+            # co-partition both sides on the key (one all-to-all of fixed
+            # bucket_cap buckets), then join shard-locally.  Output rows
+            # land in shard-major slot order: same match *set* as the
+            # dense join, different slot order.
+            bucket_cap = int(a.get("bucket_cap", 64))
+            lidx, ridx, valid, count, ovf = sharded_partitioned_join(
+                left.cols[a["left_on"]], left.valid,
+                right.cols[a["right_on"]], right.valid,
+                cap, mesh, bucket_cap)
+            n = data_axis_size(mesh)
+            # both sides route (n, bucket_cap) staged buckets of
+            # (key, slot-index, validity) rows through the all-to-all
+            staged = 2 * n * bucket_cap * (4 + 4 + 1)
+            _annotate(ctx, dist="partitioned", coll="all_to_all",
+                      coll_bytes=coll_all_to_all_bytes(staged, n),
+                      bucket_cap=bucket_cap)
+            # the staged buckets are real device memory at the peak
+            default_ledger().note_transient(
+                ("shuffle_buckets", node.id), staged * n,
+                kind="shuffle_buckets")
+            gathered = left.with_cols(
+                {k: v[lidx] for k, v in left.cols.items()})
+            cols = _merge_join_cols(gathered, right, a["right_on"], ridx)
+            return BoundedRel(cols, valid, count,
+                              ovf | left.overflow | right.overflow)
     return _step_bounded_join(args[0], args[1], node.attrs, ctx)
 
 
 @REL_ENGINE.impl("rel_group_agg_col")
 def _i_rel_group(ctx, args, node):
+    a = node.attrs
+    mesh = ctx.mesh
+    rel = as_bounded(args[0])
+    if a.get("dist") == "row" and _shardable(mesh, rel.capacity):
+        # shard-local segment reduce + psum / pmax (cross-shard float sums
+        # re-associate: allclose to the dense aggregate, not bitwise)
+        key = rel.cols[a["key"]]
+        g = int(a["num_groups"])
+        _annotate(ctx, dist="row", coll="psum",
+                  coll_bytes=coll_psum_bytes(
+                      (len(a["aggs"]) + 1) * g * 4, data_axis_size(mesh)))
+        cols = {a["key"]: torch.arange(g, dtype=torch.int32,
+                                       device=key.device)}
+        for out_name, fn, col in a["aggs"]:
+            vals = None if fn == "count" else rel.cols[col]
+            r = sharded_group_agg(vals, key, g, rel.valid, fn, mesh)
+            if fn == "max":
+                r, _valid = r
+            cols[out_name] = r
+        count = sharded_group_agg(None, key, g, rel.valid, "count", mesh)
+        return BoundedRel(cols, count > 0, None, rel.overflow)
     return _step_rel_group_agg(args[0], node.attrs, ctx)
 
 
@@ -267,6 +364,7 @@ def _i_compact_pallas(ctx, args, node):
 
 @REL_ENGINE.impl("rel_fused_col")
 def _i_rel_fused(ctx, args, node):
+    _annotate_local(ctx, node, args[0])
     return _run_chain(args, node.attrs["chain"], ctx)
 
 
@@ -327,10 +425,24 @@ def _i_sel_mask(ctx, args, node):
 # --------------------------------------------------------------------------
 
 
+def _block_graph(ctx, node, g) -> bool:
+    """A ``dist="block"`` node over a block-partitioned payload on a mesh
+    its node count and blocks divide."""
+    return (node.attrs.get("dist") == "block" and "blk_src" in g
+            and _shardable(ctx.mesh,
+                           g["indptr"].shape[0] - 1, g["blk_src"].shape[0]))
+
+
 @GRAPH_ENGINE.impl("graph_expand_csr")
 def _i_expand_csr(ctx, args, node):
-    return expand_frontier(args[0], args[1],
-                           hops=int(node.attrs.get("hops", 1)))
+    g, hops = args[0], int(node.attrs.get("hops", 1))
+    if _block_graph(ctx, node, g):
+        nodes_b = (g["indptr"].shape[0] - 1) * 4
+        _annotate(ctx, dist="block", coll="all_gather",
+                  coll_bytes=hops * coll_allgather_bytes(
+                      nodes_b, data_axis_size(ctx.mesh)))
+        return sharded_expand(g, args[1], hops, ctx.mesh)
+    return expand_frontier(g, args[1], hops=hops)
 
 
 @GRAPH_ENGINE.impl("graph_expand_skip")
@@ -355,6 +467,16 @@ def _pagerank(args, node, use_kernel, skip_first=False):
 
 @GRAPH_ENGINE.impl("graph_pagerank_csr")
 def _i_pagerank_csr(ctx, args, node):
+    g = args[0]
+    if _block_graph(ctx, node, g):
+        iters = int(node.attrs.get("iters", 10))
+        nodes_b = (g["indptr"].shape[0] - 1) * 4
+        _annotate(ctx, dist="block", coll="all_gather",
+                  coll_bytes=iters * coll_allgather_bytes(
+                      nodes_b, data_axis_size(ctx.mesh)))
+        return sharded_pagerank(
+            g, iters, float(node.attrs.get("damping", 0.85)),
+            args[1] if len(args) > 1 else None, ctx.mesh)
     return _pagerank(args, node, use_kernel=False)
 
 
@@ -393,6 +515,16 @@ def _i_text_topk(ctx, args, node):
         # corpus, then mask + top-k (the bitwise reference of the skipping
         # and kernel realizations)
         return _topk_rel(*tfidf_topk_masked(args[0], args[1], args[2], k))
+    c, mesh = args[0], ctx.mesh
+    if (node.attrs.get("dist") == "doc" and "blk_doc_local" in c
+            and _shardable(mesh, c["doc_len"].shape[0],
+                           c["blk_doc_local"].shape[0])):
+        # shard-local score + local top-k, then a fixed-capacity candidate
+        # merge (bitwise = the dense top-k, tie-breaking included)
+        n = data_axis_size(mesh)
+        _annotate(ctx, dist="doc", coll="all_gather",
+                  coll_bytes=coll_allgather_bytes(n * k * 8, n))
+        return _topk_rel(*sharded_tfidf_topk(c, args[1], k, mesh))
     return _topk_rel(*tfidf_topk(args[0], args[1], k))
 
 
@@ -447,6 +579,23 @@ def _host_roundtrip(v):
     if isinstance(v, dict):
         return {k: _host_roundtrip(c) for k, c in v.items()}
     return v
+
+
+@_XLA.impl("xfer_local", "xfer_repartition")
+def _i_xfer_local(ctx, args, node):
+    """Layout-compatible handoff (identity).  The repartition's all-to-all
+    runs inside the partitioned join; this node is where the planner
+    prices it."""
+    return args[0]
+
+
+@_XLA.impl("xfer_replicate")
+def _i_xfer_replicate(ctx, args, node):
+    """Identity, on a mesh or off it.  The reference constrains a
+    data-partitioned value to a replicated sharding here (GSPMD inserts
+    the all-gather); the port's sharded operators already all-gather
+    their results, so the value arrives whole on every rank."""
+    return args[0]
 
 
 @_XLA.impl("xfer_spill")

@@ -8,6 +8,9 @@ per-document lengths and the idf table.  Scoring a dense query vector is
     score[d] = Σ_{postings (d, t)}  q[t] · idf[t] · tf[d,t] / len[d]
 
 followed by a top-k over documents, handed back as a (k,)-row relation.
+A corpus declared sharded (:meth:`TextStore.with_shards`) also carries
+the doc-block postings (``blk_*``) that the sharded top-k of
+:mod:`.sharded` scores.
 
 Two choices keep the ranking equal to the reference's and stable from run
 to run on the card:
@@ -40,15 +43,27 @@ from ..kernels.masked_kernels import ordered_doc_sum
 
 
 class TextStore:
-    """Host-side container: tokenized documents -> inverted-index COO."""
+    """Host-side container: tokenized documents -> inverted-index COO.
+    ``shards > 1`` declares it document-partitioned over the mesh's
+    ``data`` axis (:meth:`with_shards`)."""
 
-    def __init__(self, doc_ids, term_ids, tf, doc_len, idf, vocab: int):
+    def __init__(self, doc_ids, term_ids, tf, doc_len, idf, vocab: int,
+                 shards: int = 1):
         self.doc_ids = np.asarray(doc_ids, np.int32)
         self.term_ids = np.asarray(term_ids, np.int32)
         self.tf = np.asarray(tf, np.float32)
         self.doc_len = np.asarray(doc_len, np.float32)
         self.idf = np.asarray(idf, np.float32)
         self.vocab = int(vocab)
+        self.shards = int(shards)
+        if self.shards < 1:
+            raise ValidationError(f"shards {self.shards} < 1")
+        if self.doc_len.shape[0] % self.shards:
+            # document-range partitioning needs equal doc blocks: pad with
+            # empty docs (doc_len 1, no postings -> score exactly 0.0)
+            pad = (-self.doc_len.shape[0]) % self.shards
+            self.doc_len = np.concatenate(
+                [self.doc_len, np.ones(pad, np.float32)])
         self.n_docs = int(self.doc_len.shape[0])
         self.n_postings = int(self.doc_ids.shape[0])
         self.version = 0
@@ -95,6 +110,14 @@ class TextStore:
         """``docs``: one iterable of term ids per document."""
         return cls.from_flat(*_flatten(docs), vocab)
 
+    def with_shards(self, shards: int) -> "TextStore":
+        """This corpus re-declared as document-partitioned over ``shards``
+        mesh slices (pads the doc domain to a shard multiple)."""
+        out = TextStore(self.doc_ids, self.term_ids, self.tf, self.doc_len,
+                        self.idf, self.vocab, shards=shards)
+        out.version = self.version
+        return out
+
     def append(self, docs: Sequence[Iterable[int]]) -> "TextStore":
         """Append documents (one iterable of term ids each) and reindex on
         the host: postings extend (doc ids continue from ``n_docs``) and
@@ -120,16 +143,47 @@ class TextStore:
 
     @property
     def type(self) -> CorpusT:
-        return CorpusT(self.n_docs, self.vocab, self.n_postings, None)
+        return CorpusT(self.n_docs, self.vocab, self.n_postings,
+                       "doc" if self.shards > 1 else None)
 
     def payload(self, device="cuda") -> dict:
         """The index on ``device`` (the card unless the caller asks for the
-        CPU), registered in the default memory ledger."""
+        CPU), with the doc-block postings when sharded, registered in the
+        default memory ledger."""
+        dev = resolve_device(device)
         out = text_payload(self.doc_ids, self.term_ids, self.tf,
-                           self.doc_len, self.idf, resolve_device(device))
+                           self.doc_len, self.idf, dev)
+        if self.shards > 1:
+            out.update({k: torch.from_numpy(v).to(dev)
+                        for k, v in self._block_payload().items()})
         return register_store_payload(
             self, out, "text_store",
             extra=tree_bytes([out[k] for k in PORT_KEYS]))
+
+    def _block_payload(self) -> dict:
+        """Doc-block posting partition for shard-local scoring: shard d
+        owns docs ``[d*n/s, (d+1)*n/s)`` and their postings, as ``(s,
+        p_max)`` arrays flattened.  Pad slots carry ``doc_local = n_local``
+        and tf 0; the stable selection keeps each document's postings in
+        order, so a shard-local ordered sum equals the dense one."""
+        s, n = self.shards, self.n_docs
+        n_local = n // s
+        block = self.doc_ids // n_local
+        counts = np.bincount(block, minlength=s)
+        p_max = max(int(counts.max()) if counts.size else 0, 1)
+        docl_b = np.full((s, p_max), n_local, np.int32)    # pad -> dropped
+        term_b = np.zeros((s, p_max), np.int32)
+        tf_b = np.zeros((s, p_max), np.float32)
+        order = np.argsort(block, kind="stable")
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        for d in range(s):
+            sel = order[starts[d]:starts[d + 1]]
+            docl_b[d, :sel.size] = self.doc_ids[sel] - d * n_local
+            term_b[d, :sel.size] = self.term_ids[sel]
+            tf_b[d, :sel.size] = self.tf[sel]
+        return {"blk_doc_local": docl_b.reshape(-1),
+                "blk_term_ids": term_b.reshape(-1),
+                "blk_tf": tf_b.reshape(-1)}
 
     def query_vector(self, terms: Iterable[int]) -> np.ndarray:
         """Dense (vocab,) query term-count vector for :func:`tfidf_scores`."""

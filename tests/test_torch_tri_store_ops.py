@@ -184,15 +184,31 @@ def test_capacity_guard_raises_as_the_reference():
     assert int(out[3]) == 16 and not bool(out[4])
 
 
-def test_partitioned_bounded_join_raises_instead_of_dense():
+def test_partitioned_bounded_join_without_mesh_runs_dense():
+    """A ``partitioned`` node off a mesh runs the dense bounded join, as the
+    reference's does: every slot of the reference's ``bounded_join``."""
+    rng = np.random.RandomState(11)
+    lk, rk = (rng.randint(0, 6, n).astype(np.int32) for n in (40, 24))
+    lm, rm = rng.rand(40) > 0.2, rng.rand(24) > 0.2
     node = type("N", (), {"attrs": {"left_on": "k", "right_on": "k",
-                                    "capacity": 8,
+                                    "capacity": 96, "bucket_cap": 16,
                                     "dist": "partitioned"}})()
-    rel = BoundedRel({"k": torch.zeros(4, dtype=torch.int32)},
-                     torch.ones(4, dtype=torch.bool))
-    ctx = ExecContext(root={}, scope={}, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        _i_bounded_join(ctx, [rel, rel], node)
+    left = BoundedRel({"k": _t(lk), "i": _t(np.arange(40, dtype=np.int32))},
+                      _t(lm))
+    right = BoundedRel({"k": _t(rk), "w": _t(rng.rand(24).astype(
+        np.float32))}, _t(rm))
+    got = _i_bounded_join(ExecContext(root={}, scope={}, device=CPU),
+                          [left, right], node)
+    lidx, ridx, valid, count, ovf = jcol.hash_join_nonunique(
+        jnp.asarray(lk), jnp.asarray(lm), jnp.asarray(rk), jnp.asarray(rm),
+        96)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(valid))
+    np.testing.assert_array_equal(got.cols["i"].numpy(), np.asarray(lidx))
+    np.testing.assert_array_equal(got.cols["k"].numpy(), lk[np.asarray(lidx)])
+    np.testing.assert_array_equal(
+        got.cols["w"].numpy(), right.cols["w"].numpy()[np.asarray(ridx)])
+    assert int(got.count) == int(count) > 0
+    assert bool(got.overflow) == bool(ovf) is False
 
 
 # --------------------------------------------------------------------------

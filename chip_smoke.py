@@ -142,10 +142,11 @@ package.  Phases, one line each; any failure raises and exits non-zero:
   async runtime through its replay fallback, slice 4), each in turn, the
   model before it freed:
 
- 15./19. data — rwkv6-3b (32 layers, d_model 2560, 40 heads of 64, vocab
-     65,536) / zamba2-7b (81 mamba blocks, d_model 3584, 112 SSD heads of
+ 15./19. data — rwkv6-3b (d_model 2560, 40 heads of 64, vocab 65,536;
+     **16 of its 32 layers**) / zamba2-7b (d_model 3584, 112 SSD heads of
      64, state 64, and a shared attention block of 32 heads of 112 every 6
-     blocks; vocab 32,000) at full width and depth, bfloat16 activations,
+     blocks; vocab 32,000; **27 of its 81 mamba blocks**: 4 periods and
+     the 3-block remainder group) at full width, bfloat16 activations,
      float32 parameters from ``he_init`` on a seeded generator on the card:
      parameter count, bytes, seconds;
  16./20. serve — ``AsyncServingRuntime`` (engines xla + pallas, 4 decode
@@ -172,19 +173,19 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      computes either recurrence: ``library_ms`` is null.  zamba2-7b:
      flash attention at head_dim 112 on the arguments its prefills gave
      it, timed beside ``scaled_dot_product_attention``;
- 18./22. check — wkv6 launches = 32 x the prefill forwards, ssd launches =
-     81 x, flash launches = 13 x the zamba2 forwards whose plan picked
+ 18./22. check — wkv6 launches = 16 x the prefill forwards, ssd launches =
+     27 x, flash launches = 4 x the zamba2 forwards whose plan picked
      ``attn_flash_pallas``; 100 % plan-cache hits after warmup; a float32
      run of a 2-request sub-trace (prompts 100 and 500, 8 generated)
      through the runtime token for token equal to ``serve_sequential``;
      the float32 planned prefill at bucket 512 with the kernel (xla +
      pallas) against the chunked plain engine (xla): last-position logits
      within 2e-3; rwkv6-3b only: one float32 request (prompt 48, 4
-     generated; each CPU decode step reads 12.3 GB of float32 weights, so
-     the prompt is cut from 100 to keep the run near 6 minutes) on the
+     generated; each CPU decode step reads the float32 weights, so the
+     prompt is cut from 100 to keep the run short) on the
      card against the port's plain path on the CPU, as the qwen3
-     sub-trace.  zamba2-7b's CPU side would hold 26.5 GB of
-     float32 parameters, so its card-against-CPU check stays with the CPU
+     sub-trace.  zamba2-7b's CPU side would hold its float32
+     parameters, so its card-against-CPU check stays with the CPU
      tests at SMOKE width (``tests/test_torch_recurrent_*.py``);
 
   ``dbrx_serve`` (dbrx-132b served by the async runtime through its
@@ -487,6 +488,41 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      and join_probe on the scanned table against the top-64, against their
      plain versions; their launches summed over every rank of both worlds;
 
+  ``mesh_train`` (the model-side mesh, slice 17; runs after
+  ``tri_sharded``): ranks spawned by ``run_ranks`` share the card and
+  talk through gloo staged in pinned host memory; each runs
+  ``repro_torch.examples.train_sharded``'s rank entries:
+
+ 43. [mesh-single], [mesh-predict] — qwen3-0.6b (full width, 28 layers)
+     trained 3 steps at 4 x 2048 on one rank from the seeded params and
+     batches every rank draws (losses, grad norms, step walls), and a
+     float32 2-layer step; the bytes a rank's step should move, reckoned
+     from the config and the specs (``mesh_prediction``); then the
+     parent frees its card memory;
+ 44. [mesh-train] — the same 3 steps on a 2 x 2 (data, model) mesh, one
+     line a rank: the step walls and tokens/s beside one rank's; the loss
+     and ``grad_norm`` within 5e-3 / 1 % of one rank's (step 1);
+     flash 56 launches a step (28 forward + 28 remat), every call on the
+     rank's 8 query / 4 KV heads; the params + AdamW state's bytes equal
+     to the specs' count; the collectives' calls and bytes by kind and
+     axis and the staged host bytes of the last step; peak memory;
+ 45. [mesh-f32] — the 2-layer float32 step on the same mesh: loss within
+     1e-4 and ``grad_norm`` within 1e-3 of one rank's (the reference's
+     sharded-step tolerances);
+ 46. [mesh-elastic] — the state saved after step 2 (the global leaves,
+     written once), the world re-meshed onto 1 x 4 (``elastic.remesh``),
+     ``restore_checkpoint(..., shardings=)``: every rank's blocks bitwise
+     the files'; step 3 on 1 x 4 within 5e-3 of the 2 x 2 step 3 and one
+     rank's; save / restore seconds;
+ 47. [mesh-moe] — dbrx-132b (full width, 2 of 40 layers, float32) at
+     4 x 2048 on one rank, its logits written under ``TMPDIR``; then its
+     prefill forward on a 1 x 2 mesh under ``pin_moe_layout`` False and
+     True: each rank's logits block within 2e-3 of the largest |logit| of
+     the unsharded forward, flash 2 and gmm 6 launches a forward, every
+     gmm call on the rank's 8 of 16 experts; then flash on a rank's
+     2 x 2048 x 8 / 4 heads and gmm at the rank's recorded shape against
+     their plain versions (``[mesh_train-kernel]``, their JSON records);
+
  42. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Observability (EXPLAIN ANALYZE and the resource ledger, slice 11), inside
@@ -574,7 +610,12 @@ kernel plan's first loss and ``grad_norm`` within ``5e-3`` relative of
 the xla plan's (bf16: the kernel rounds P to bf16, the plain attention
 does not), the families' losses too; float32 card against CPU ``1e-4``
 relative; resumed losses ``1e-5`` relative (every op of the step is
-deterministic on the card, so they come out bitwise).
+deterministic on the card, so they come out bitwise).  The mesh checks
+(``MESH_*``): bf16 loss 5e-3 and ``grad_norm`` 1 % relative to one rank
+(the row-parallel sums round to bf16 in another order than one GEMM);
+float32 1e-4 / 1e-3 absolute, the reference's; ``[mesh-moe]`` runs in
+float32 because in bf16 those sums' one-ulp differences now and then flip
+a token's top-4 experts, and with them its logits.
 """
 from __future__ import annotations
 
@@ -626,6 +667,7 @@ from repro_torch.core.rewrite import (DEFAULT_PIPELINE,  # noqa: E402
 from repro_torch.examples import multi_query as mq  # noqa: E402
 from repro_torch.examples import tri_influence  # noqa: E402
 from repro_torch.examples import tri_sharded  # noqa: E402
+from repro_torch.examples import train_sharded  # noqa: E402
 from repro_torch.examples import windowed_ranking  # noqa: E402
 from repro_torch.examples.tri_model_analysis import (  # noqa: E402
     adil_script, build_social_data, inputs_for)
@@ -638,7 +680,8 @@ from repro_torch.kernels.graph_kernels import (  # noqa: E402
 from repro_torch.kernels.ssd import ssd, ssd_reference  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_reference  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.launch.mesh import run_ranks  # noqa: E402
+from repro_torch.launch.mesh import (make_cpu_mesh,  # noqa: E402
+                                     run_ranks, state_shardings)
 from repro_torch.layers import attention as attention_layer  # noqa: E402
 from repro_torch.layers import embedding as embedding_layer  # noqa: E402
 from repro_torch.layers import mamba as mamba_layer  # noqa: E402
@@ -798,14 +841,22 @@ RECURRENT = {
         "entry": "wkv6_kernel", "impl": "wkv6_pallas",
         "xla": "wkv6_scan_xla",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
-        "replaces": "src/repro/kernels/wkv6/wkv6.py:70", "cpu_check": True},
+        "replaces": "src/repro/kernels/wkv6/wkv6.py:70", "cpu_check": True,
+        "n_layers": 16,
+        "cut": "n_layers 32 -> 16: the replay's time is linear in depth, "
+               "cut to keep the whole script near 900 s beside mesh_train"},
     "zamba2-7b": {
         "name": "ssd", "path": "zamba2_serve", "kernel": ssd,
         "plain": ssd_reference, "module": mamba_layer,
         "entry": "ssd_kernel", "impl": "ssd_pallas",
         "xla": "ssd_chunked_xla",
         "source": "src/repro_torch/kernels/csrc/ssd.cu",
-        "replaces": "src/repro/kernels/ssd/ssd.py:76", "cpu_check": False},
+        "replaces": "src/repro/kernels/ssd/ssd.py:76", "cpu_check": False,
+        "n_layers": 27,
+        "cut": "n_layers 81 -> 27: 4 periods of 5 mamba + 1 shared-attention "
+               "block and the 3-layer remainder group; the replay's time is "
+               "linear in depth, cut to keep the whole script near 900 s "
+               "beside mesh_train"},
 }
 
 
@@ -854,6 +905,25 @@ TRAIN_REPLACES = {
     "ssd": "src/repro/kernels/ssd/ops.py:29"}
 TRAIN_KERNEL_OF = {"gmm_backward": "gmm", "wkv6_backward": "wkv6",
                    "ssd_backward": "ssd"}
+# mesh_train (slice 17): qwen3-0.6b at full width and depth on a 2 x 2
+# (data, model) mesh of ranks sharing the card; saved after step 2,
+# re-meshed onto 1 x 4 for step 3; a float32 2-layer cut on the same mesh;
+# dbrx-132b's forward (2 of 40 layers) on 1 x 2, in float32: in bfloat16
+# the row-parallel sums round apart from the one-card GEMM's by an ulp,
+# which now and then flips a token's top-4 experts and so its logits
+MESH = {"arch": "qwen3-0.6b", "smoke": False, "mesh": (2, 2), "batch": 4,
+        "seq": 2048, "steps": 3, "save_at": 2, "remesh": {"min_model": 4},
+        "lr": 1e-3}
+MESH_F32 = {"n_layers": 2, "dtype": "float32"}
+MESH_F32_STEPS = 2
+MESH_MOE = {"arch": "dbrx-132b", "smoke": False, "n_layers": 2,
+            "dtype": "float32", "mesh": (1, 2), "batch": 4, "seq": 2048}
+MESH_LOSS_RTOL = 5e-3      # bf16 loss, sharded against one rank
+MESH_GNORM_RTOL = 1e-2
+MESH_F32_LOSS_ATOL = 1e-4  # float32, the reference's sharded-step test
+MESH_F32_GNORM_ATOL = 1e-3
+MESH_MOE_TOL = 2e-3        # of the largest |logit| of the unsharded forward
+MESH_TIMEOUT = 900.0       # one world's deadline (s)
 
 
 def launch_counts(**counts) -> dict:
@@ -3361,14 +3431,15 @@ def recurrent_path(args, dev, syscat, arch) -> list:
     path = spec["path"]
     t_path = time.perf_counter()
     # data: the model at full width from a seeded generator on the card
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(n_layers=spec["n_layers"])
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     leaves = [t for _k, t in _leaves(params)]
     phase("data", path=path, arch=cfg.name, family=cfg.family,
-          layers=cfg.n_layers, d_model=cfg.d_model, dtype=cfg.dtype,
+          layers=cfg.n_layers, cut=json.dumps(spec["cut"]),
+          d_model=cfg.d_model, dtype=cfg.dtype,
           param_dtype=cfg.param_dtype,
           params=sum(int(t.numel()) for t in leaves),
           param_gb=round(sum(stored_bytes(t) for t in leaves) / 1e9, 3),
@@ -5676,6 +5747,412 @@ def train_path(args, dev, syscat) -> list:
     return [flash, *records]
 
 
+# -- phases 43-47: the model mesh (mesh_train) -----------------------------
+
+
+def mesh_rank(world, jobs):
+    """One rank of the mesh worlds: ``train_sharded.rank_run`` for each
+    job, with the (query heads, KV heads) of every flash call counted
+    (``flash_heads``)."""
+    flash, heads = attention_layer.flash_attention, Counter()
+
+    def record(q, k, v, **kw):
+        heads[f"{q.shape[2]}/{k.shape[2]}"] += 1
+        return flash(q, k, v, **kw)
+
+    attention_layer.flash_attention = record
+    try:
+        out = []
+        for job in jobs:
+            heads.clear()
+            r = train_sharded.rank_run(world, job)
+            out.append({**r, "flash_heads": dict(heads)})
+        return out
+    finally:
+        attention_layer.flash_attention = flash
+
+
+def mesh_moe_rank(world, jobs):
+    """One rank of the MoE world: ``train_sharded.rank_forward`` for each
+    job, with the experts of every gmm call (``experts``) and the shapes
+    of the calls of the last run (``gmm_shapes``)."""
+    grouped, seen = moe_layer.grouped_matmul, []
+
+    def record(x, w):
+        seen.append((tuple(x.shape), tuple(w.shape),
+                     str(x.dtype).split(".")[1]))
+        return grouped(x, w)
+
+    moe_layer.grouped_matmul = record
+    try:
+        out = []
+        for job in jobs:
+            seen.clear()
+            r = train_sharded.rank_forward(world, job)
+            calls = len(seen) // 2               # two forwards a job
+            out.append({**r, "experts": [x[0] for x, _w, _d in seen],
+                        "gmm_shapes": seen[calls:]})
+        return out
+    finally:
+        moe_layer.grouped_matmul = grouped
+
+
+def mesh_moe_check(logits, mesh, job):
+    """On a rank: the largest |logit - unsharded logit| over this rank's
+    block (rows over ``data``, vocab columns over ``model``) of the
+    unsharded forward the parent wrote to ``job["reference"]``."""
+    ref = np.load(job["reference"], mmap_mode="r")
+    b, _, v = logits.shape
+    d, m = mesh.coords["data"], mesh.coords["model"]
+    err = 0.0
+    for i in range(b):
+        want = torch.from_numpy(np.array(
+            ref[d * b + i, :, m * v:(m + 1) * v])).to(logits.device)
+        err = max(err, float((logits[i].float() - want).abs().max()))
+    return err
+
+
+def mesh_prediction(cfg, mesh, batch, seq) -> dict:
+    """The bytes one rank's step should move, from the config and the
+    specs alone (no tensor made): the state's bytes; the FSDP gathers'
+    input (every layer's ``data``-cut blocks, in the forward and again in
+    the remat recompute, and the tied table at the embedding and the head)
+    and their reduce-scatters' (an all-reduce of the gathered size); the
+    ``model`` sums of the (B/d, S, E) bf16 activations: out and down
+    projections in the forward, the out projection's again in the remat
+    recompute (the checkpoint stops recomputing once the layer's saved
+    tensors are back, before the down projection's sum), the q/k/v, up
+    and gate inputs' gradients, the embedding and the head's input
+    gradient; and the host copies those make (each input out, each output
+    back).  Left out: the loss's, the norms' and q/k-norm gradients' sums
+    (kilobytes)."""
+    d, m = mesh
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", cosine_schedule(1e-3, 1, 100))
+    sh = state_shardings(make_cpu_mesh(d, m), model, opt)
+    abstract = model.abstract_params()
+
+    def cut_bytes(tree, shs, layer=False):
+        n = 0
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                n += cut_bytes(v, shs[k], layer)
+                continue
+            s = shs[k].layer() if layer else shs[k]
+            shape = tuple(v.shape[1:] if layer else v.shape)
+            if any("data" in s.axes(i) for i in range(len(shape))):
+                n += int(np.prod(s.shard_shape(shape))) * v.element_size()
+        return n
+
+    layer = cut_bytes(abstract["layers_0"], sh.params["layers_0"], True)
+    table = cut_bytes(abstract["embed"], sh.params["embed"])
+    uses = 1 if "head" in abstract["embed"] else 2
+    gather_in = (2 * cfg.n_layers * layer + uses * table) * (d > 1)
+    reduce_in = d * (cfg.n_layers * layer + uses * table) * (d > 1)
+    act = batch // d * seq * cfg.d_model * 2
+    model_in = (cfg.n_layers * 6 + 2) * act * (m > 1)
+    staged = gather_in * (1 + d) + 2 * reduce_in + 2 * model_in
+    return {"state_bytes": train_sharded.state_spec_bytes(model, opt, sh),
+            "data_gather_bytes": gather_in, "data_reduce_bytes": reduce_in,
+            "model_reduce_bytes": model_in, "staged_bytes": staged}
+
+
+def mesh_single(cfg, dev, steps) -> dict:
+    """One rank's train steps on the mesh job's seeded params and batches
+    (the same draws every rank makes): losses, grad norms, walls."""
+    job = {**train_sharded.JOB, "batch": MESH["batch"], "seq": MESH["seq"],
+           "lr": MESH["lr"]}
+    model = build_model(cfg)
+    fwd = plan_and_compile(model.build_plan(job["batch"], job["seq"],
+                                            mode="train"), CATALOG,
+                           SystemCatalog(), engines=("xla", "pallas"),
+                           cache=False, device=dev)
+    opt = make_optimizer("adamw", cosine_schedule(job["lr"], 1, 100))
+    state = init_state(model.init_params(torch.Generator(
+        device=dev).manual_seed(SEED)), opt)
+    step_fn = make_train_step(fwd, opt)
+    out = {"losses": [], "grad_norms": [], "walls_s": []}
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+            DataConfig(vocab=cfg.vocab, seq_len=job["seq"],
+                       global_batch=job["batch"], seed=SEED), i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        out["walls_s"].append(time.perf_counter() - t0)
+        out["losses"].append(loss)
+        out["grad_norms"].append(gnorm)
+    del state, fwd
+    free_memory()
+    return out
+
+
+def _close(got, want, rtol=0.0, atol=0.0) -> bool:
+    return abs(got - want) <= atol + rtol * abs(want)
+
+
+def mesh_train_checks(ranks, single, smi, cfg):
+    """Phases 44 and 46 ([mesh-train], [mesh-elastic]) from every rank's
+    report of the training job."""
+    b, s = MESH["batch"], MESH["seq"]
+    heads = {}
+    for n_model, steps in ((MESH["mesh"][1], MESH["steps"]),
+                           (ranks[0]["after"]["mesh"][1], 1)):
+        # a rank's query heads and the KV heads they read
+        hl, group = cfg.heads // n_model, cfg.heads // cfg.kv_heads
+        heads[f"{hl}/{max(1, hl // group)}"] = 2 * cfg.n_layers * steps
+    per = 2 * cfg.n_layers
+    for r in ranks:
+        save_at = MESH["save_at"]
+        per_step = [st.get("flash_attention", 0) for st in r["launches"]]
+        after = r["after"]
+        check(per_step == [per] * MESH["steps"]
+              and after["launches"] == [{"flash_attention": per}],
+              f"rank {r['rank']}: flash launches {per_step} "
+              f"{after['launches']}")
+        check(r["flash_heads"] == heads,
+              f"rank {r['rank']}: flash heads {r['flash_heads']} != "
+              f"{heads}")
+        check(r["state_bytes"] == r["spec_bytes"]
+              and after["state_bytes"] == after["spec_bytes"],
+              f"rank {r['rank']}: state bytes {r['state_bytes']} / "
+              f"{after['state_bytes']} != the specs' {r['spec_bytes']} / "
+              f"{after['spec_bytes']}")
+        # step 1 runs on the same params and batch as one rank's; later
+        # steps start from params that bf16 rounding and AdamW's
+        # normalisation of near-zero gradients have moved apart, so only
+        # their loss is held (the float32 steps of [mesh-f32] hold both)
+        for i, (loss, gn) in enumerate(zip(r["losses"], r["grad_norms"])):
+            check(math.isfinite(loss) and math.isfinite(gn) and _close(
+                loss, single["losses"][i], MESH_LOSS_RTOL) and (i or _close(
+                    gn, single["grad_norms"][i], MESH_GNORM_RTOL)),
+                f"rank {r['rank']} step {i + 1}: loss {loss} grad norm "
+                f"{gn} against one rank's {single['losses'][i]} "
+                f"{single['grad_norms'][i]}")
+        walls = r["walls_s"]
+        stats = r["stats"][-1]
+        phase("mesh-train", rank=r["rank"], coords=json.dumps(r["coords"]),
+              mesh="x".join(map(str, r["mesh"])), plan_id=r["plan_id"][:12],
+              losses=json.dumps(r["losses"]),
+              grad_norms=json.dumps(r["grad_norms"]),
+              single_losses=json.dumps(single["losses"]),
+              single_grad_norms=json.dumps(single["grad_norms"]),
+              step_walls_s=json.dumps([round(w, 3) for w in walls]),
+              step_s=statistics.median(walls),
+              tokens_per_s=b * s / statistics.median(walls),
+              single_step_s=statistics.median(single["walls_s"]),
+              single_tokens_per_s=b * s / statistics.median(
+                  single["walls_s"]),
+              flash_per_step=json.dumps(per_step),
+              flash_heads=json.dumps(r["flash_heads"]),
+              state_bytes=r["state_bytes"], spec_bytes=r["spec_bytes"],
+              coll_calls=json.dumps({k: v for k, v in sorted(stats.items())
+                                     if k.endswith("_calls")}),
+              coll_bytes=json.dumps({k: v for k, v in sorted(stats.items())
+                                     if k.endswith("_bytes")
+                                     and k != "staged_bytes"}),
+              staged_host_bytes=stats.get("staged_bytes", 0),
+              peak_mem_gb=round(r.get("peak_gb", 0.0), 3), card=smi)
+        check(not after["restored_mismatches"],
+              f"rank {r['rank']}: restored leaves differ from the saved "
+              f"ones: {after['restored_mismatches'][:4]}")
+        loss3 = after["losses"][0]
+        check(_close(loss3, r["losses"][save_at], MESH_LOSS_RTOL)
+              and _close(loss3, single["losses"][save_at], MESH_LOSS_RTOL),
+              f"rank {r['rank']}: the restored 1 x 4 step's loss {loss3} "
+              f"against 2 x 2's {r['losses'][save_at]} and one rank's "
+              f"{single['losses'][save_at]}")
+        phase("mesh-elastic", rank=r["rank"],
+              mesh="x".join(map(str, after["mesh"])),
+              coords=json.dumps(after["coords"]), saved_at_step=save_at,
+              save_s=round(r["save_s"], 2),
+              restore_s=round(after["restore_s"], 2),
+              restored_bitwise=True, step_loss=loss3,
+              step_grad_norm=after["grad_norms"][0],
+              mesh_2x2_loss=r["losses"][save_at],
+              single_loss=single["losses"][save_at],
+              step_s=after["walls_s"][0],
+              state_bytes=after["state_bytes"],
+              staged_host_bytes=after["stats"][0].get("staged_bytes", 0),
+              peak_mem_gb=round(after.get("peak_gb", 0.0), 3))
+
+
+def mesh_path(args, dev, syscat) -> list:
+    """Phases 43-47: the model mesh.  Returns the flash and gmm records at
+    the ranks' shapes."""
+    path = "mesh_train"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    cfg = (get_smoke_config if MESH["smoke"] else get_config)(MESH["arch"])
+    cfg32 = cfg.replace(**MESH_F32)
+
+    # 43. [mesh-single] / [mesh-predict]: one rank's steps on the same
+    # params and batches, the predicted bytes; then the card is freed
+    t0 = time.perf_counter()
+    single = mesh_single(cfg, dev, MESH["steps"])
+    single32 = mesh_single(cfg32, dev, MESH_F32_STEPS)
+    phase("mesh-single", arch=cfg.name, b=MESH["batch"], seq=MESH["seq"],
+          losses=json.dumps(single["losses"]),
+          grad_norms=json.dumps(single["grad_norms"]),
+          step_walls_s=json.dumps([round(w, 3) for w in single["walls_s"]]),
+          f32_losses=json.dumps(single32["losses"]),
+          f32_grad_norms=json.dumps(single32["grad_norms"]),
+          seconds=round(time.perf_counter() - t0, 1), card=smi)
+    pred = mesh_prediction(cfg, MESH["mesh"], MESH["batch"], MESH["seq"])
+    phase("mesh-predict", mesh="x".join(map(str, MESH["mesh"])),
+          **{k: v for k, v in pred.items()})
+    free_memory()
+
+    # 44-46. [mesh-train], [mesh-f32], [mesh-elastic]: one world of 4
+    base = {"arch": MESH["arch"], "smoke": MESH["smoke"],
+            "batch": MESH["batch"], "seq": MESH["seq"], "lr": MESH["lr"],
+            "seed": SEED}
+    with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:
+        jobs = [{**base, "mesh": MESH["mesh"], "steps": MESH["steps"],
+                 "save_at": MESH["save_at"], "ckpt_dir": f"{tmp}/ckpt",
+                 "remesh": MESH["remesh"]},
+                {**base, "mesh": MESH["mesh"], "steps": MESH_F32_STEPS,
+                 "overrides": MESH_F32}]
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_rank, MESH["mesh"][0] * MESH["mesh"][1],
+                          device=dev.type, init_file=Path(tmp) / "group",
+                          timeout=MESH_TIMEOUT, args=(jobs,))
+        world_s = time.perf_counter() - t0
+    mesh_train_checks([r[0] for r in ranks], single, smi, cfg)
+    for r in (r[1] for r in ranks):
+        loss_err = [abs(a - b) for a, b in zip(r["losses"],
+                                               single32["losses"])]
+        gn_err = [abs(a - b) for a, b in zip(r["grad_norms"],
+                                             single32["grad_norms"])]
+        check(len(loss_err) == MESH_F32_STEPS
+              and max(loss_err) <= MESH_F32_LOSS_ATOL
+              and max(gn_err) <= MESH_F32_GNORM_ATOL,
+              f"rank {r['rank']} float32: losses {r['losses']} grad norms "
+              f"{r['grad_norms']} against one rank's {single32}")
+        phase("mesh-f32", rank=r["rank"], layers=MESH_F32["n_layers"],
+              losses=json.dumps(r["losses"]),
+              grad_norms=json.dumps(r["grad_norms"]),
+              single_losses=json.dumps(single32["losses"]),
+              single_grad_norms=json.dumps(single32["grad_norms"]),
+              loss_err=max(loss_err), grad_norm_err=max(gn_err),
+              step_walls_s=json.dumps([round(w, 3) for w in r["walls_s"]]))
+    phase("mesh-world", ranks=len(ranks), world_s=round(world_s, 1))
+    del ranks
+    free_memory()
+
+    # 47. [mesh-moe]: dbrx's forward on 1 x 2 against the unsharded one
+    mcfg = (get_smoke_config if MESH_MOE["smoke"] else get_config)(
+        MESH_MOE["arch"]).replace(n_layers=MESH_MOE["n_layers"],
+                                  dtype=MESH_MOE["dtype"])
+    model = build_model(mcfg)
+    b, s = MESH_MOE["batch"], MESH_MOE["seq"]
+    with tempfile.TemporaryDirectory(prefix="mesh-moe-") as tmp:
+        params = model.init_inference_params(
+            torch.Generator(device=dev).manual_seed(SEED))
+        fwd = plan_and_compile(model.build_plan(b, s, mode="prefill"),
+                               CATALOG, SystemCatalog(),
+                               engines=("xla", "pallas"), cache=False,
+                               device=dev)
+        tokens = torch.from_numpy(synth_batch(DataConfig(
+            vocab=mcfg.vocab, seq_len=s, global_batch=b, seed=SEED),
+            0)["tokens"]).to(dev)
+        with torch.inference_mode():
+            logits = fwd(params, {"tokens": tokens})
+        ref_max = float(logits.abs().max())
+        ref_path = f"{tmp}/logits.npy"
+        np.save(ref_path, logits.cpu().numpy())
+        del params, fwd, logits
+        free_memory()
+        jobs = [{"arch": MESH_MOE["arch"], "smoke": MESH_MOE["smoke"],
+                 "batch": b,
+                 "seq": s, "seed": SEED, "mesh": MESH_MOE["mesh"],
+                 "overrides": {"n_layers": MESH_MOE["n_layers"],
+                                "dtype": MESH_MOE["dtype"],
+                                "pin_moe_layout": pin},
+                 "staggered_init": True, "check_logits": mesh_moe_check,
+                 "reference": ref_path} for pin in (False, True)]
+        t0 = time.perf_counter()
+        moe = run_ranks(mesh_moe_rank, 2, device=dev.type,
+                        init_file=Path(tmp) / "group", timeout=MESH_TIMEOUT,
+                        args=(jobs,))
+        moe_s = time.perf_counter() - t0
+    xl = mcfg.experts // MESH_MOE["mesh"][1]
+    for r in moe:
+        for pin, o in zip((False, True), r):
+            check(o["launches"] == {"flash_attention": 2, "gmm": 6}
+                  and set(o["experts"]) == {xl},
+                  f"rank {o['rank']} pin {pin}: launches {o['launches']} "
+                  f"experts a call {sorted(set(o['experts']))}")
+            rel = o["logits_err"] / ref_max
+            check(rel <= MESH_MOE_TOL,
+                  f"rank {o['rank']} pin {pin}: logits off by {rel} of the "
+                  f"largest |logit|")
+            phase("mesh-moe", rank=o["rank"], pin_moe_layout=pin,
+                  mesh="x".join(map(str, MESH_MOE["mesh"])),
+                  dtype=MESH_MOE["dtype"],
+                  layers=MESH_MOE["n_layers"], b=b, seq=s,
+                  plan_id=o["plan_id"][:12],
+                  launches=json.dumps(o["launches"]),
+                  experts_per_call=xl, logits_max_abs_err=o["logits_err"],
+                  rel_to_max_logit=rel, wall_ms=o["wall_s"] * 1e3,
+                  coll_bytes=json.dumps({k: v for k, v in sorted(
+                      o["stats"].items()) if k.endswith("_bytes")}),
+                  peak_mem_gb=round(o.get("peak_gb", 0.0), 3))
+    phase("mesh-world", ranks=len(moe), world_s=round(moe_s, 1))
+
+    # the kernels at the ranks' shapes: flash on a rank's 8 / 4 heads of
+    # 2 x 2048, gmm on a rank's 8 experts
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = flash_inputs(gen, dev, MESH["batch"] // MESH["mesh"][0],
+                           MESH["seq"], MESH["seq"],
+                           cfg.heads // MESH["mesh"][1],
+                           cfg.kv_heads // MESH["mesh"][1],
+                           cfg.resolved_head_dim, torch.bfloat16)
+    with torch.no_grad():
+        flash_rec = flash_call_record((q, k, v), {"causal": True}, path)
+    flash_rec.update(launches=2 * cfg.n_layers, path=path)
+    del q, k, v
+    (xs, ws, dt) = moe[0][0]["gmm_shapes"][0]
+    x = torch.randn(xs, generator=gen, device=dev).to(getattr(torch, dt))
+    w = (torch.randn(ws, generator=gen, device=dev) * xs[2] ** -0.5).to(
+        getattr(torch, dt))
+    gmm_rec = gmm_call_record(x, w, path)
+    gmm_rec.update(launches=moe[0][0]["launches"].get("gmm", 0), path=path)
+    del x, w
+    free_memory()
+    return [flash_rec, gmm_rec]
+
+
+def gmm_call_record(x, w, path) -> dict:
+    """gmm on ``x`` @ ``w`` against its plain version, timed beside the
+    plain version and ``torch.bmm``; returns its JSON record."""
+    e = gmm_compare(x, w)
+    ms = slow_ms(lambda: gmm(x, w))
+    plain_ms = slow_ms(lambda: gmm_reference(x, w))
+    lib_ms = slow_ms(lambda: torch.bmm(x, w))
+    ne, c, d = x.shape
+    f = w.shape[2]
+    nbytes = x.element_size() * (ne * c * d + ne * d * f + ne * c * f)
+    nops = 2 * ne * c * d * f
+    bound_ms, bound_by = bound(nbytes, nops, BF16_FLOPS
+                               if x.dtype == torch.bfloat16 else FP32_FLOPS)
+    phase(f"{path}-kernel", name="gmm", x=json.dumps(list(x.shape)),
+          w=json.dumps(list(w.shape)), dtype=str(x.dtype).split(".")[1],
+          max_abs_err=e,
+          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+          bound_by=bound_by, share_of_bound=bound_ms / ms,
+          tflops=nops / ms / 1e9)
+    return {"name": "gmm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:49",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "max_abs_err": e}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5739,6 +6216,7 @@ def main(argv=None) -> int:
     paths.append(("multi_query", multi_query_path))
     paths.append(("qwen3_train", train_path))
     paths.append(("tri_sharded", sharded_path))
+    paths.append(("mesh_train", mesh_path))
     if args.paths:
         wanted = args.paths.split(",")
         unknown = set(wanted) - {p for p, _ in paths}

@@ -25,8 +25,8 @@ encdec decoder's plain attention to the encoder's output.
 ``map`` / ``filter`` / ``reduce`` run ADIL's collection ops over a
 ``ListT`` value, a Python list of tensors (a ``filter`` predicate that
 reads a device value synchronizes with the host, as it must to decide).
-The moe impls ignore the ``pin_moe`` attr: the reference's sharding
-constraints have no counterpart on one card.  Planning is the
+On one card the moe impls ignore the ``pin_moe`` attr (the
+reference's sharding constraints only place values).  Planning is the
 copied staged pipeline, so a plan id here equals the reference package's
 for the same analysis and catalogs.
 
@@ -51,6 +51,30 @@ every rank runs the same plan on the same global values, and the store
 impls of ``dist``-stamped nodes run their sharded operators through the
 mesh's collectives (``ExecContext.mesh``).
 
+The model side of the mesh: :class:`ShardingRules` and
+:func:`params_sharding` are the reference's (rule tables, "first dim wins"
+per mesh axis, ``no_fsdp_experts``), a spec being a tuple with an axis
+name, a tuple of names or None per dim; :class:`Sharding` adds the shard
+shape and, on a live mesh, the rank's block.  On a
+:class:`~repro_torch.launch.mesh.RankMesh` (``plan_and_compile(...,
+mesh=, param_specs=)``) the LM impls run GSPMD's layout written out: each
+rank holds its block of every parameter (``embed`` over ``data``, heads,
+ffn, vocab and experts over ``model``) and of the batch (over ``data``),
+and calls the collectives of :mod:`.collectives` itself.  ``partition``
+takes the rank's rows of a global value and ``merge`` gathers them;
+``scan_layers_xla`` gathers each layer's ``data`` shards just before the
+layer (FSDP; again in a ``remat`` recompute); ``embed_gather`` gathers
+its rows of a vocab-sharded table and sums over ``model``; the q / k / v
+projections are column-parallel on heads (every KV head a rank's query
+heads read, when ``kv_heads`` does not divide over ``model``); the out and
+down projections row-parallel with a sum over ``model``;
+``unembed_matmul`` gives the rank's vocab columns and
+``softmax_xent_xla`` is the vocab-parallel cross-entropy, a mean over the
+global batch; the moe impls run the rank's experts (``layers/moe.py``).
+A plan value is then the rank's block of the global value; the loss is
+whole on every rank.  The rwkv, hybrid, vlm and encdec families have no
+sharded form: their plans are refused on a mesh of more than one rank.
+
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; without a card they raise (:func:`resolve_device`) rather
 than carry on on the CPU.
@@ -66,6 +90,7 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from . import collectives as C
 from .buffering import BufferingDecision
 from .cost_model import CostModel, raw_features
 from .engines import dispatch, get_engine, resolve_engines
@@ -130,6 +155,154 @@ def _tensors(value):
 
 
 # --------------------------------------------------------------------------
+# sharding rules: semantic dim name -> mesh axes
+# --------------------------------------------------------------------------
+
+def _is_spec(s) -> bool:
+    return isinstance(s, tuple) and all(isinstance(x, str) for x in s)
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """MaxText-style logical-axis rules.  ``param`` maps weight dim names,
+    ``act`` maps activation dim names."""
+
+    act: tuple = (
+        ("batch", ("pod", "data")),
+        ("heads", ("model",)),
+        ("kv_heads", ("model",)),
+        ("ffn", ("model",)),
+        ("vocab", ("model",)),
+        ("experts", ("model",)),
+    )
+    param: tuple = (
+        ("embed", ("data",)),          # FSDP / ZeRO-3: shard embed over data
+        ("vocab", ("model",)),
+        ("ffn", ("model",)),
+        ("heads_flat", ("model",)),
+        ("kv_flat", ("model",)),
+        ("experts", ("model",)),
+        ("inner", ("model",)),
+        ("inner_cat", ("model",)),
+        ("inner_cat2", ("model",)),
+    )
+    # expert weights already divide over `model` via EP; FSDP-sharding
+    # their embed dim over `data` as well makes every expert matmul a
+    # partial sum.  True => replicate expert weights over data.
+    no_fsdp_experts: bool = False
+
+    def _lookup(self, table, dim, mesh):
+        for d, axes in table:
+            if d == dim:
+                ax = tuple(a for a in axes if a in mesh.axis_names)
+                if len(ax) == 1:
+                    return ax[0]
+                return ax if ax else None
+        return None
+
+    def _spec(self, table, dims, mesh, *, is_param=False) -> tuple:
+        # each mesh axis may appear at most once per spec: first dim wins
+        used: set = set()
+        out = []
+        skip_fsdp = (is_param and self.no_fsdp_experts
+                     and "experts" in dims)
+        for d in dims:
+            if skip_fsdp and d == "embed":
+                out.append(None)
+                continue
+            ax = self._lookup(table, d, mesh)
+            axes = (ax,) if isinstance(ax, str) else (ax or ())
+            if any(a in used for a in axes):
+                out.append(None)
+                continue
+            used.update(axes)
+            out.append(ax)
+        return tuple(out)
+
+    def act_spec(self, dims, mesh) -> tuple:
+        return self._spec(self.act, dims, mesh)
+
+    def param_spec(self, dims, mesh) -> tuple:
+        return self._spec(self.param, dims, mesh, is_param=True)
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """A leaf's layout on a mesh: ``spec`` has, per dim, the mesh axis it
+    is cut over (a name, a tuple of names, or None: whole).  ``mesh`` is a
+    process-free ``MeshLayout`` or a live ``RankMesh`` (both have
+    ``axis_names`` and ``shape``); on a live one :meth:`block` is this
+    rank's part.  ``name`` and ``dims`` (the leaf's path and dim names)
+    name the leaf in errors."""
+
+    mesh: Any
+    spec: tuple
+    name: str = ""
+    dims: tuple = ()
+
+    def axes(self, i: int) -> tuple:
+        """The mesh axes dim ``i`` is cut over (empty: whole)."""
+        ax = self.spec[i] if i < len(self.spec) else None
+        return (ax,) if isinstance(ax, str) else tuple(ax or ())
+
+    def parts(self, i: int) -> int:
+        n = 1
+        for a in self.axes(i):
+            n *= int(self.mesh.shape[a])
+        return n
+
+    def shard_shape(self, shape) -> tuple:
+        """The block's shape of a leaf of global ``shape``.  A dim that
+        does not divide over its axes raises ``ValueError`` naming the
+        leaf and the dim (no padded uneven shards, unlike GSPMD)."""
+        out = []
+        for i, size in enumerate(shape):
+            k = self.parts(i)
+            if size % k:
+                dim = self.dims[i] if i < len(self.dims) else i
+                raise ValueError(
+                    f"{self.name or 'leaf'}: dim {dim!r} of size {size} does "
+                    f"not divide over mesh axes {self.axes(i)} ({k} ranks)")
+            out.append(size // k)
+        return tuple(out)
+
+    def index(self, shape) -> tuple:
+        """Slices of this rank's block of a leaf of global ``shape``."""
+        local = self.shard_shape(shape)
+        out = []
+        for i, n in enumerate(local):
+            c = 0
+            for a in self.axes(i):
+                c = c * int(self.mesh.shape[a]) + int(self.mesh.coords[a])
+            out.append(slice(c * n, (c + 1) * n))
+        return tuple(out)
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the global ``x``: a tensor of its own."""
+        return x[self.index(x.shape)].clone()
+
+    def sharded_axes(self) -> set:
+        return {a for i in range(len(self.spec)) for a in self.axes(i)}
+
+    def layer(self) -> "Sharding":
+        """The sharding of one layer of a stacked leaf (its leading
+        ``layers`` dim, which no rule cuts, dropped)."""
+        if self.axes(0):
+            raise ValueError(f"{self.name}: the layers dim is cut")
+        return Sharding(self.mesh, self.spec[1:], self.name, self.dims[1:])
+
+
+def params_sharding(specs_tree, mesh, rules: ShardingRules, path=()):
+    """Map a specs tree (tuples of dim names) to :class:`Sharding`
+    records."""
+    if _is_spec(specs_tree):
+        return Sharding(mesh, rules.param_spec(specs_tree, mesh),
+                        ".".join(path), specs_tree)
+    return {k: params_sharding(v, mesh, rules, path + (k,))
+            for k, v in specs_tree.items()}
+
+
+# --------------------------------------------------------------------------
 # execution context
 # --------------------------------------------------------------------------
 
@@ -141,19 +314,116 @@ class ExecContext:
     aux: dict = field(default_factory=dict)   # count_sink, positions, ...
     tracer: Optional[Any] = None    # core.tracing.Tracer; None = fast path
     faults: Optional[Any] = None    # core.faults.FaultInjector; None = off
-    mesh: Optional[Any] = None      # launch.mesh.DataMesh; None = one rank
+    mesh: Optional[Any] = None      # launch.mesh.DataMesh / RankMesh
+    # on a rank mesh: the Sharding tree of the root params and of the
+    # current scope (a layer's, inside scan_layers), whether the scope's
+    # data shards are already gathered, and the plan's global batch
+    shardings: Optional[Any] = None
+    sh_scope: Optional[Any] = None
+    gathered: bool = False
+    global_batch: Optional[int] = None
+
+    def _walk(self, node):
+        path = node.attrs.get("pp")
+        if path is None:
+            return self.scope, self.sh_scope, self.gathered
+        shared = bool(node.attrs.get("shared"))
+        base = self.root if shared else self.scope
+        sh = self.shardings if shared else self.sh_scope
+        for k in path:
+            base = base[k]
+            sh = None if sh is None else sh[k]
+        return base, sh, self.gathered and not shared
 
     def params_for(self, node):
         """The parameters under the node's ``pp`` path: from the root for
         ``shared`` nodes, else from the current scope (a layer slice inside
-        ``scan_layers``)."""
-        path = node.attrs.get("pp")
-        if path is None:
-            return self.scope
-        base = self.root if node.attrs.get("shared") else self.scope
-        for k in path:
-            base = base[k]
-        return base
+        ``scan_layers``).  On a rank mesh, with the ``data`` shards
+        gathered (FSDP) unless the scope holds them gathered already."""
+        p, sh, gathered = self._walk(node)
+        if sh is None or gathered:
+            return p
+        return gather_params(self, p, sh)
+
+    def local_params_for(self, node):
+        """``(params, shardings)`` under the node's path, as this rank
+        holds them (shardings None off a rank mesh)."""
+        p, sh, _ = self._walk(node)
+        return p, sh
+
+    def constrain(self, x, dims):
+        """The reference's layout pin (``with_sharding_constraint`` to
+        ``act_spec(dims)``).  The port's impls build each value in its
+        layout themselves, so ``x`` comes back as it is; the moe impls take
+        a given ``constrain`` as ``pin_moe``'s switch to the pinned
+        exchange (``layers/moe.py``)."""
+        return x
+
+    def axis(self, name: str):
+        """The mesh's sub-group along ``name`` when it has more than one
+        rank, else None (one device, or a store's data mesh)."""
+        m = self.mesh
+        if m is None or not hasattr(m, "axis"):
+            return None
+        ax = m.axis(name)
+        return ax if int(ax.world) > 1 else None
+
+
+def _tree_items(p, sh, path=()):
+    """``(path, leaf, sharding)`` of a nested dict and its Sharding tree."""
+    if isinstance(p, dict):
+        for k, v in p.items():
+            yield from _tree_items(v, sh[k], path + (k,))
+    else:
+        yield path, p, sh
+
+
+def _tree_put(tree, path, value):
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = value
+
+
+def _copy_tree(p):
+    return {k: _copy_tree(v) for k, v in p.items()} if isinstance(p, dict) \
+        else p
+
+
+def gather_params(ctx, p, sh):
+    """``p`` (a subtree of this rank's parameter blocks) with each leaf's
+    ``data``-cut dim gathered over the ``data`` axis, one collective per
+    dtype (FSDP; the backward sums the ranks' gradients and keeps the
+    block).  A leaf that is whole over ``data`` passes through
+    :func:`~.collectives.copy_to`, so its gradient, a partial sum of the
+    rank's rows, is summed over ``data`` too."""
+    data = ctx.axis("data")
+    if data is None:
+        return p
+    items = list(_tree_items(p, sh))
+    cut, dims = [], []
+    out = _copy_tree(p)
+    for path, leaf, s in items:
+        d = [i for i in range(leaf.dim()) if "data" in s.axes(i)]
+        if d and s.axes(d[0]) != ("data",):
+            raise NotImplementedError(
+                f"{s.name}: dim {d[0]} is cut over {s.axes(d[0])}")
+        if d:
+            cut.append((path, leaf))
+            dims.append(d[0])
+        else:
+            _tree_put(out, path, C.copy_to(data, leaf))
+    full = C.gather_leaves(data, [leaf for _, leaf in cut], dims)
+    for (path, _), t in zip(cut, full):
+        _tree_put(out, path, t)
+    return out
+
+
+def _layer_shardings(sh):
+    if sh is None:
+        return None
+    if isinstance(sh, dict):
+        return {k: _layer_shardings(v) for k, v in sh.items()}
+    return sh.layer()
 
 
 # --------------------------------------------------------------------------
@@ -181,20 +451,73 @@ def _i_resid(ctx, args, node):
 
 
 # --------------------------------------------------------------------------
-# language-model impls (one device: partition and merge are identities)
+# language-model impls
 # --------------------------------------------------------------------------
 
-@impl("partition", "merge")
+def _batch_block(ctx, x):
+    """Whether ``x`` (batch-leading) is the global value (True) or this
+    rank's rows already (False); anything else is refused."""
+    n = int(ctx.mesh.shape.get("data", 1))
+    gb = ctx.global_batch
+    if gb is None or gb % n:
+        raise ValueError(f"global batch {gb} does not divide over the data "
+                         f"axis ({n} ranks)")
+    if x.shape[0] == gb and n > 1:
+        return True
+    if x.shape[0] == gb // n:
+        return False
+    raise ValueError(f"a batch of {x.shape[0]} rows is neither the global "
+                     f"batch {gb} nor a rank's {gb // n}")
+
+
+@impl("partition")
 def _i_partition(ctx, args, node):
-    return args[0]
+    """This rank's rows of a batch-leading value (the reference's
+    constraint of the batch dim to ``data``); a value already cut passes
+    through.  One device: the identity."""
+    x = args[0]
+    data = ctx.axis("data")
+    if data is None or not isinstance(x, torch.Tensor) or \
+            not _batch_block(ctx, x):
+        return x
+    n = x.shape[0] // int(data.world)
+    return x[int(data.rank) * n:(int(data.rank) + 1) * n]
+
+
+@impl("merge")
+def _i_merge(ctx, args, node):
+    """The global value of this rank's rows, replicated (the reference's
+    replicating constraint): an all-gather over ``data`` whose backward
+    slices.  One device: the identity."""
+    x = args[0]
+    data = ctx.axis("data")
+    if data is None or not isinstance(x, torch.Tensor) or \
+            _batch_block(ctx, x):
+        return x
+    return C.gather(data, x, 0, partial=False)
 
 
 @impl("embed_gather")
 def _i_embed(ctx, args, node):
-    out = E.embed(ctx.params_for(node), args[0].long(),
-                  scale=node.attrs.get("scale", False))
+    """Rows of the table; on a ``model`` axis the table's vocab rows are
+    cut, so each rank looks up the ids in its rows (zeros elsewhere) and
+    the rows are summed over ``model`` — exact, every other term is 0."""
+    p = ctx.params_for(node)
     dt = node.attrs.get("dtype")
-    return out.to(torch_dtype(dt)) if dt else out
+    ids = args[0].long()
+    model = ctx.axis("model")
+    if model is None:
+        out = E.embed(p, ids, scale=node.attrs.get("scale", False))
+        return out.to(torch_dtype(dt)) if dt else out
+    rows = p["table"].shape[0]
+    local = ids - int(model.rank) * rows
+    inside = (local >= 0) & (local < rows)
+    out = E.embed(p, local.clamp(0, rows - 1),
+                  scale=node.attrs.get("scale", False))
+    out = out.to(torch_dtype(dt)) if dt else out
+    out = torch.where(inside[..., None], out,
+                      torch.zeros((), dtype=out.dtype, device=out.device))
+    return C.reduce_from(model, out)
 
 
 @impl("rmsnorm_xla")
@@ -207,22 +530,62 @@ def _attn_cfg(node):
     return a["heads"], a["kv_heads"], a["head_dim"]
 
 
+def _local_heads(ctx, node):
+    """``(model axis, local query heads, first / count of the KV heads the
+    rank's query heads read)``; the axis None on one device."""
+    h, k, d = _attn_cfg(node)
+    model = ctx.axis("model")
+    if model is None:
+        return None, h, 0, k
+    m, r = int(model.world), int(model.rank)
+    if h % m:
+        raise ValueError(f"{h} query heads do not divide over the model "
+                         f"axis ({m} ranks)")
+    hl, g = h // m, h // k
+    if hl % g and g % hl:
+        raise ValueError(f"a rank's {hl} query heads straddle the {k} KV "
+                         f"groups of {g} heads")
+    lo = r * hl // g
+    return model, hl, lo, (r * hl + hl - 1) // g + 1 - lo
+
+
+def _kv_weights(ctx, model, p, k, d, lo, kl):
+    """``wk`` / ``wv`` of the KV heads ``[lo, lo + kl)``.  They are stored
+    cut over ``model`` (``kv_flat``); when the KV heads divide over it the
+    rank's block is those heads, else every rank gathers the columns
+    (backward: summed over ``model``) and keeps the heads it reads."""
+    if k % int(model.world) == 0:
+        return p["wk"], p["wv"]
+    wk, wv = C.gather_leaves(model, [p["wk"], p["wv"]], [1, 1])
+    return (wk[:, lo * d:(lo + kl) * d], wv[:, lo * d:(lo + kl) * d])
+
+
 @impl("q_proj_xla")
 def _i_qproj(ctx, args, node):
     h, k, d = _attn_cfg(node)
-    return A.project_q(ctx.params_for(node), args[0], h, d)
+    model, hl, _, _ = _local_heads(ctx, node)
+    return A.project_q(ctx.params_for(node), C.copy_to(model, args[0]),
+                       hl, d)
+
+
+def _kv_proj(ctx, args, node, which):
+    h, k, d = _attn_cfg(node)
+    p = ctx.params_for(node)
+    model, _, lo, kl = _local_heads(ctx, node)
+    if model is not None:
+        wk, wv = _kv_weights(ctx, model, p, k, d, lo, kl)
+        p = {"wk": wk, "wv": wv}
+    return A.project_kv(p, C.copy_to(model, args[0]), kl, d)[which]
 
 
 @impl("k_proj_xla")
 def _i_kproj(ctx, args, node):
-    h, k, d = _attn_cfg(node)
-    return A.project_kv(ctx.params_for(node), args[0], k, d)[0]
+    return _kv_proj(ctx, args, node, 0)
 
 
 @impl("v_proj_xla")
 def _i_vproj(ctx, args, node):
-    h, k, d = _attn_cfg(node)
-    return A.project_kv(ctx.params_for(node), args[0], k, d)[1]
+    return _kv_proj(ctx, args, node, 1)
 
 
 @impl("pack_qkv_xla")
@@ -232,15 +595,29 @@ def _i_pack(ctx, args, node):
 
 @impl("qkv_proj_fused")
 def _i_qkv_fused(ctx, args, node):
+    """One gemm over the concatenated projection; on a ``model`` axis
+    column-parallel: the rank's query heads and the KV heads they read."""
     h, k, d = _attn_cfg(node)
-    return A.project_qkv_fused(ctx.params_for(node), args[0], h, k, d)
+    p = ctx.params_for(node)
+    model, hl, lo, kl = _local_heads(ctx, node)
+    if model is not None:
+        wk, wv = _kv_weights(ctx, model, p, k, d, lo, kl)
+        p = {"wq": p["wq"], "wk": wk, "wv": wv}
+    return A.project_qkv_fused(p, C.copy_to(model, args[0]), hl, kl, d)
 
 
 def _prep(ctx, node, q, k):
     pos = ctx.aux.get("positions")
     if pos is None:
         pos = torch.arange(q.shape[1], device=q.device)[None, :]
-    return A.qk_prep(ctx.params_for(node), q, k, pos,
+    p = ctx.params_for(node)
+    model = ctx.axis("model")
+    if model is not None and "q_norm" in p:
+        # whole norms applied to the rank's heads: their gradients are
+        # partial sums over model
+        p = {**p, "q_norm": C.copy_to(model, p["q_norm"]),
+             "k_norm": C.copy_to(model, p["k_norm"])}
+    return A.qk_prep(p, q, k, pos,
                      qk_norm=node.attrs.get("qk_norm", False),
                      use_rope=node.attrs.get("rope", True),
                      rope_theta=node.attrs.get("rope_theta", 10000.0))
@@ -284,7 +661,10 @@ def _i_flash(ctx, args, node):
 
 @impl("out_proj_xla")
 def _i_outproj(ctx, args, node):
-    return A.out_project(ctx.params_for(node), args[0])
+    """Row-parallel on a ``model`` axis: the rank's heads against its rows
+    of ``wo``, summed over ``model``."""
+    return C.reduce_from(ctx.axis("model"),
+                         A.out_project(ctx.params_for(node), args[0]))
 
 
 @impl("cross_attention_xla")
@@ -302,12 +682,14 @@ def _i_xattn(ctx, args, node):
 
 @impl("ffn_up_xla")
 def _i_ffn_up(ctx, args, node):
-    return F.ffn_up(ctx.params_for(node), args[0])
+    return F.ffn_up(ctx.params_for(node),
+                    C.copy_to(ctx.axis("model"), args[0]))
 
 
 @impl("ffn_gate_xla")
 def _i_ffn_gate(ctx, args, node):
-    return F.ffn_gate(ctx.params_for(node), args[0])
+    return F.ffn_gate(ctx.params_for(node),
+                      C.copy_to(ctx.axis("model"), args[0]))
 
 
 @impl("ffn_glu_xla")
@@ -322,14 +704,25 @@ def _i_ffn_act(ctx, args, node):
 
 @impl("ffn_down_xla")
 def _i_ffn_down(ctx, args, node):
-    return F.ffn_down(ctx.params_for(node), args[0])
+    return C.reduce_from(ctx.axis("model"),
+                         F.ffn_down(ctx.params_for(node), args[0]))
 
 
 @impl("mlp_fused_xla")
 def _i_mlp(ctx, args, node):
-    return F.mlp_fused(ctx.params_for(node), args[0],
-                       gated=node.attrs.get("gated", True),
-                       act=node.attrs.get("act"))
+    """Column-parallel up / gate, row-parallel down on a ``model`` axis."""
+    model = ctx.axis("model")
+    return C.reduce_from(model, F.mlp_fused(
+        ctx.params_for(node), C.copy_to(model, args[0]),
+        gated=node.attrs.get("gated", True), act=node.attrs.get("act")))
+
+
+def _moe_kw(ctx, node) -> dict:
+    """The moe impls' mesh arguments: the ``model`` axis the experts are
+    cut over, and ``constrain`` when the node pins the layout."""
+    return {"experts_axis": ctx.axis("model"),
+            "constrain": ctx.constrain if node.attrs.get("pin_moe")
+            else None}
 
 
 @impl("moe_dense_onehot")
@@ -337,21 +730,24 @@ def _i_moe_dense(ctx, args, node):
     a = node.attrs
     return X.moe_dense(ctx.params_for(node), args[0], top_k=a["top_k"],
                        experts=a["experts"], act=a.get("act", "silu"),
-                       capacity_factor=a.get("capacity_factor", 2.0))
+                       capacity_factor=a.get("capacity_factor", 2.0),
+                       **_moe_kw(ctx, node))
 
 
 @impl("moe_dropping")
 def _i_moe_drop(ctx, args, node):
     a = node.attrs
     return X.moe_dropping(ctx.params_for(node), args[0], top_k=a["top_k"],
-                          experts=a["experts"], act=a.get("act", "silu"))
+                          experts=a["experts"], act=a.get("act", "silu"),
+                          **_moe_kw(ctx, node))
 
 
 @impl("moe_gmm_pallas", engine="pallas")
 def _i_moe_gmm(ctx, args, node):
     a = node.attrs
     return X.moe_gmm(ctx.params_for(node), args[0], top_k=a["top_k"],
-                     experts=a["experts"], act=a.get("act", "silu"))
+                     experts=a["experts"], act=a.get("act", "silu"),
+                     **_moe_kw(ctx, node))
 
 
 @impl("wkv6_scan_xla")
@@ -394,16 +790,53 @@ def _i_rwkv_cm(ctx, args, node):
 
 @impl("unembed_matmul")
 def _i_unembed(ctx, args, node):
-    out = E.unembed(ctx.params_for(node), args[0])
+    """float32 logits; on a ``model`` axis vocab-parallel: the rank's
+    vocab columns (the padded ones past ``true_vocab`` masked by their
+    global ids)."""
+    model = ctx.axis("model")
+    out = E.unembed(ctx.params_for(node), C.copy_to(model, args[0]))
+    lo = 0 if model is None else int(model.rank) * out.shape[-1]
+    vocab = out.shape[-1] * (1 if model is None else int(model.world))
     true_v = node.attrs.get("true_vocab")
-    if true_v and true_v < out.shape[-1]:
-        out = E.mask_padded_logits(out, true_v)
+    if true_v and true_v < vocab:
+        out = E.mask_padded_logits(out, true_v - lo)
     return out
 
 
 @impl("softmax_xent_xla")
 def _i_xent(ctx, args, node):
-    return E.softmax_xent(args[0], args[1])
+    """The mean cross-entropy.  On a mesh the logits are the rank's rows
+    (``data``) and vocab columns (``model``): the log-partition takes the
+    max and the sum over ``model``, the gold logit comes from the rank
+    holding its column, and the mean is over the global batch (sums over
+    ``data``), so every rank holds the whole loss."""
+    model, data = ctx.axis("model"), ctx.axis("data")
+    if model is None and data is None:
+        return E.softmax_xent(args[0], args[1])
+    logits, labels = args
+    valid = labels != -100
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    if model is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    else:
+        with torch.no_grad():
+            mx = C.all_max(model, logits.amax(dim=-1))
+        logz = mx + torch.log(C.reduce_from(
+            model, torch.exp(logits - mx[..., None]).sum(dim=-1)))
+        cols = logits.shape[-1]
+        local = safe - int(model.rank) * cols
+        inside = (local >= 0) & (local < cols)
+        gold = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])
+        gold = C.reduce_from(model, torch.where(
+            inside, gold[..., 0], torch.zeros((), dtype=logits.dtype,
+                                              device=logits.device)))
+    weight = valid.to(logits.dtype)
+    total = C.reduce_from(data, (logz - gold).mul(weight).sum())
+    count = weight.sum()
+    if data is not None:
+        count = data.all_reduce(count)
+    return total / count.clamp(min=1.0)
 
 
 @impl("concat_seq")
@@ -454,7 +887,6 @@ def _scan_grad(ctx, node, args):
     if node.attrs.get("collect_kv"):
         raise NotImplementedError(
             "scan_layers_xla: collect_kv plans serve; they take no gradient")
-    p_stack = ctx.params_for(node)
     sub = node.subplan
     in_names = list(sub.inputs.keys())
     extra_env = dict(zip(in_names[1:], args[1:]))
@@ -462,10 +894,24 @@ def _scan_grad(ctx, node, args):
     carry = args[0]
     for i in range(int(node.attrs["n_layers"])):
         def layer(h, i=i):
-            ctx2 = replace(ctx, scope=layer_slice(p_stack, i))
-            return run_plan(sub, ctx2, {in_names[0]: h, **extra_env})[0]
+            return run_plan(sub, _layer_context(ctx, node, i),
+                            {in_names[0]: h, **extra_env})[0]
         carry = run(layer, carry)
     return carry
+
+
+def _layer_context(ctx, node, i, aux=None):
+    """The context of layer ``i`` of a scan node: the layer's slice of the
+    stacked parameters as the scope; on a rank mesh with its ``data``
+    shards gathered here (FSDP: inside a ``remat`` layer they are gathered
+    again for the recompute, and freed after either)."""
+    p_stack, sh_stack = ctx.local_params_for(node)
+    scope = layer_slice(p_stack, i)
+    sh = _layer_shardings(sh_stack)
+    if sh is not None:
+        scope = gather_params(ctx, scope, sh)
+    return replace(ctx, scope=scope, sh_scope=sh, gathered=sh is not None,
+                   aux=ctx.aux if aux is None else aux)
 
 
 @impl("scan_layers_xla")
@@ -478,7 +924,7 @@ def _i_scan(ctx, args, node):
     decode cache layout; returns ``(carry, ((K, V), ...))`` then.  When
     grad mode is on and a parameter of the stack or an input requires
     grad, :func:`_scan_grad` runs the layers instead, with ``remat``."""
-    p_stack = ctx.params_for(node)
+    p_stack, _ = ctx.local_params_for(node)
     if torch.is_grad_enabled() and (_requires_grad(p_stack)
                                     or _requires_grad(args)):
         return _scan_grad(ctx, node, args)
@@ -492,8 +938,8 @@ def _i_scan(ctx, args, node):
         for i in range(int(node.attrs["n_layers"])):
             sink: list = []
             aux = {**ctx.aux, "kv_sink": sink} if collect_kv else ctx.aux
-            ctx2 = replace(ctx, scope=layer_slice(p_stack, i), aux=aux)
-            carry = run_plan(sub, ctx2, {in_names[0]: carry, **extra_env})[0]
+            carry = run_plan(sub, _layer_context(ctx, node, i, aux),
+                             {in_names[0]: carry, **extra_env})[0]
             per_layer.append(tuple(sink))
         if not collect_kv:
             return carry
@@ -598,7 +1044,7 @@ def _run_plan_traced(pplan: PhysPlan, ctx: ExecContext,
     path only."""
     from .tracing import tree_bytes, xfer_wire_bytes
     tracer = ctx.tracer
-    n_data = 1 if ctx.mesh is None else int(ctx.mesh.world)
+    n_data = 1 if ctx.mesh is None else int(ctx.mesh.shape.get("data", 1))
     env = dict(values)
     for n in pplan.topo():
         fn = _impl_fn(n)
@@ -657,6 +1103,66 @@ def _drain_counts(resolved, feedback) -> None:
         feedback.record(site, count, capacity)
 
 
+# the impls of the LM families that have no sharded form on a rank mesh
+_UNSHARDED_FAMILIES = {
+    "wkv6_scan_xla": "rwkv", "wkv6_pallas": "rwkv",
+    "rwkv_channel_mix": "rwkv", "ssd_chunked_xla": "hybrid",
+    "ssd_pallas": "hybrid", "concat_seq": "vlm",
+    "cross_attention_xla": "encdec"}
+_LM_IMPLS = {"embed_gather", "scan_layers_xla", "unembed_matmul"}
+
+
+def _all_nodes(plan):
+    for n in plan.topo():
+        yield n
+        if n.subplan is not None:
+            yield from _all_nodes(n.subplan)
+
+
+def _mesh_size(mesh) -> int:
+    n = 1
+    for a in getattr(mesh, "axis_names", ()):
+        n *= int(mesh.shape[a])
+    return n
+
+
+def _mesh_shardings(concrete, mesh, rules, param_specs):
+    """The parameters' Sharding tree of an LM plan on a rank mesh of more
+    than one rank (None otherwise).  Refuses a family without a sharded
+    form, a serving (``collect_kv``) plan, a store's data mesh, and a
+    missing ``param_specs``."""
+    nodes = list(_all_nodes(concrete))
+    if mesh is None or _mesh_size(mesh) <= 1 or \
+            not any(n.impl in _LM_IMPLS for n in nodes):
+        return None
+    for n in nodes:
+        fam = _UNSHARDED_FAMILIES.get(n.impl)
+        if fam is not None:
+            raise ValueError(
+                f"the {fam} family has no sharded form: its plan "
+                f"({n.impl}) runs on one rank, not on a mesh of shape "
+                f"{dict(mesh.shape)}")
+        if n.attrs.get("collect_kv"):
+            raise ValueError("a collect_kv (serving prefill) plan runs on "
+                             "one rank")
+    if not hasattr(mesh, "axis"):
+        raise ValueError("an LM plan runs on a RankMesh (launch.mesh."
+                         "make_rank_mesh), not a store's data mesh")
+    if param_specs is None:
+        raise ValueError("an LM plan on a mesh needs param_specs= (the "
+                         "model's param_specs())")
+    return params_sharding(param_specs, mesh, rules)
+
+
+def _global_batch(concrete) -> Optional[int]:
+    """The leading size of the plan's first batch-leading input."""
+    for t in concrete.inputs.values():
+        dims = getattr(t, "dims", None)
+        if dims and dims[0] == "batch":
+            return int(t.shape[0])
+    return None
+
+
 @dataclass
 class PlannedFunction:
     """A staged plan bound to one device, and on a mesh to its rank."""
@@ -674,18 +1180,25 @@ class PlannedFunction:
     faults: Optional[Any] = None     # core.faults.FaultInjector; None = off
     last_run_trace: Optional[Any] = None   # RunTrace of the last analyze()
     _predicted: Optional[dict] = None      # node id -> (seconds, features)
-    mesh: Optional[Any] = None       # launch.mesh.DataMesh; None = one rank
+    mesh: Optional[Any] = None       # launch.mesh.DataMesh / RankMesh
+    # on a rank mesh: the Sharding tree of the parameters (their specs
+    # under ``rules``), the layout every call's params are held in
+    param_shardings: Optional[Any] = None
 
     @classmethod
     def from_staged(cls, staged, syscat: SystemCatalog, *,
-                    device="cuda", mesh=None) -> "PlannedFunction":
+                    device="cuda", mesh=None, rules=None,
+                    param_specs=None) -> "PlannedFunction":
         dev = resolve_device(device)
         if mesh is not None and not _same_device(mesh.device, dev):
             raise ValueError(f"the mesh's rank runs on {mesh.device}, but "
                              f"the plan is compiled for {dev}")
+        shardings = _mesh_shardings(staged.concrete, mesh,
+                                    rules or ShardingRules(), param_specs)
         return cls(staged.logical, staged.pplan, staged.concrete,
                    staged.choices, staged.report, staged.buffering,
-                   syscat, dev, staged.plan_id, staged, mesh=mesh)
+                   syscat, dev, staged.plan_id, staged, mesh=mesh,
+                   param_shardings=shardings)
 
     def explain(self, analyze=False) -> str:
         """The plan-time EXPLAIN report; with ``analyze`` the runtime
@@ -720,7 +1233,9 @@ class PlannedFunction:
                         f"payload(device={str(dev)!r})")
         return ExecContext(root=params, scope=params, device=dev,
                            aux=aux or {}, tracer=tracer, faults=self.faults,
-                           mesh=self.mesh)
+                           mesh=self.mesh, shardings=self.param_shardings,
+                           sh_scope=self.param_shardings,
+                           global_batch=_global_batch(self.concrete))
 
     def __call__(self, params, inputs: dict, aux: Optional[dict] = None):
         outs = run_plan(self.concrete, self._context(params, inputs, aux),
@@ -868,12 +1383,18 @@ def plan_and_compile(logical: Plan, catalog: FunctionCatalog,
                      plan_threads: int = 1,
                      feedback=None,
                      store_versions: tuple = (),
-                     device="cuda", mesh=None) -> PlannedFunction:
+                     device="cuda", mesh=None,
+                     rules: Optional[ShardingRules] = None,
+                     param_specs=None) -> PlannedFunction:
     """Run — or fetch from the plan cache — the staged plan pipeline and
     bind the staged plan to ``device`` and, on a mesh
-    (:class:`~repro_torch.launch.mesh.DataMesh`, whose rank device must be
-    ``device``), to the rank.  The options are the reference package's, so
-    equal options give an equal plan id."""
+    (:class:`~repro_torch.launch.mesh.DataMesh` or
+    :class:`~repro_torch.launch.mesh.RankMesh`, whose rank device must be
+    ``device``), to the rank.  An LM plan on a rank mesh takes
+    ``param_specs`` (the model's ``param_specs()``): with ``rules`` (the
+    reference's by default) they say how each rank holds the parameters.
+    The options are the reference package's, so equal options give an
+    equal plan id."""
     from .pipeline import PlanOptions, compile_staged
     from .rewrite import DEFAULT_PIPELINE
     dev = resolve_device(device)
@@ -890,4 +1411,5 @@ def plan_and_compile(logical: Plan, catalog: FunctionCatalog,
                             cost_model=cost_model, pipeline=pipeline,
                             cache=cache, feedback=feedback,
                             extra_key=extra_key)
-    return PlannedFunction.from_staged(staged, syscat, device=dev, mesh=mesh)
+    return PlannedFunction.from_staged(staged, syscat, device=dev, mesh=mesh,
+                                       rules=rules, param_specs=param_specs)

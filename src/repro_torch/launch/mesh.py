@@ -1,8 +1,9 @@
-"""The data mesh of the sharded tri-store: one ``torch.distributed`` rank per
-shard of the stores' partitioned axis.
+"""Meshes of ranks: the sharded tri-store's data mesh, and the model's
+(data, model) mesh.
 
-The port's counterpart of the store side of the reference package's
-``launch/mesh.py``.  The reference's mesh is a ``jax.sharding.Mesh`` with
+The port's counterpart of the reference package's ``launch/mesh.py``.
+
+**The store side.**  The reference's mesh is a ``jax.sharding.Mesh`` with
 a ``data`` axis, and its sharded operators are ``shard_map`` programs over
 it; here a mesh is a process group (:class:`DataMesh`), one process a
 shard, and the operators of :mod:`repro_torch.stores.sharded` call its
@@ -19,6 +20,24 @@ tensor is staged card -> pinned host -> gloo -> card, and the mesh counts
 the staged bytes and each collective's bytes in :attr:`DataMesh.stats`.
 The ranks :func:`run_ranks` starts share one host and talk over its
 loopback device; they may share one card, which NCCL would refuse.
+
+**The model side.**  :class:`MeshLayout` is a mesh's axis names and
+shape with no process behind it: :func:`make_production_mesh` (the
+reference's (16, 16) and (2, 16, 16)) and :func:`make_cpu_mesh` give one,
+so shard shapes at 512 ranks are reckoned without starting any.
+:class:`RankMesh` is a live (data, model) mesh over a world's ranks
+(:func:`make_rank_mesh`): this rank's coordinates and the ``data`` and
+``model`` sub-groups, each a :class:`DataMesh` over the ranks that differ
+along that axis only, with its collectives (host-staged, counted; the
+layers' autograd forms are ``core/collectives.py``).  The reference's
+helpers follow it: :func:`syscat_for_mesh`, :func:`data_spec`,
+:func:`data_axis_size`, :func:`input_shardings` and
+:func:`state_shardings` (``core.executor.Sharding`` records: spec, shard
+shape, and on a live mesh the rank's block); :func:`shard_params` /
+:func:`shard_state` slice a global tree to this rank's blocks and
+:func:`gather_state` gathers it back.  A dim that does not divide over
+its axes raises ``ValueError``: GSPMD's padded uneven shards have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -37,10 +56,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core.executor import resolve_device
+from ..core.executor import (Sharding, ShardingRules, params_sharding,
+                             resolve_device)
 from ..core.ir import SystemCatalog
 from ..stores.bounded import BoundedRel
-from ..stores.sharded import data_axis_size
 
 COLLECTIVE_TIMEOUT_S = 60
 
@@ -146,10 +165,24 @@ def make_mesh(rank: int, world: int, *, device="cuda", init_file,
 
 
 def syscat_for_mesh(mesh) -> SystemCatalog:
-    """The system catalog of ``mesh``: axes ``("data", "model")`` of shape
-    ``(world, 1)``, as the reference's for a mesh of that shape."""
-    return SystemCatalog(mesh_axes=("data", "model"),
-                         mesh_shape=(data_axis_size(mesh), 1))
+    """The system catalog of ``mesh``: its axes and their sizes, as the
+    reference's (a store's :class:`DataMesh` of ``world`` ranks is
+    ``("data", "model")`` of shape ``(world, 1)``)."""
+    if mesh is None or not hasattr(mesh, "axis_names"):
+        return SystemCatalog(mesh_axes=("data", "model"),
+                             mesh_shape=(data_axis_size(mesh), 1))
+    return SystemCatalog(mesh_axes=tuple(mesh.axis_names),
+                         mesh_shape=tuple(int(mesh.shape[a])
+                                          for a in mesh.axis_names))
+
+
+def data_axis_size(mesh) -> int:
+    """Ranks along the ``data`` axis (1 for no mesh / no data axis)."""
+    if mesh is None:
+        return 1
+    if not hasattr(mesh, "axis_names"):
+        return int(mesh.world)
+    return int(mesh.shape.get("data", 1))
 
 
 def _to(value, dev):
@@ -199,6 +232,234 @@ def run_calls(mesh, calls) -> list:
                           **{k: _tensors_in(v, dev)
                              for k, v in kwargs.items()}))
             for fn, args, kwargs in calls]
+
+
+# --------------------------------------------------------------------------
+# the model side: layouts, the live (data, model) mesh, shardings
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshLayout:
+    """A mesh's axis names and sizes, with no process behind it (the
+    reference's ``jax.make_mesh`` of placeholder devices)."""
+
+    sizes: tuple
+    axis_names: tuple = ("data", "model")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:
+    """Single-pod (data=16, model=16) = 256 ranks; multi-pod (pod=2,
+    data=16, model=16) = 512."""
+    if multi_pod:
+        return MeshLayout((2, 16, 16), ("pod", "data", "model"))
+    return MeshLayout((16, 16), ("data", "model"))
+
+
+def make_cpu_mesh(n_data: int = 1, n_model: int = 1) -> MeshLayout:
+    """The (data, model) layout of ``n_data x n_model`` ranks."""
+    return MeshLayout((int(n_data), int(n_model)), ("data", "model"))
+
+
+class RankMesh:
+    """A live (data, model) mesh over the first ``data x model`` ranks of a
+    world: rank ``d * model + m`` sits at coordinates ``(d, m)``.
+    ``axis(name)`` is this rank's sub-group along ``name`` (a
+    :class:`DataMesh` whose ``rank`` is the coordinate and ``world`` the
+    axis size; an axis of one rank has no group and is never called).
+    ``stats`` counts every collective by axis (``data.all_gather_bytes``,
+    ``model.all_reduce_calls``, ...) and the staged host bytes."""
+
+    def __init__(self, world: DataMesh, layout: MeshLayout, coords: dict,
+                 axes: dict):
+        self.world = world
+        self.layout = layout
+        self.coords = coords
+        self._axes = axes
+
+    axis_names = property(lambda self: self.layout.axis_names)
+    shape = property(lambda self: self.layout.shape)
+    device = property(lambda self: self.world.device)
+    rank = property(lambda self: self.world.rank)
+
+    def axis(self, name: str) -> DataMesh:
+        return self._axes[name]
+
+    @property
+    def stats(self) -> Counter:
+        out: Counter = Counter()
+        for name, ax in self._axes.items():
+            for k, v in ax.stats.items():
+                if k == "staged_bytes":
+                    out[k] += v
+                else:
+                    out[f"{name}.{k}"] += v
+        return out
+
+    def reset_stats(self):
+        for ax in self._axes.values():
+            ax.stats.clear()
+
+    def barrier(self):
+        self.world.barrier()
+
+
+def make_rank_mesh(world: DataMesh, n_data: int, n_model: int):
+    """The ``n_data x n_model`` :class:`RankMesh` over the first ranks of
+    ``world`` (the :class:`DataMesh` of every rank).  Every rank of the
+    world calls it (it makes the sub-groups); a rank past the mesh gets
+    None."""
+    n_data, n_model = int(n_data), int(n_model)
+    if n_data * n_model > world.world:
+        raise ValueError(f"a {n_data} x {n_model} mesh needs "
+                         f"{n_data * n_model} ranks; the world has "
+                         f"{world.world}")
+    me = world.rank
+    groups = {"data": None, "model": None}
+    for d in range(n_data):
+        ranks = [d * n_model + m for m in range(n_model)]
+        g = dist.new_group(ranks) if n_model > 1 else None
+        if me in ranks:
+            groups["model"] = g
+    for m in range(n_model):
+        ranks = [d * n_model + m for d in range(n_data)]
+        g = dist.new_group(ranks) if n_data > 1 else None
+        if me in ranks:
+            groups["data"] = g
+    if me >= n_data * n_model:
+        return None
+    coords = {"data": me // n_model, "model": me % n_model}
+    sizes = {"data": n_data, "model": n_model}
+    axes = {a: DataMesh(groups[a], coords[a], sizes[a], world.device)
+            for a in ("data", "model")}
+    return RankMesh(world, MeshLayout((n_data, n_model)), coords, axes)
+
+
+def data_spec(mesh) -> tuple:
+    """The spec of a batch-leading 1-D value: its rows over (pod, data)."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return (axes if len(axes) > 1 else (axes[0] if axes else None),)
+
+
+def input_shardings(mesh, input_specs: dict) -> dict:
+    """Batch-leading inputs shard over (pod, data).  ``input_specs``: name
+    -> anything with a ``shape`` (a tensor, a meta tensor)."""
+    out = {}
+    for name, sds in input_specs.items():
+        spec = [None] * len(sds.shape)
+        if len(sds.shape) >= 1:
+            spec[0] = data_spec(mesh)[0]
+        out[name] = Sharding(mesh, tuple(spec), name)
+    return out
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def state_shardings(mesh, model, optimizer, rules=None):
+    """Shardings of the whole train state (params + optimizer slots), a
+    ``TrainState`` of :class:`~repro_torch.core.executor.Sharding`.
+
+    m / v (and a master copy) mirror the params'; Adafactor's factored
+    slots drop the last (vr) / second-to-last (vc) dim of the padded param
+    spec; scalars replicate.  The optimizer's state structure comes from
+    its ``init`` on the model's meta-tensor params: nothing allocated."""
+    from ..train.train_step import TrainState
+    rules = rules or ShardingRules()
+    p_shard = params_sharding(model.param_specs(), mesh, rules)
+    abstract = model.abstract_params()
+    replicated = Sharding(mesh, (), "count")
+
+    def padded_spec(p_sh, rank):
+        s = tuple(p_sh.spec)
+        return s + (None,) * (rank - len(s))
+
+    opt_abstract = optimizer.init(abstract)
+    if set(opt_abstract) >= {"m", "v", "count"}:
+        opt_shard = {"m": p_shard, "v": p_shard, "count": replicated}
+        if "master" in opt_abstract:
+            opt_shard["master"] = p_shard
+    elif set(opt_abstract) == {"slots", "count"}:
+        with_master = bool(getattr(optimizer, "master", False))
+
+        def slot(p_sh, p_abs):
+            rank = len(p_abs.shape)
+            if rank >= 2:
+                full = padded_spec(p_sh, rank)
+                out = {"vr": Sharding(mesh, full[:-1], p_sh.name + ".vr",
+                                      p_sh.dims[:-1]),
+                       "vc": Sharding(mesh, full[:-2] + full[-1:],
+                                      p_sh.name + ".vc",
+                                      p_sh.dims[:-2] + p_sh.dims[-1:])}
+            else:
+                out = {"v": p_sh}
+            if with_master:
+                out["master"] = p_sh
+            return out
+
+        opt_shard = {"slots": _tree_map(slot, p_shard, abstract),
+                     "count": replicated}
+    else:
+        raise ValueError("unknown optimizer state structure")
+    return TrainState(step=Sharding(mesh, (), "step"), params=p_shard,
+                      opt_state=opt_shard)
+
+
+def _rebuild(tree, fn):
+    """``tree`` (TrainState / dicts) with each leaf ``x`` and its Sharding
+    ``s`` replaced by ``fn(x, s)``; ``tree`` is a pair (values, shardings)."""
+    from ..train.train_step import TrainState
+    values, sh = tree
+    if isinstance(values, TrainState):
+        return TrainState(*(_rebuild((getattr(values, f), getattr(sh, f)),
+                                     fn)
+                            for f in ("step", "params", "opt_state")))
+    if isinstance(values, dict):
+        return {k: _rebuild((v, sh[k]), fn) for k, v in values.items()}
+    return fn(values, sh)
+
+
+def shard_params(params, shardings):
+    """A global tree (params, or a whole TrainState with
+    :func:`state_shardings`) cut to this rank's blocks, each a tensor of
+    its own (the global tree may then be freed)."""
+    return _rebuild((params, shardings), lambda x, s: s.block(x))
+
+
+shard_state = shard_params
+
+
+def gather_leaf(x: torch.Tensor, sh: Sharding) -> torch.Tensor:
+    """The global value of this rank's block ``x``: an all-gather over the
+    axis of each cut dim."""
+    mesh = sh.mesh
+    for i in range(x.dim()):
+        axes = sh.axes(i)
+        if not axes:
+            continue
+        if len(axes) > 1:
+            raise NotImplementedError(f"{sh.name}: dim {i} cut over {axes}")
+        ax = mesh.axis(axes[0])
+        if int(ax.world) > 1:
+            x = ax.all_gather(x.movedim(i, 0).contiguous()).movedim(0, i)
+    return x.contiguous()
+
+
+def gather_state(state, shardings):
+    """The global tree of this rank's blocks (every rank gets it)."""
+    return _rebuild((state, shardings), gather_leaf)
 
 
 # --------------------------------------------------------------------------

@@ -41,6 +41,16 @@ def init_attention(gen, cfg_attn, dtype=torch.float32):
     return p
 
 
+def attention_specs(cfg_attn) -> dict:
+    """The dim names of :func:`init_attention`'s leaves."""
+    s = {"wq": ("embed", "heads_flat"), "wk": ("embed", "kv_flat"),
+         "wv": ("embed", "kv_flat"), "wo": ("heads_flat", "embed")}
+    if cfg_attn.get("qk_norm"):
+        s["q_norm"] = ("head_dim",)
+        s["k_norm"] = ("head_dim",)
+    return s
+
+
 # --------------------------------------------------------------------------
 # projections
 # --------------------------------------------------------------------------

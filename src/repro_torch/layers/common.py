@@ -5,8 +5,11 @@ cast for cast: :func:`rmsnorm` and :func:`rope` compute in float32 and cast
 back to the input's dtype.  Initializers draw from a ``torch.Generator``
 (the reference's ``jax.random`` keys give other numbers from the same seed,
 so the tests carry the reference's parameters across as numpy arrays) and
-return parameters only: the reference's sharding specs have no counterpart
-on one device.
+return parameters only; each layer's ``*_specs`` function gives the
+reference's specs of the same leaves (tuples of semantic dim names, which
+``core.executor.ShardingRules`` maps to mesh axes) without making a
+tensor.  Given :data:`META` for a generator they make meta tensors: the
+shapes and dtypes of a tree, nothing drawn and nothing allocated.
 """
 from __future__ import annotations
 
@@ -54,9 +57,21 @@ def rope(x, positions, *, theta=10000.0):
     return rope_apply(x, *rope_tables(positions, x.shape[-1], theta=theta))
 
 
+class _MetaGen:
+    """Stands for a generator where only shapes are wanted."""
+
+    device = torch.device("meta")
+
+
+META = _MetaGen()
+
+
 def he_init(gen, shape, fan_in=None, dtype=torch.float32):
     """Normal draws from ``gen`` scaled by ``fan_in ** -0.5`` (default
-    ``shape[0]``), made on the generator's device."""
+    ``shape[0]``), made on the generator's device (an empty meta tensor
+    for :data:`META`)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan = fan_in if fan_in is not None else shape[0]
     return (torch.randn(shape, generator=gen, device=gen.device)
             * (fan ** -0.5)).to(dtype)
@@ -88,6 +103,13 @@ def stack_layers(make, count: int):
         put(out, tree, i)
         del tree
     return out
+
+
+def stack_specs(spec):
+    """Specs of a stacked group: ``("layers",)`` before every leaf's."""
+    if isinstance(spec, dict):
+        return {k: stack_specs(v) for k, v in spec.items()}
+    return ("layers",) + spec
 
 
 def layer_slice(tree, i: int):

@@ -14,6 +14,14 @@ def init_embedding(gen, vocab, embed, dtype=torch.float32, tied=True):
     return p
 
 
+def embedding_specs(tied=True) -> dict:
+    """The dim names of :func:`init_embedding`'s leaves."""
+    s = {"table": ("vocab", "embed")}
+    if not tied:
+        s["head"] = ("embed", "vocab")
+    return s
+
+
 def embed(p, ids, *, scale=False):
     out = p["table"][ids]
     if scale:

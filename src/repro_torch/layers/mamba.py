@@ -46,6 +46,13 @@ def init_mamba2(gen, cfg, dtype=torch.float32):
     }
 
 
+def mamba2_specs() -> dict:
+    """The dim names of :func:`init_mamba2`'s leaves."""
+    return {"w_in": ("embed", "inner_cat"), "conv": ("conv_k", "inner_cat2"),
+            "a_log": ("heads",), "dt_bias": ("heads",),
+            "d_skip": ("heads",), "w_out": ("inner", "embed")}
+
+
 def _split(cfg, zxbcdt):
     """(z, x, B, C, dt) of the in-projection's output."""
     _, n, ei, _, h = _dims(cfg)

@@ -29,6 +29,14 @@ def init_mlp(gen, cfg, dtype=torch.float32):
     return p
 
 
+def mlp_specs(cfg) -> dict:
+    """The dim names of :func:`init_mlp`'s leaves."""
+    s = {"wi": ("embed", "ffn"), "wo": ("ffn", "embed")}
+    if cfg.get("gated", True):
+        s["wg"] = ("embed", "ffn")
+    return s
+
+
 def ffn_up(p, x):
     return torch.matmul(x, p["wi"].to(x.dtype))
 

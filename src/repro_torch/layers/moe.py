@@ -15,14 +15,16 @@ rank in token order, so a right-padded row's pad tokens never take a slot
 from its prompt.  Every op runs on the device without a host sync (no
 ``nonzero``, ``.item()`` or boolean indexing; the one-hot is a comparison
 with ``arange``), so the decode step, which calls :func:`moe_dense`, can be
-captured in a CUDA graph.  ``constrain`` (the reference's sharding
-constraints at the all-to-all boundary) is accepted and not applied: one
-card has no mesh.
+captured in a CUDA graph.  On one card ``constrain`` (the reference's
+sharding constraints at the all-to-all boundary) only places values, so
+it is not applied; on a rank mesh (``experts_axis``) it selects the pinned
+exchange of :func:`_dispatch_on_mesh`.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import collectives as C
 from ..kernels.moe_gmm import grouped_matmul
 from .common import he_init
 from .mlp import _ACTS
@@ -36,6 +38,14 @@ def init_moe(gen, cfg, dtype=torch.float32):
         "wg": he_init(gen, (x, e, f), e, dtype),
         "wo": he_init(gen, (x, f, e), f, dtype),
     }
+
+
+def moe_specs() -> dict:
+    """The dim names of :func:`init_moe`'s leaves."""
+    return {"router": ("embed", "experts"),
+            "wi": ("experts", "embed", "ffn"),
+            "wg": ("experts", "embed", "ffn"),
+            "wo": ("experts", "ffn", "embed")}
 
 
 def _route(p, x, top_k):
@@ -63,13 +73,79 @@ def capacity_slots(flat_i, experts: int, cap: int):
     return keep, dest
 
 
+def _dispatch(x, dest, keep, tok_of, slots):
+    """The (B, slots, D) expert buffer: kept slots are unique within a row,
+    every dropped assignment lands (as zeros) in the overflow row, dropped
+    after."""
+    b, a = dest.shape
+    src = x[:, tok_of] * keep[..., None].to(x.dtype)      # (B, A, D)
+    buf = x.new_zeros((b, slots + 1, x.shape[-1]))
+    buf.scatter_add_(1, dest[..., None].expand(b, a, x.shape[-1]), src)
+    return buf[:, :-1]
+
+
+def _experts(expert_in, p, act, use_gmm, dtype):
+    """The experts' MLP on (E, C, D) rows, weights cast to ``dtype``."""
+    wi, wg, wo = (p[k].to(dtype) for k in ("wi", "wg", "wo"))
+    if use_gmm:
+        up = grouped_matmul(expert_in, wi)
+        gate = grouped_matmul(expert_in, wg)
+        h = _ACTS[act](gate) * up
+        return grouped_matmul(h, wo)
+    up = torch.einsum("xce,xef->xcf", expert_in, wi)
+    gate = torch.einsum("xce,xef->xcf", expert_in, wg)
+    h = _ACTS[act](gate) * up
+    return torch.einsum("xcf,xfe->xce", h, wo)
+
+
+def _to_experts(buf, n, cap):
+    """(B, n·C, D) -> (E=n, B·C, D): the reference's all-to-all boundary."""
+    b, _, e = buf.shape
+    return buf.reshape(b, n, cap, e).movedim(1, 0).reshape(n, b * cap, e)
+
+
+def _from_experts(out, b, cap):
+    """(n, B·C, D) -> (B, n·C, D): the return all-to-all."""
+    n, _, e = out.shape
+    return out.reshape(n, b, cap, e).movedim(1, 0).reshape(b, n * cap, e)
+
+
+def _rows(out, dest, keep):
+    """Each assignment's expert output row (zeros where dropped):
+    (B, A, D)."""
+    rows = torch.arange(out.shape[0], device=out.device)[:, None]
+    gathered = out[rows, dest.clamp(max=out.shape[1] - 1)]
+    return torch.where(keep[..., None], gathered,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def _weigh(gathered, flat_w, top_k):
+    """Each token's k expert outputs weighted and summed in order (the
+    reference's scatter-add of a token's k contributions): (B, S, D)."""
+    b, a, e = gathered.shape
+    contrib = (gathered * flat_w[..., None].to(gathered.dtype)) \
+        .reshape(b, a // top_k, top_k, e)
+    y = contrib[:, :, 0]
+    for j in range(1, top_k):
+        y = y + contrib[:, :, j]
+    return y
+
+
 def moe_capacity_dispatch(p, x, *, top_k, experts, capacity_factor=2.0,
-                          act="silu", use_gmm=False, constrain=None):
+                          act="silu", use_gmm=False, constrain=None,
+                          experts_axis=None):
     """Row-grouped capacity dispatch: x (B, S, D) -> (B, S, D).  The
     expert matmuls take the weights cast to x's dtype; with ``use_gmm``
     they are the grouped-matmul kernel (:func:`grouped_matmul`), else
     einsums.  ``h = act(gate) * up``, the routing-weight scaling and the
-    combine run in x's dtype, as the reference's."""
+    combine run in x's dtype, as the reference's.  On an ``experts_axis``
+    of more than one rank the experts are cut over it:
+    :func:`_dispatch_on_mesh`."""
+    if experts_axis is not None and int(experts_axis.world) > 1:
+        return _dispatch_on_mesh(p, x, top_k=top_k, experts=experts,
+                                 capacity_factor=capacity_factor, act=act,
+                                 use_gmm=use_gmm, pinned=constrain is not None,
+                                 axis=experts_axis)
     b, s, e = x.shape
     cap = max(8, int(s * top_k * capacity_factor / experts))
     weights, idx = _route(p, x, top_k)                    # (B, S, K)
@@ -77,62 +153,85 @@ def moe_capacity_dispatch(p, x, *, top_k, experts, capacity_factor=2.0,
     flat_i = idx.reshape(b, s * top_k)
     tok_of = torch.arange(s * top_k, device=x.device) // top_k
     keep, dest = capacity_slots(flat_i, experts, cap)
+    buf = _dispatch(x, dest, keep, tok_of, experts * cap)
+    out = _experts(_to_experts(buf, experts, cap), p, act, use_gmm, x.dtype)
+    return _weigh(_rows(_from_experts(out, b, cap), dest, keep), flat_w,
+                  top_k)
 
-    # dispatch: kept slots are unique within a row, every dropped
-    # assignment lands (as zeros) in the overflow row, dropped after
-    src = x[:, tok_of] * keep[..., None].to(x.dtype)      # (B, A, D)
-    buf = x.new_zeros((b, experts * cap + 1, e))
-    buf.scatter_add_(1, dest[..., None].expand(b, s * top_k, e), src)
-    # (B, E, C, D) -> (E, B*C, D): the reference's all-to-all boundary
-    expert_in = buf[:, :-1].reshape(b, experts, cap, e).movedim(1, 0) \
-        .reshape(experts, b * cap, e)
 
-    wi, wg, wo = (p[k].to(x.dtype) for k in ("wi", "wg", "wo"))
-    if use_gmm:
-        up = grouped_matmul(expert_in, wi)
-        gate = grouped_matmul(expert_in, wg)
-        h = _ACTS[act](gate) * up
-        out = grouped_matmul(h, wo)
-    else:
-        up = torch.einsum("xce,xef->xcf", expert_in, wi)
-        gate = torch.einsum("xce,xef->xcf", expert_in, wg)
-        h = _ACTS[act](gate) * up
-        out = torch.einsum("xcf,xfe->xce", h, wo)
+def _dispatch_on_mesh(p, x, *, top_k, experts, capacity_factor, act,
+                      use_gmm, pinned, axis):
+    """The capacity dispatch with the experts cut over ``axis`` (``model``):
+    this rank holds experts ``[r·E/m, (r+1)·E/m)`` (``p``'s ``wi`` /
+    ``wg`` / ``wo`` blocks) and every token of its rows.  The router is
+    gathered whole, so routing, ranks and capacity are the unsharded
+    ones, and every rank weighs and sums each token's k expert outputs
+    itself, in the unsharded order.
 
-    # (E, B*C, D) -> (B, E*C, D): the return all-to-all
-    out = out.reshape(experts, b, cap, e).movedim(1, 0) \
-        .reshape(b, experts * cap, e)
-    rows = torch.arange(b, device=x.device)[:, None]
-    gathered = out[rows, dest.clamp(max=experts * cap - 1)]  # (B, A, D)
-    gathered = torch.where(keep[..., None], gathered,
-                           torch.zeros((), dtype=x.dtype, device=x.device))
-    contrib = (gathered * flat_w[..., None].to(x.dtype)) \
-        .reshape(b, s, top_k, e)
-    # the reference's scatter-add of a token's k contributions, in order
-    y = contrib[:, :, 0]
-    for j in range(1, top_k):
-        y = y + contrib[:, :, j]
-    return y
+    Unpinned: the rank dispatches to its experts only and runs them; each
+    assignment's output row is nonzero on the one rank holding its expert,
+    so a sum over ``axis`` of the rows gives every rank each assignment's
+    row exactly.  Pinned (``pin_moe``, the reference's four constraint
+    points): the buffer is built whole (``batch``, whole over ``model``),
+    the rank's experts' rows taken from it (``experts``, ``batch``), their
+    outputs (``experts``, ``batch``) gathered over ``axis`` into the whole
+    (``batch``) buffer.  Either gives the unsharded values bit for bit
+    when the experts' inputs are the same."""
+    m, r = int(axis.world), int(axis.rank)
+    if experts % m:
+        raise ValueError(f"{experts} experts do not divide over the model "
+                         f"axis ({m} ranks)")
+    xl = experts // m
+    lo = r * xl
+    b, s, e = x.shape
+    cap = max(8, int(s * top_k * capacity_factor / experts))
+    # the routing's consumer (the weighing) runs whole on every rank; each
+    # rank dispatches a part of x
+    router = C.gather(axis, p["router"], 1, partial=False)
+    weights, idx = _route({"router": router}, x, top_k)
+    xd = C.copy_to(axis, x)
+    flat_w = weights.reshape(b, s * top_k)
+    flat_i = idx.reshape(b, s * top_k)
+    tok_of = torch.arange(s * top_k, device=x.device) // top_k
+    keep, dest = capacity_slots(flat_i, experts, cap)
+    if pinned:
+        buf = _dispatch(xd, dest, keep, tok_of, experts * cap)
+        expert_in = _to_experts(buf, experts, cap)[lo:lo + xl]
+        out = _experts(expert_in, p, act, use_gmm, x.dtype)
+        out = C.gather(axis, out, 0, partial=False)
+        rows = _rows(_from_experts(out, b, cap), dest, keep)
+        return _weigh(rows, flat_w, top_k)
+    mine = keep & (flat_i >= lo) & (flat_i < lo + xl)
+    dest = torch.where(mine, dest - lo * cap,
+                       torch.full_like(dest, xl * cap))
+    buf = _dispatch(xd, dest, mine, tok_of, xl * cap)
+    out = _experts(_to_experts(buf, xl, cap), p, act, use_gmm, x.dtype)
+    rows = C.reduce_from(axis, _rows(_from_experts(out, b, cap), dest, mine))
+    return _weigh(rows, flat_w, top_k)
 
 
 def moe_dense(p, x, *, top_k, experts, act="silu", capacity_factor=2.0,
-              constrain=None):
+              constrain=None, experts_axis=None):
     return moe_capacity_dispatch(p, x, top_k=top_k, experts=experts,
                                  capacity_factor=capacity_factor, act=act,
-                                 constrain=constrain)
+                                 constrain=constrain,
+                                 experts_axis=experts_axis)
 
 
-def moe_dropping(p, x, *, top_k, experts, act="silu", constrain=None):
+def moe_dropping(p, x, *, top_k, experts, act="silu", constrain=None,
+                 experts_axis=None):
     return moe_capacity_dispatch(p, x, top_k=top_k, experts=experts,
                                  capacity_factor=1.0, act=act,
-                                 constrain=constrain)
+                                 constrain=constrain,
+                                 experts_axis=experts_axis)
 
 
 def moe_gmm(p, x, *, top_k, experts, act="silu", capacity_factor=2.0,
-            constrain=None):
+            constrain=None, experts_axis=None):
     return moe_capacity_dispatch(p, x, top_k=top_k, experts=experts,
                                  capacity_factor=capacity_factor, act=act,
-                                 use_gmm=True, constrain=constrain)
+                                 use_gmm=True, constrain=constrain,
+                                 experts_axis=experts_axis)
 
 
 def moe_reference_dense(p, x, *, top_k, experts, act="silu"):

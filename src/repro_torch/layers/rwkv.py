@@ -45,6 +45,16 @@ def init_rwkv_time_mix(gen, cfg, dtype=torch.float32):
     }
 
 
+def rwkv_time_mix_specs() -> dict:
+    """The dim names of :func:`init_rwkv_time_mix`'s leaves."""
+    return {"wr": ("embed", "heads_flat"), "wk": ("embed", "heads_flat"),
+            "wv": ("embed", "heads_flat"), "wg": ("embed", "heads_flat"),
+            "wo": ("heads_flat", "embed"), "w0": ("embed",),
+            "wA": ("embed", "lora"), "wB": ("lora", "embed"),
+            "u": ("heads", "head_dim"), "mu": ("mix",),
+            "ln_scale": ("embed",)}
+
+
 def _token_shift(x):
     """x shifted one step later along time, zero at t = 0."""
     return F_.pad(x, (0, 0, 1, 0))[:, :-1]
@@ -105,6 +115,12 @@ def init_rwkv_channel_mix(gen, cfg, dtype=torch.float32):
         "wr": he_init(gen, (e, e), e, dtype),
         "mu": torch.full((2,), 0.5, dtype=dtype, device=gen.device),
     }
+
+
+def rwkv_channel_mix_specs() -> dict:
+    """The dim names of :func:`init_rwkv_channel_mix`'s leaves."""
+    return {"wk": ("embed", "ffn"), "wv": ("ffn", "embed"),
+            "wr": ("embed", "embed2"), "mu": ("mix",)}
 
 
 def rwkv_channel_mix(p, x, last_x=None):

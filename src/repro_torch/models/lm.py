@@ -16,7 +16,10 @@ Parameters are a nested dict of tensors keyed exactly as the reference's
 tree (``layers_0`` → ``b0_attn`` → ``wq`` …, each leaf stacked over the
 group's layers), so the plans' ``pp`` paths index them unchanged;
 :func:`params_from_numpy` carries the reference's parameters across, and
-:func:`train_state_from_numpy` a whole train state.
+:func:`train_state_from_numpy` a whole train state.  ``LM.param_specs``
+is the reference's specs tree (each leaf's tuple of dim names, for the
+sharding rules), built without making a tensor, and ``abstract_params``
+the parameter tree as meta tensors (shapes and dtypes, nothing drawn).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from ..layers import mamba as M
 from ..layers import mlp as F
 from ..layers import moe as X
 from ..layers import rwkv as R
-from ..layers.common import stack_layers, torch_dtype
+from ..layers.common import META, stack_layers, stack_specs, torch_dtype
 from ..train.train_step import TrainState
 
 CATALOG = standard_catalog()
@@ -175,6 +178,29 @@ def _init_shared(gen, cfg: ModelConfig, dtype) -> dict:
                                     "gated": cfg.gated}, dtype)}
 
 
+def _block_specs(cfg: ModelConfig, block: Block, i: int) -> dict:
+    """The dim names of :func:`_init_block`'s leaves."""
+    norm = {"scale": ("embed",)}
+    if block.kind in ("attn_mlp", "attn_moe"):
+        s = {f"b{i}_ln1": norm,
+             f"b{i}_attn": A.attention_specs(_attn_cfg(cfg))}
+        if block.cross:
+            s[f"b{i}_lnx"] = norm
+            s[f"b{i}_xattn"] = A.attention_specs(_attn_cfg(cfg))
+        s[f"b{i}_ln2"] = norm
+        if block.kind == "attn_moe":
+            s[f"b{i}_moe"] = X.moe_specs()
+        else:
+            s[f"b{i}_mlp"] = F.mlp_specs({"gated": cfg.gated})
+        return s
+    if block.kind == "rwkv":
+        return {f"b{i}_ln1": norm, f"b{i}_tm": R.rwkv_time_mix_specs(),
+                f"b{i}_ln2": norm, f"b{i}_cm": R.rwkv_channel_mix_specs()}
+    if block.kind in ("mamba", "shared_attn"):
+        return {f"b{i}_ln1": norm, f"b{i}_mamba": M.mamba2_specs()}
+    raise ValueError(block.kind)
+
+
 def params_from_numpy(tree, device="cpu"):
     """A nested dict of arrays (the reference's parameters as numpy) as
     the same nested dict of tensors on ``device``."""
@@ -242,6 +268,33 @@ class LM:
             params["enc_norm"] = {"scale": torch.zeros(
                 (cfg.d_model,), dtype=self.pdtype, device=gen.device)}
         return params
+
+    def param_specs(self) -> dict:
+        """The reference's specs tree: each leaf's tuple of semantic dim
+        names (``("layers", "embed", "heads_flat")`` ...), keyed as the
+        parameters.  Plain Python: no tensor is made, so it serves the
+        largest configs."""
+        cfg = self.cfg
+        norm = {"scale": ("embed",)}
+        specs: dict = {"embed": E.embedding_specs(tied=cfg.tied_embeddings)}
+        if cfg.family == "hybrid":
+            specs["shared"] = {
+                "ln1": norm, "attn": A.attention_specs(_attn_cfg(cfg)),
+                "ln2": norm, "mlp": F.mlp_specs({"gated": cfg.gated})}
+        for g in self.groups:
+            layer: dict = {}
+            for i, blk in enumerate(g.blocks):
+                layer.update(_block_specs(cfg, blk, i))
+            specs[g.name] = stack_specs(layer)
+        specs["final_norm"] = norm
+        if cfg.family == "encdec":
+            specs["enc_norm"] = norm
+        return specs
+
+    def abstract_params(self) -> dict:
+        """The parameter tree as meta tensors: every leaf's shape and dtype,
+        nothing drawn and no memory allocated."""
+        return self._init(META, cast=False)
 
     def inference_params(self, params: dict) -> dict:
         """``params`` with every parameter the layers cast per call (the

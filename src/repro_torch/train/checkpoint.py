@@ -16,7 +16,13 @@ The port of the reference's ``train/checkpoint.py`` for one card:
   * a restore casts each leaf to the template's dtype and moves it to the
     template's device.
 
-No ``shardings``: one card; the sharded stack is ROADMAP §1 item 17.
+On a rank mesh the state is this rank's blocks, and ``shardings`` (the
+state's ``launch.mesh.state_shardings``) say how each is cut.
+``save_checkpoint(..., shardings=)`` gathers every leaf and the mesh's rank
+0 writes it, so the files are the global leaves, the same as an unsharded
+save; ``restore_checkpoint(..., shardings=)`` reads each whole leaf's file
+and keeps this rank's block, which may be on another mesh than the one
+that saved it (the elastic restore).
 """
 from __future__ import annotations
 
@@ -87,8 +93,13 @@ def _to_numpy(leaf) -> tuple:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: Any, *,
-                    keep: int = 3) -> str:
-    """Write ``state``; atomic rename; keep the last ``keep``."""
+                    keep: int = 3, shardings: Any = None) -> str:
+    """Write ``state``; atomic rename; keep the last ``keep``.  With
+    ``shardings`` every rank of the mesh calls it with its blocks: each
+    leaf is gathered whole and written once, by the mesh's rank 0, and
+    every rank returns when the checkpoint is in place."""
+    if shardings is not None:
+        return _save_sharded(ckpt_dir, step, state, keep, shardings)
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"tmp.{step}.{os.getpid()}")
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
@@ -112,6 +123,42 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any, *,
     return final
 
 
+def sharded_leaves(tree, sh, path=()) -> list:
+    """``(file name, leaf, sharding)`` of every leaf of ``tree`` beside
+    its Sharding tree ``sh`` (the same structure, a record for a leaf)."""
+    kids = _children(tree)
+    if kids is None:
+        return [] if tree is None else [(_leaf_name(path), tree, sh)]
+    if dataclasses.is_dataclass(tree):
+        names = [f.name for f in dataclasses.fields(tree)]
+        sub = lambda k: getattr(sh, names[k])  # noqa: E731
+    else:
+        sub = lambda k: sh[k]  # noqa: E731
+    return [x for k, v in kids
+            for x in sharded_leaves(v, sub(k), path + (k,))]
+
+
+def _save_sharded(ckpt_dir, step, state, keep, shardings) -> str:
+    from ..launch.mesh import gather_leaf
+    leaves = sharded_leaves(state, shardings)
+    mesh = leaves[0][2].mesh
+    writer = not any(mesh.coords.values())
+    # every rank takes part in every leaf's gather; rank 0 keeps each on
+    # the host as it comes
+    whole = {}
+    for name, leaf, sh in leaves:
+        t = gather_leaf(leaf, sh)
+        if writer:
+            whole[name] = t.cpu()
+        del t
+    final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if writer:
+        final = save_checkpoint(ckpt_dir, step, _rebuild(
+            state, lambda name, _leaf: whole.pop(name)), keep=keep)
+    mesh.barrier()
+    return final
+
+
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     if not os.path.isdir(ckpt_dir):
         return None
@@ -119,23 +166,36 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, ckpts[-1]) if ckpts else None
 
 
-def restore_checkpoint(path: str, template: Any) -> Any:
+def restore_checkpoint(path: str, template: Any, *,
+                       shardings: Any = None) -> Any:
     """Restore into the structure of ``template``: each leaf cast to the
     template leaf's dtype, on its device (a leaf without a dtype keeps the
-    saved one, on the CPU)."""
+    saved one, on the CPU).  With ``shardings`` (a tree of
+    ``core.executor.Sharding`` on a live mesh, which may differ from the
+    mesh that saved) each rank keeps its block of every whole leaf, read
+    from the file's memory map; a meta template leaf puts it on the
+    mesh's device."""
     with open(os.path.join(path, "manifest.json")) as fh:
         manifest = json.load(fh)
+    sh = ({name: s for name, _, s in sharded_leaves(template, shardings)}
+          if shardings is not None else {})
 
     def load(name, leaf):
         if name not in manifest["leaves"]:
             raise KeyError(f"checkpoint missing leaf {name!r}")
-        arr = np.load(os.path.join(path, name + ".npy"))
+        arr = np.load(os.path.join(path, name + ".npy"),
+                      mmap_mode="r" if name in sh else None)
+        if name in sh:
+            arr = np.array(arr[sh[name].index(arr.shape)])  # a copy
         if manifest["leaves"][name]["dtype"] == "bfloat16":
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
         if isinstance(leaf, torch.Tensor):
-            return t.to(device=leaf.device, dtype=leaf.dtype)
+            dev = leaf.device
+            if dev.type == "meta" and name in sh:
+                dev = sh[name].mesh.device
+            return t.to(device=dev, dtype=leaf.dtype)
         return t
 
     return _rebuild(template, load)

@@ -13,6 +13,13 @@ Adafactor (factored second moment) is the memory-feasible choice for the
 400B-class configs; the config's ``optimizer`` field selects per arch.
 With ``master=True`` the live parameters may be bfloat16 while the update
 runs against a float32 master copy in the state.
+
+On a rank mesh every leaf is this rank's block and ``shardings`` (the
+parameters' ``core.executor.Sharding`` tree) says how it is cut:
+:func:`global_norm` counts every logical element once, AdamW updates the
+blocks elementwise as they are, and Adafactor's means over a cut dim (the
+factored moments, their row mean, the update's RMS) sum over that dim's
+axis before dividing by its global size.
 """
 from __future__ import annotations
 
@@ -60,16 +67,44 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
 # gradient utilities
 # --------------------------------------------------------------------------
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32.  With
+    ``shardings`` (on a rank mesh) a leaf's block counts on the ranks at
+    coordinate 0 of every axis it is whole over, and the sum runs over the
+    mesh: every logical element once."""
+    if shardings is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_leaves(tree)))
+    sh = leaf_shardings(tree, shardings)
+    mesh = sh[0].mesh
+    live = [a for a in mesh.axis_names if int(mesh.shape[a]) > 1]
+    total = None
+    for x, s in zip(tree_leaves(tree), sh):
+        if any(mesh.coords[a] for a in live if a not in s.sharded_axes()):
+            continue
+        part = torch.sum(torch.square(x.float()))
+        total = part if total is None else total + part
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=tree_leaves(tree)[0].device)
+    for a in live:
+        total = mesh.axis(a).all_reduce(total)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def leaf_shardings(tree, shardings) -> list:
+    """The Sharding record of every leaf of ``tree``, in its leaf order
+    (``shardings`` is keyed as ``tree``, maybe in another order)."""
+    if isinstance(tree, dict):
+        return [s for k, v in tree.items()
+                for s in leaf_shardings(v, shardings[k])]
+    return [shardings]
+
+
+def clip_by_global_norm(tree, max_norm: float, shardings=None):
     """Scales every leaf in place by ``min(1, max_norm / (norm + 1e-9))``;
     returns ``(tree, norm)``."""
-    norm = global_norm(tree)
+    norm = global_norm(tree, shardings)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     with torch.no_grad():
         for x in tree_leaves(tree):
@@ -107,9 +142,10 @@ class AdamW:
         return st
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, shardings=None):
         """One step: the moments, then the parameters (and the master),
-        in place.  Returns ``(params, state)``."""
+        in place (elementwise: a rank's blocks update as they are).
+        Returns ``(params, state)``."""
         c = state["count"] + 1
         b1, b2 = self.b1, self.b2
         lr = self.lr(c)
@@ -168,28 +204,30 @@ class Adafactor:
                                      device=first.device)}
 
     @torch.no_grad()
-    def update(self, grads, state, params):
-        """One step, in place; returns ``(params, state)``."""
+    def update(self, grads, state, params, shardings=None):
+        """One step, in place; returns ``(params, state)``.  With
+        ``shardings`` each mean over a cut dim sums over its axis."""
         c = state["count"] + 1
         rho = 1.0 - torch.pow(c.to(torch.float32), -self.decay)
         lr = self.lr(c)
 
-        def upd(p, g, slot):
+        def upd(p, g, slot, sh):
             g32 = g.to(torch.float32)
             g2 = torch.square(g32) + self.eps
             if self._factored(p.shape):
                 vr, vc = slot["vr"], slot["vc"]
-                vr.copy_(rho * vr + (1 - rho) * g2.mean(dim=-1))
-                vc.copy_(rho * vc + (1 - rho) * g2.mean(dim=-2))
+                nd = p.dim()
+                vr.copy_(rho * vr + (1 - rho) * _mean(g2, -1, sh, nd - 1))
+                vc.copy_(rho * vc + (1 - rho) * _mean(g2, -2, sh, nd - 2))
+                row = _mean(vr, -1, sh, nd - 2, keepdim=True)
                 denom = torch.sqrt(
                     vr[..., None] * vc[..., None, :]
-                    / torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None],
-                                  min=self.eps))
+                    / torch.clamp(row[..., None], min=self.eps))
             else:
                 slot["v"].copy_(rho * slot["v"] + (1 - rho) * g2)
                 denom = torch.sqrt(slot["v"])
             step = g32 / torch.clamp(denom, min=self.eps)
-            rms = torch.sqrt(torch.mean(torch.square(step)) + 1e-12)
+            rms = torch.sqrt(_mean_all(torch.square(step), sh) + 1e-12)
             step = step / torch.clamp(rms / self.clip_threshold, min=1.0)
             base = slot.get("master", p).to(torch.float32)
             if self.weight_decay:
@@ -199,11 +237,46 @@ class Adafactor:
                 slot["master"].copy_(new)
             p.copy_(new)
 
-        for p, g, slot in zip(tree_leaves(params), tree_leaves(grads),
-                              _slots(state["slots"], params)):
-            upd(p, g, slot)
+        sh = (leaf_shardings(params, shardings) if shardings is not None
+              else [None] * len(tree_leaves(params)))
+        for p, g, slot, s in zip(tree_leaves(params), tree_leaves(grads),
+                                 _slots(state["slots"], params), sh):
+            upd(p, g, slot, s)
         state["count"] = c
         return params, state
+
+
+def _axes_of(sh, i: int) -> list:
+    """The live sub-groups dim ``i`` of a leaf is cut over."""
+    if sh is None:
+        return []
+    return [sh.mesh.axis(a) for a in sh.axes(i)
+            if int(sh.mesh.shape[a]) > 1]
+
+
+def _mean(x, dim: int, sh, pdim: int, keepdim=False):
+    """``x.mean(dim)``, where ``dim`` of ``x`` is the parameter's dim
+    ``pdim``: summed over its axes first when that dim is cut."""
+    axes = _axes_of(sh, pdim)
+    if not axes:
+        return x.mean(dim=dim, keepdim=keepdim)
+    total, n = x.sum(dim=dim, keepdim=keepdim), x.shape[dim]
+    for ax in axes:
+        total = ax.all_reduce(total)
+        n *= int(ax.world)
+    return total / n
+
+
+def _mean_all(x, sh):
+    """The mean of every element of the leaf ``x`` is a block of."""
+    axes = [ax for i in range(x.dim()) for ax in _axes_of(sh, i)]
+    if not axes:
+        return torch.mean(x)
+    total, n = x.sum(), x.numel()
+    for ax in axes:
+        total = ax.all_reduce(total)
+        n *= int(ax.world)
+    return total / n
 
 
 def _slots(slots, params) -> list:

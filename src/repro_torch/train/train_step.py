@@ -16,6 +16,14 @@ as the reference's ``lax.scan`` does.
 A step writes the parameters and the optimizer state in place and reads
 nothing back to the host: ``loss``, ``grad_norm`` and ``step`` come back as
 device scalars.
+
+On a rank mesh (``fwd`` planned with ``mesh=`` and ``param_specs=``) the
+parameters, the optimizer state and the batch are this rank's blocks; the
+planned loss is the global one on every rank, and the backward's
+collectives leave each gradient as this rank's block of the global
+gradient (the FSDP gathers sum it over ``data``, a whole leaf's use sums
+it over the axes it is partial on).  The clipping norm and the optimizer
+read ``fwd.param_shardings``.
 """
 from __future__ import annotations
 
@@ -94,9 +102,10 @@ def make_train_step(fwd, optimizer, *, num_microbatches: int = 1,
                     grads = tree_map(torch.add, grads, g)
             grads = tree_map(lambda g: (g / n).to(g.dtype), grads)
             loss = loss / n
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        shardings = getattr(fwd, "param_shardings", None)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, shardings)
         params, opt_state = optimizer.update(grads, state.opt_state,
-                                             state.params)
+                                             state.params, shardings)
         new_step = state.step + 1
         return (TrainState(new_step, params, opt_state),
                 {"loss": loss, "grad_norm": gnorm, "step": new_step})

@@ -523,6 +523,37 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      2 x 2048 x 8 / 4 heads and gmm at the rank's recorded shape against
      their plain versions (``[mesh_train-kernel]``, their JSON records);
 
+  ``mesh_families`` (the rwkv, hybrid, vlm and encdec families on the
+  model mesh, slice 18; runs after ``mesh_train``): one world of 2 ranks
+  on a 1 x 2 (data, model) mesh sharing the card, the four families in
+  turn, two AdamW steps each at full width (the first checked, the
+  second timed warm), bf16 activations, float32 params, ``remat="full"``
+  (MESH_FAMILIES: rwkv6-3b and zamba2-7b at 2 layers, 2 x 512;
+  llava-next-34b at 2 layers, 2 x 2048 with its 576 frontend positions;
+  seamless-m4t-medium at 12 + 12 layers, 4 x 1024):
+
+ 48. [mesh-family-single], [mesh-family-predict] — each family's steps
+     on one rank from the seeded params and batches every rank draws: the
+     first step's loss, ``grad_norm``, launches and kernel entries' calls
+     by heads (``family_kernel_calls`` from the config: wkv6 4; ssd 4 +
+     flash 2; flash 4; flash 48), the first and the warm step's walls;
+     then the card is freed; the ``model`` axis's collectives a rank's
+     step should make, reckoned from the config and the plan alone
+     (``model_axis_prediction``) and the host bytes they stage;
+ 49. [mesh-family] — the same steps on the mesh, one line a rank: loss
+     within 5e-3 and ``grad_norm`` within 1 % of one rank's first step;
+     each step's launches equal to one rank's, every wkv6 / ssd / flash
+     call on the rank's half of the heads (wkv6 20, ssd 56, flash 16 /
+     16, 28 / 4, 8 / 8 non-causal and causal); each step's ``model``
+     collectives' calls and bytes and the staged host bytes equal to the
+     prediction, none on ``data``; the state's bytes equal to the specs'
+     count; the first and the warm step's walls and the warm tokens/s
+     beside one rank's; peak memory;
+ 50. [mesh_families-kernel] — wkv6, ssd and flash (each key: kernel,
+     heads, mask) on the arguments rank 0's step gave them (saved with
+     ``torch.save``, strides kept), against their plain versions, timed;
+     their JSON records carry the launches of rank 0's step;
+
  42. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Observability (EXPLAIN ANALYZE and the resource ledger, slice 11), inside
@@ -687,7 +718,7 @@ from repro_torch.layers import embedding as embedding_layer  # noqa: E402
 from repro_torch.layers import mamba as mamba_layer  # noqa: E402
 from repro_torch.layers import moe as moe_layer  # noqa: E402
 from repro_torch.layers import rwkv as rwkv_layer  # noqa: E402
-from repro_torch.layers.common import rope  # noqa: E402
+from repro_torch.layers.common import rope, torch_dtype  # noqa: E402
 from repro_torch.kernels.moe_gmm import gmm, gmm_reference  # noqa: E402
 from repro_torch.kernels.masked_kernels import (  # noqa: E402
     compact_prefix, compact_prefix_plain, join_probe, join_probe_plain,
@@ -924,6 +955,25 @@ MESH_F32_LOSS_ATOL = 1e-4  # float32, the reference's sharded-step test
 MESH_F32_GNORM_ATOL = 1e-3
 MESH_MOE_TOL = 2e-3        # of the largest |logit| of the unsharded forward
 MESH_TIMEOUT = 900.0       # one world's deadline (s)
+# mesh_families (slice 18): train steps of each of the rwkv, hybrid, vlm
+# and encdec families on a 1 x 2 (data, model) mesh of ranks sharing the
+# card, at full width and cut depth, bf16 activations with the configs'
+# float32 params and remat full, against one rank's steps on the same
+# seeded params and batches (step 1 held to MESH_LOSS_RTOL /
+# MESH_GNORM_RTOL, step 2 timed warm)
+MESH_FAMILY_MESH = (1, 2)
+MESH_FAMILY_STEPS = 2
+MESH_FAMILIES = {
+    "rwkv6-3b": {"cut": {"n_layers": 2}, "batch": 2, "seq": 512},
+    "zamba2-7b": {"cut": {"n_layers": 2, "shared_attn_period": 2},
+                  "batch": 2, "seq": 512},
+    "llava-next-34b": {"cut": {"n_layers": 2}, "batch": 2, "seq": 2048},
+    "seamless-m4t-medium": {"cut": {}, "batch": 4, "seq": 1024},
+}
+# the layers' kernel entries: kernel name -> (module, attribute)
+FAMILY_ENTRIES = {"wkv6": (rwkv_layer, "wkv6_kernel"),
+                  "ssd": (mamba_layer, "ssd_kernel"),
+                  "flash_attention": (attention_layer, "flash_attention")}
 
 
 def launch_counts(**counts) -> dict:
@@ -3311,35 +3361,41 @@ def check_recurrence(dev, gen, cfg, spec, calls) -> dict:
     record = None
     for shape, (args, kwargs) in sorted(calls.items(),
                                         key=lambda kv: kv[0][1]):
-        e = recurrence_compare(spec, args, kwargs)
-        err = max(err, e)
-        ms = cuda_ms(lambda: spec["kernel"](*args, **kwargs))
-        dev_ms, via = device_ms(lambda: spec["kernel"](*args, **kwargs))
-        plain_ms = cuda_ms(lambda: spec["plain"](*args, **kwargs), reps=3,
-                           warmup=1)
-        work = recurrence_work(spec, args)
-        bound_ms, bound_by = recurrence_bound(work, args[0].dtype)
-        seq_bound_ms, seq_by = bound(work["bytes"], work["sequential"],
-                                     FP32_FLOPS)
-        phase(f"{spec['path']}-kernel", name=spec["name"], shape="served",
-              args=json.dumps([list(a.shape) for a in args]),
-              strides=json.dumps([list(a.stride()) for a in args]),
-              dtype=str(args[0].dtype).split(".")[1], max_abs_err=e, ms=ms,
-              device_ms=dev_ms, device_ms_via=via, plain_ms=plain_ms,
-              library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-              share_of_bound=bound_ms / dev_ms, seq_bound_ms=seq_bound_ms,
-              seq_bound_by=seq_by, mb=work["bytes"] / 1e6,
-              product_gflop=work["products"] / 1e9,
-              other_gflop=work["other"] / 1e9,
-              seq_gflop=work["sequential"] / 1e9)
-        record = {"name": spec["name"], "route": "cuda",
-                  "source": spec["source"], "replaces": spec["replaces"],
-                  "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "library_ms": None}
+        record = recurrence_call_record(spec, args, kwargs, spec["path"])
+        err = max(err, record["max_abs_err"])
     check(record is not None, f"{spec['name']}: no call was recorded")
     record["max_abs_err"] = err
     return record
+
+
+def recurrence_call_record(spec, args, kwargs, path) -> dict:
+    """A recurrence kernel on one recorded call's arguments against its
+    plain version, timed beside it (``ms`` one call, ``device_ms`` 64
+    calls in one CUDA graph); returns its JSON record."""
+    e = recurrence_compare(spec, args, kwargs)
+    ms = cuda_ms(lambda: spec["kernel"](*args, **kwargs))
+    dev_ms, via = device_ms(lambda: spec["kernel"](*args, **kwargs))
+    plain_ms = cuda_ms(lambda: spec["plain"](*args, **kwargs), reps=3,
+                       warmup=1)
+    work = recurrence_work(spec, args)
+    bound_ms, bound_by = recurrence_bound(work, args[0].dtype)
+    seq_bound_ms, seq_by = bound(work["bytes"], work["sequential"],
+                                 FP32_FLOPS)
+    phase(f"{path}-kernel", name=spec["name"], shape="served",
+          args=json.dumps([list(a.shape) for a in args]),
+          strides=json.dumps([list(a.stride()) for a in args]),
+          dtype=str(args[0].dtype).split(".")[1], max_abs_err=e, ms=ms,
+          device_ms=dev_ms, device_ms_via=via, plain_ms=plain_ms,
+          library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+          share_of_bound=bound_ms / dev_ms, seq_bound_ms=seq_bound_ms,
+          seq_bound_by=seq_by, mb=work["bytes"] / 1e6,
+          product_gflop=work["products"] / 1e9,
+          other_gflop=work["other"] / 1e9,
+          seq_gflop=work["sequential"] / 1e9)
+    return {"name": spec["name"], "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "max_abs_err": e}
 
 
 def check_flash_calls(calls, path) -> dict:
@@ -5812,20 +5868,127 @@ def mesh_moe_check(logits, mesh, job):
     return err
 
 
+def _model_axis_calls(n, m, rows, text_rows, cfg) -> tuple:
+    """``(forward, backward)``: the ``(kind, bytes)`` of each collective
+    node ``n``'s impl calls on a ``model`` axis of ``m`` ranks, for
+    ``rows`` (batch x seq) rows a rank, ``text_rows`` of them text tokens
+    (the vlm's frontend prefix is not embedded).  Activations move in
+    ``cfg.dtype``, gathered weights and the gradients of whole leaves
+    (``copy_to``) in ``cfg.param_dtype``, the norms' and the loss's
+    per-row values in float32.  It follows the impls in
+    ``core/executor.py`` and ``layers/``; the CPU test of the families
+    holds it to the counted collectives exactly."""
+    a, impl = n.attrs, n.impl
+    act = torch_dtype(cfg.dtype).itemsize
+    par = torch_dtype(cfg.param_dtype).itemsize
+    e = cfg.d_model
+    whole = ("all_reduce", rows * e * act)
+    fwd, bwd = [], []
+    if impl in ("qkv_proj_fused", "q_proj_xla", "k_proj_xla", "v_proj_xla",
+                "cross_attention_xla"):
+        bwd.append(whole)                              # copy_to(x)
+        k, d = a["kv_heads"], a["head_dim"]
+        if k % m and impl != "q_proj_xla":             # wk, wv gathered
+            fwd.append(("all_gather", 2 * e * k * d // m * par))
+            bwd.append(("all_reduce", 2 * e * k * d * par))
+        if impl == "cross_attention_xla":
+            bwd.append(whole)                          # copy_to(memory)
+            fwd.append(whole)                          # the out projection
+    elif impl in ("sdpa_xla", "sdpa_banded_xla", "attn_flash_pallas"):
+        if a.get("qk_norm"):
+            bwd += [("all_reduce", a["head_dim"] * par)] * 2
+    elif impl in ("out_proj_xla", "ffn_down_xla"):
+        fwd.append(whole)
+    elif impl == "embed_gather":                       # the text's rows
+        fwd.append(("all_reduce", text_rows * e * act))
+    elif impl in ("ffn_up_xla", "ffn_gate_xla", "unembed_matmul"):
+        bwd.append(whole)
+    elif impl == "mlp_fused_xla":
+        fwd.append(whole)
+        bwd.append(whole)
+    elif impl == "softmax_xent_xla":
+        fwd += [("all_reduce", rows * 4)] * 3          # max, sum, gold
+    elif impl in ("wkv6_pallas", "wkv6_scan_xla"):
+        lora = min(64, e // 2)
+        fwd += [("all_reduce", rows * 4), whole]       # the norm, wo
+        bwd += [whole, ("all_reduce", rows * 4)] + [
+            ("all_reduce", size * par) for size in (
+                5, e * lora, lora * e, e, a["heads"] * a["head_dim"], e)]
+    elif impl == "rwkv_channel_mix":
+        fwd.append(whole)
+        bwd += [whole, ("all_reduce", e * e * par), ("all_reduce", 2 * par)]
+    elif impl in ("ssd_pallas", "ssd_chunked_xla"):
+        h, ei = a["heads"], a.get("expand", 2) * e
+        d_in, conv = 2 * ei + 2 * a["state"] + h, ei + 2 * a["state"]
+        w = e * d_in + 4 * conv                        # w_in and conv
+        fwd += [("all_gather", w // m * par), whole]
+        bwd += [whole, ("all_reduce", w * par)] + [("all_reduce",
+                                                    h * par)] * 3
+    elif impl.startswith("moe"):
+        raise NotImplementedError(f"no prediction for {impl}")
+    return fwd, bwd
+
+
+def model_axis_prediction(cfg, n_data, n_model, batch, seq,
+                          engines=("xla", "pallas")) -> dict:
+    """The ``model`` axis's collectives in one train step of ``cfg`` on an
+    ``n_data x n_model`` mesh at the global ``batch x seq``, as one rank's
+    ``RankMesh.stats`` counts them (``model.all_reduce_calls`` /
+    ``_bytes``, ``model.all_gather_calls`` / ``_bytes``), reckoned from
+    the plan's impls and the config's widths alone, no rank started.  A
+    layer under ``remat="full"`` runs its forward collectives twice, but
+    the recompute stops at the layer's last saved tensor, before its last
+    row-parallel sum; the gradients' global norm sums one float32 over
+    the axis.  The MoE impls and ``remat`` other than full / none are not
+    reckoned."""
+    m = int(n_model)
+    if m <= 1:
+        return {}
+    model = build_model(cfg)
+    syscat = SystemCatalog(mesh_axes=("data", "model"),
+                           mesh_shape=(int(n_data), m))
+    plan = plan_and_compile(model.build_plan(batch, seq, mode="train"),
+                            CATALOG, syscat, engines=tuple(engines),
+                            cache=False, device="cpu").concrete
+    rows = batch // int(n_data) * seq
+    front = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    text_rows = batch // int(n_data) * (seq - front)
+    out: Counter = Counter()
+
+    def note(calls, times=1):
+        for kind, nbytes in calls:
+            out[f"model.{kind}_calls"] += times
+            out[f"model.{kind}_bytes"] += times * nbytes
+
+    for n in plan.topo():
+        if n.subplan is None:
+            for calls in _model_axis_calls(n, m, rows, text_rows, cfg):
+                note(calls)
+            continue
+        remat = n.attrs.get("remat", "none")
+        if remat not in ("full", "none"):
+            raise NotImplementedError(f"no prediction for remat={remat!r}")
+        fwd, bwd = [], []
+        for sub in n.subplan.topo():
+            f, b = _model_axis_calls(sub, m, rows, text_rows, cfg)
+            fwd += f
+            bwd += b
+        again = fwd[:-1] if remat == "full" else []
+        note(fwd + again + bwd, int(n.attrs["n_layers"]))
+    note([("all_reduce", 4)])                          # the global norm
+    return dict(out)
+
+
 def mesh_prediction(cfg, mesh, batch, seq) -> dict:
     """The bytes one rank's step should move, from the config and the
     specs alone (no tensor made): the state's bytes; the FSDP gathers'
     input (every layer's ``data``-cut blocks, in the forward and again in
     the remat recompute, and the tied table at the embedding and the head)
     and their reduce-scatters' (an all-reduce of the gathered size); the
-    ``model`` sums of the (B/d, S, E) bf16 activations: out and down
-    projections in the forward, the out projection's again in the remat
-    recompute (the checkpoint stops recomputing once the layer's saved
-    tensors are back, before the down projection's sum), the q/k/v, up
-    and gate inputs' gradients, the embedding and the head's input
-    gradient; and the host copies those make (each input out, each output
-    back).  Left out: the loss's, the norms' and q/k-norm gradients' sums
-    (kilobytes)."""
+    ``model`` all-reduces (``model_axis_prediction``); and
+    the host copies those make (each input out, each output back).  Left
+    out: the ``data`` all-reduces of the loss, the global norm and the
+    gradients of leaves whole over ``data`` (kilobytes)."""
     d, m = mesh
     model = build_model(cfg)
     opt = make_optimizer("adamw", cosine_schedule(1e-3, 1, 100))
@@ -5849,8 +6012,8 @@ def mesh_prediction(cfg, mesh, batch, seq) -> dict:
     uses = 1 if "head" in abstract["embed"] else 2
     gather_in = (2 * cfg.n_layers * layer + uses * table) * (d > 1)
     reduce_in = d * (cfg.n_layers * layer + uses * table) * (d > 1)
-    act = batch // d * seq * cfg.d_model * 2
-    model_in = (cfg.n_layers * 6 + 2) * act * (m > 1)
+    model_in = model_axis_prediction(
+        cfg, d, m, batch, seq).get("model.all_reduce_bytes", 0)
     staged = gather_in * (1 + d) + 2 * reduce_in + 2 * model_in
     return {"state_bytes": train_sharded.state_spec_bytes(model, opt, sh),
             "data_gather_bytes": gather_in, "data_reduce_bytes": reduce_in,
@@ -6127,6 +6290,306 @@ def mesh_path(args, dev, syscat) -> list:
     return [flash_rec, gmm_rec]
 
 
+# -- phases 48-50: the families on the model mesh (mesh_families) ---------
+
+
+def family_call_key(name, args, kwargs) -> str:
+    """A kernel call's key: the kernel, the heads of its first argument
+    and, for flash, the KV heads and the mask (``8/8:full``)."""
+    key = f"{name}:{args[0].shape[2]}"
+    if name == "flash_attention":
+        key += f"/{args[1].shape[2]}:" + (
+            "causal" if kwargs.get("causal", True) else "full")
+    return key
+
+
+def family_kernel_calls(cfg, m) -> dict:
+    """The layers' kernel calls one ``remat="full"`` train step of ``cfg``
+    makes on a rank of ``m`` along ``model``, by :func:`family_call_key`:
+    each layer's forward and its recompute, on the rank's heads (flash
+    on the KV heads its query heads read)."""
+    hl = cfg.heads // m
+    flash = (f"flash_attention:{hl}/"
+             f"{(hl - 1) // (cfg.heads // cfg.kv_heads) + 1}")
+    if cfg.family == "rwkv":
+        return {f"wkv6:{hl}": 2 * cfg.n_layers}
+    if cfg.family == "hybrid":
+        heads = cfg.expand * cfg.d_model // cfg.mamba_head_dim
+        return {f"ssd:{heads // m}": 2 * cfg.n_layers,
+                f"{flash}:causal": 2 * (cfg.n_layers
+                                        // cfg.shared_attn_period)}
+    if cfg.family == "encdec":
+        return {f"{flash}:full": 2 * cfg.enc_layers,
+                f"{flash}:causal": 2 * cfg.dec_layers}
+    return {f"{flash}:causal": 2 * cfg.n_layers}
+
+
+def family_launches(cfg) -> dict:
+    """The kernels' launches of one step of ``cfg`` (one per call)."""
+    out = Counter()
+    for key, n in family_kernel_calls(cfg, 1).items():
+        out[key.split(":")[0]] += n
+    return launch_counts(**out)
+
+
+@contextlib.contextmanager
+def family_calls(calls, save_to=None):
+    """Count the layers' kernel entries' calls by :func:`family_call_key`
+    into ``calls`` (a Counter); with ``save_to`` (a path prefix) the first
+    call of each key's arguments go to ``<save_to>-<key>.pt``
+    (``torch.save`` keeps their strides: ssd's head-stride-0 B and C stay
+    views)."""
+    saved = []
+    for name, (module, attr) in FAMILY_ENTRIES.items():
+        fn = getattr(module, attr)
+        saved.append((module, attr, fn))
+
+        def record(*args, _fn=fn, _name=name, **kwargs):
+            key = family_call_key(_name, args, kwargs)
+            if save_to is not None and key not in calls:
+                torch.save({"args": [a.detach() for a in args],
+                            "kwargs": kwargs},
+                           f"{save_to}-{re.sub(r'[^0-9a-z]', '_', key)}.pt")
+            calls[key] += 1
+            return _fn(*args, **kwargs)
+        setattr(module, attr, record)
+    try:
+        yield calls
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+
+
+def mesh_family_rank(world, jobs):
+    """One rank of the families world: ``train_sharded.rank_run`` for each
+    job, with the kernel calls of its first step by
+    :func:`family_call_key` (``kernel_calls``) and its own peak memory;
+    rank 0 saves each key's first arguments under the job's ``save_to``."""
+    out = []
+    for job in jobs:
+        calls = Counter()
+        save_to = job["save_to"] if world.rank == 0 else None
+        if world.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(world.device)
+        with family_calls(calls, save_to):
+            r = train_sharded.rank_run(world, job)
+        steps = len(r["losses"])
+        out.append({**r, "kernel_calls": {k: v // steps
+                                          for k, v in calls.items()}})
+        free_memory()
+    return out
+
+
+def family_job(arch, spec) -> dict:
+    return {"arch": arch, "smoke": False, "batch": spec["batch"],
+            "seq": spec["seq"], "seed": SEED, "steps": MESH_FAMILY_STEPS,
+            "overrides": spec["cut"], "mesh": MESH_FAMILY_MESH,
+            "staggered_init": True}
+
+
+def family_single(dev, job) -> dict:
+    """One rank's train steps of the job on its seeded params and batches
+    (the draws every rank makes), as ``rank_run`` takes them: the first
+    step's loss, grad norm, wall, launches (counts set to 0 just before
+    it) and kernel calls by key; the second step's wall (warm)."""
+    job = {**train_sharded.JOB, **job}
+    cfg = train_sharded.job_config(job)
+    model = build_model(cfg)
+    fwd = plan_and_compile(model.build_plan(job["batch"], job["seq"],
+                                            mode="train"), CATALOG,
+                           SystemCatalog(), engines=tuple(job["engines"]),
+                           cache=False, device=dev)
+    opt = make_optimizer(job["optimizer"], cosine_schedule(
+        float(job["lr"]), 1, 100), master=bool(job["master"]))
+    state = init_state(model.init_params(torch.Generator(
+        device=dev).manual_seed(SEED)), opt)
+    step = make_train_step(fwd, opt)
+    calls, walls = Counter(), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(int(job["steps"])):
+        batch = train_sharded.global_batch(cfg, job, i, dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with family_calls(calls if i == 0 else Counter()):
+            state, m = step(state, batch)
+            metrics = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            loss, gnorm = metrics
+            launched = {k: v for k, v in kernels.launches().items() if v}
+    out = {"loss": loss, "grad_norm": gnorm, "walls_s": walls,
+           "launches": launched, "kernel_calls": dict(calls),
+           "plan_id": fwd.plan_id,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, fwd, batch
+    free_memory()
+    return out
+
+
+def family_prediction(cfg, batch, seq) -> dict:
+    """The ``model`` axis's collectives of one rank's step on
+    MESH_FAMILY_MESH (:func:`model_axis_prediction`, from the config and
+    the plan alone) and the host copies they stage: each input out and
+    each output back, an all-gather's output ``model`` times its input."""
+    d, m = MESH_FAMILY_MESH
+    pred = model_axis_prediction(cfg, d, m, batch, seq)
+    pred["staged_bytes"] = (2 * pred.get("model.all_reduce_bytes", 0)
+                            + (1 + m) * pred.get("model.all_gather_bytes",
+                                                 0))
+    return pred
+
+
+def mesh_family_checks(arch, spec, cfg, ranks, single, pred, smi):
+    """Phase 49 ([mesh-family]) from every rank's report of one family."""
+    m = MESH_FAMILY_MESH[1]
+    want = family_launches(cfg)
+    got1 = launch_counts(**single["launches"])
+    check(got1 == want, f"{arch} one rank: launches {single['launches']} "
+                        f"!= {want}")
+    heads = family_kernel_calls(cfg, m)
+    heads1 = family_kernel_calls(cfg, 1)
+    check(single["kernel_calls"] == heads1,
+          f"{arch} one rank: kernel calls {single['kernel_calls']} != "
+          f"{heads1}")
+    model_pred = {k: v for k, v in pred.items() if k.startswith("model.")}
+    for r in ranks:
+        for i, launched in enumerate(r["launches"]):
+            check(launch_counts(**launched) == want,
+                  f"{arch} rank {r['rank']} step {i + 1}: launches "
+                  f"{launched} != one rank's {want}")
+        check(r["kernel_calls"] == heads,
+              f"{arch} rank {r['rank']}: kernel calls {r['kernel_calls']} "
+              f"!= {heads}")
+        loss, gn = r["losses"][0], r["grad_norms"][0]
+        check(math.isfinite(loss) and math.isfinite(gn)
+              and _close(loss, single["loss"], MESH_LOSS_RTOL)
+              and _close(gn, single["grad_norm"], MESH_GNORM_RTOL),
+              f"{arch} rank {r['rank']}: loss {loss} grad norm {gn} against "
+              f"one rank's {single['loss']} {single['grad_norm']}")
+        check(all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]),
+              f"{arch} rank {r['rank']}: losses {r['losses']} grad norms "
+              f"{r['grad_norms']}")
+        for stats in r["stats"]:
+            check({k: v for k, v in stats.items()
+                   if k.startswith("model.")} == model_pred
+                  and stats.get("staged_bytes", 0) == pred["staged_bytes"]
+                  and not any(k.startswith("data.") for k in stats),
+                  f"{arch} rank {r['rank']}: collectives {dict(stats)} != "
+                  f"the prediction {pred}")
+        check(r["state_bytes"] == r["spec_bytes"],
+              f"{arch} rank {r['rank']}: state bytes {r['state_bytes']} != "
+              f"the specs' {r['spec_bytes']}")
+        stats = r["stats"][0]
+        b, s = spec["batch"], spec["seq"]
+        first, warm = r["walls_s"][0], r["walls_s"][-1]
+        first1, warm1 = single["walls_s"][0], single["walls_s"][-1]
+        phase("mesh-family", arch=arch, rank=r["rank"],
+              mesh="x".join(map(str, r["mesh"])), cut=json.dumps(spec["cut"]),
+              b=b, seq=s, plan_id=r["plan_id"][:12], loss=loss,
+              grad_norm=gn, single_loss=single["loss"],
+              single_grad_norm=single["grad_norm"],
+              loss_rel_err=abs(loss - single["loss"]) / abs(single["loss"]),
+              grad_norm_rel_err=abs(gn - single["grad_norm"])
+              / abs(single["grad_norm"]),
+              first_step_s=first, warm_step_s=warm,
+              warm_tokens_per_s=b * s / warm,
+              single_first_step_s=first1, single_warm_step_s=warm1,
+              single_warm_tokens_per_s=b * s / warm1,
+              launches=json.dumps(r["launches"][0]),
+              kernel_calls=json.dumps(r["kernel_calls"]),
+              single_kernel_calls=json.dumps(single["kernel_calls"]),
+              coll_calls=json.dumps({k: v for k, v in sorted(stats.items())
+                                     if k.endswith("_calls")}),
+              coll_bytes=json.dumps({k: v for k, v in sorted(stats.items())
+                                     if k.endswith("_bytes")
+                                     and k != "staged_bytes"}),
+              staged_host_bytes=stats.get("staged_bytes", 0),
+              predicted=json.dumps(pred), state_bytes=r["state_bytes"],
+              spec_bytes=r["spec_bytes"],
+              peak_mem_gb=round(r.get("peak_gb", 0.0), 3), card=smi)
+
+
+def mesh_families_path(args, dev, syscat) -> list:
+    """Phases 48-50: the rwkv, hybrid, vlm and encdec families' train
+    steps on a 1 x 2 mesh.  Returns the wkv6, ssd and flash records at a
+    rank's arguments."""
+    path = "mesh_families"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    jobs = {arch: family_job(arch, spec)
+            for arch, spec in MESH_FAMILIES.items()}
+
+    # 48. [mesh-family-single] / [mesh-family-predict]: one rank's steps
+    # of each family, then the card is freed; the model axis's collectives
+    singles, preds = {}, {}
+    for arch, job in jobs.items():
+        t0 = time.perf_counter()
+        singles[arch] = single = family_single(dev, job)
+        cfg = train_sharded.job_config({**train_sharded.JOB, **job})
+        preds[arch] = family_prediction(cfg, job["batch"], job["seq"])
+        phase("mesh-family-single", arch=arch, cut=json.dumps(job[
+            "overrides"]), b=job["batch"], seq=job["seq"],
+              loss=single["loss"], grad_norm=single["grad_norm"],
+              first_step_s=single["walls_s"][0],
+              warm_step_s=single["walls_s"][-1],
+              launches=json.dumps(single["launches"]),
+              kernel_calls=json.dumps(single["kernel_calls"]),
+              peak_mem_gb=round(single["peak_gb"], 3),
+              seconds=round(time.perf_counter() - t0, 1), card=smi)
+        phase("mesh-family-predict", arch=arch,
+              mesh="x".join(map(str, MESH_FAMILY_MESH)),
+              **{k.replace(".", "_"): v for k, v in preds[arch].items()})
+
+    # 49. [mesh-family]: one world of 2 ranks, the four families in turn
+    records = []
+    with tempfile.TemporaryDirectory(prefix="mesh-families-") as tmp:
+        world_jobs = [{**job, "save_to": f"{tmp}/{arch}"}
+                      for arch, job in jobs.items()]
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_family_rank, MESH_FAMILY_MESH[0]
+                          * MESH_FAMILY_MESH[1], device=dev.type,
+                          init_file=Path(tmp) / "group",
+                          timeout=MESH_TIMEOUT, args=(world_jobs,))
+        world_s = time.perf_counter() - t0
+        for i, (arch, spec) in enumerate(MESH_FAMILIES.items()):
+            cfg = train_sharded.job_config({**train_sharded.JOB,
+                                            **jobs[arch]})
+            mesh_family_checks(arch, spec, cfg, [r[i] for r in ranks],
+                               singles[arch], preds[arch], smi)
+        phase("mesh-world", ranks=len(ranks), world_s=round(world_s, 1))
+
+        # 50. [mesh_families-kernel]: wkv6, ssd and flash on the arguments
+        # rank 0's step gave them, against their plain versions
+        for i, arch in enumerate(MESH_FAMILIES):
+            head = ranks[0][i]
+            for key, n in sorted(head["kernel_calls"].items()):
+                saved = torch.load(
+                    f"{tmp}/{arch}-{re.sub(r'[^0-9a-z]', '_', key)}.pt",
+                    map_location=dev)
+                a, kw = tuple(saved["args"]), saved["kwargs"]
+                name = key.split(":")[0]
+                with torch.no_grad():
+                    if name == "flash_attention":
+                        rec = flash_call_record(a, kw, path)
+                    else:
+                        spec = next(s for s in RECURRENT.values()
+                                    if s["name"] == name)
+                        rec = recurrence_call_record(spec, a, kw, path)
+                rec.update(launches=n, path=path)
+                phase(f"{path}-kernel-call", arch=arch, key=key,
+                      launches=n)
+                records.append(rec)
+                del saved, a
+                free_memory()
+    del ranks
+    free_memory()
+    return records
+
+
 def gmm_call_record(x, w, path) -> dict:
     """gmm on ``x`` @ ``w`` against its plain version, timed beside the
     plain version and ``torch.bmm``; returns its JSON record."""
@@ -6217,6 +6680,7 @@ def main(argv=None) -> int:
     paths.append(("qwen3_train", train_path))
     paths.append(("tri_sharded", sharded_path))
     paths.append(("mesh_train", mesh_path))
+    paths.append(("mesh_families", mesh_families_path))
     if args.paths:
         wanted = args.paths.split(",")
         unknown = set(wanted) - {p for p, _ in paths}

@@ -36,7 +36,9 @@ from __future__ import annotations
 import torch
 
 
-def _live(axis) -> bool:
+def live(axis) -> bool:
+    """Whether ``axis`` has more than one rank (its collectives move
+    data)."""
     return axis is not None and int(axis.world) > 1
 
 
@@ -63,18 +65,18 @@ class _ReduceFrom(torch.autograd.Function):
 
 def copy_to(axis, x):
     """``x`` unchanged; the backward sums the gradient over ``axis``."""
-    return _CopyTo.apply(axis, x) if _live(axis) else x
+    return _CopyTo.apply(axis, x) if live(axis) else x
 
 
 def reduce_from(axis, x):
     """The sum of ``x`` over ``axis``; the backward passes the (whole)
     gradient through."""
-    return _ReduceFrom.apply(axis, x) if _live(axis) else x
+    return _ReduceFrom.apply(axis, x) if live(axis) else x
 
 
 def all_max(axis, x):
     """The elementwise max of ``x`` over ``axis`` (no gradient)."""
-    return axis.all_reduce(x.contiguous(), op="max") if _live(axis) else x
+    return axis.all_reduce(x.contiguous(), op="max") if live(axis) else x
 
 
 def _pack(xs, dims):
@@ -134,7 +136,7 @@ def gather_leaves(axis, xs, dims, *, partial=True) -> list:
     ``dims`` (every rank's block in rank order), one collective per dtype;
     ``partial`` as :func:`gather`'s."""
     xs = list(xs)
-    if not _live(axis) or not xs:
+    if not live(axis) or not xs:
         return xs
     out = list(xs)
     by_dtype: dict = {}

@@ -70,10 +70,14 @@ heads read, when ``kv_heads`` does not divide over ``model``); the out and
 down projections row-parallel with a sum over ``model``;
 ``unembed_matmul`` gives the rank's vocab columns and
 ``softmax_xent_xla`` is the vocab-parallel cross-entropy, a mean over the
-global batch; the moe impls run the rank's experts (``layers/moe.py``).
-A plan value is then the rank's block of the global value; the loss is
-whole on every rank.  The rwkv, hybrid, vlm and encdec families have no
-sharded form: their plans are refused on a mesh of more than one rank.
+global batch; the moe impls run the rank's experts (``layers/moe.py``);
+the rwkv time and channel mixes and the mamba block run the rank's heads
+and ffn columns (``layers/rwkv.py``, ``layers/mamba.py``), the encdec
+decoder's cross attention its heads of q from ``x`` and of K/V from the
+encoder's output.  A plan value is then the rank's block of the global
+value; the loss is whole on every rank.  A dim a family cuts over
+``model`` that does not divide is refused when the plan is bound
+(:func:`_mesh_shardings`), before any rank runs it.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; without a card they raise (:func:`resolve_device`) rather
@@ -470,18 +474,23 @@ def _batch_block(ctx, x):
                      f"batch {gb} nor a rank's {gb // n}")
 
 
-@impl("partition")
-def _i_partition(ctx, args, node):
-    """This rank's rows of a batch-leading value (the reference's
-    constraint of the batch dim to ``data``); a value already cut passes
-    through.  One device: the identity."""
-    x = args[0]
+def _rank_rows(ctx, x):
+    """This rank's rows of the batch-leading ``x``: ``x`` itself when it
+    holds them already (or off a ``data`` axis)."""
     data = ctx.axis("data")
     if data is None or not isinstance(x, torch.Tensor) or \
             not _batch_block(ctx, x):
         return x
     n = x.shape[0] // int(data.world)
     return x[int(data.rank) * n:(int(data.rank) + 1) * n]
+
+
+@impl("partition")
+def _i_partition(ctx, args, node):
+    """This rank's rows of a batch-leading value (the reference's
+    constraint of the batch dim to ``data``); a value already cut passes
+    through.  One device: the identity."""
+    return _rank_rows(ctx, args[0])
 
 
 @impl("merge")
@@ -671,13 +680,26 @@ def _i_outproj(ctx, args, node):
 def _i_xattn(ctx, args, node):
     """The decoder's attention to the encoder's output: q from x, K/V from
     ``memory``, no RoPE or qk-norm, full non-causal attention in plain
-    PyTorch (the reference computes it in XLA, outside any kernel)."""
+    PyTorch (the reference computes it in XLA, outside any kernel).  On a
+    ``model`` axis q and K/V are column-parallel on the rank's heads (both
+    inputs through ``copy_to``: every decoder layer's gradient into
+    ``memory`` is a partial sum) and the out projection row-parallel.  On
+    a ``data`` axis ``memory`` comes replicated (the plan's ``merge``) and
+    the rank reads the rows of its own ``x``."""
     x, mem = args
     p = ctx.params_for(node)
     h, k, d = _attn_cfg(node)
-    q = A.project_q(p, x, h, d)
-    kk, vv = A.project_kv(p, mem, k, d)
-    return A.out_project(p, A.sdpa_full(q, kk, vv, causal=False))
+    model, hl, lo, kl = None, h, 0, k
+    if getattr(ctx, "mesh", None) is not None:   # else one device (also
+        model, hl, lo, kl = _local_heads(ctx, node)  # a bare context)
+        mem = _rank_rows(ctx, mem)
+    if model is not None:
+        wk, wv = _kv_weights(ctx, model, p, k, d, lo, kl)
+        p = {**p, "wk": wk, "wv": wv}
+    q = A.project_q(p, C.copy_to(model, x), hl, d)
+    kk, vv = A.project_kv(p, C.copy_to(model, mem), kl, d)
+    return C.reduce_from(model, A.out_project(
+        p, A.sdpa_full(q, kk, vv, causal=False)))
 
 
 @impl("ffn_up_xla")
@@ -752,16 +774,20 @@ def _i_moe_gmm(ctx, args, node):
 
 @impl("wkv6_scan_xla")
 def _i_wkv_xla(ctx, args, node):
+    """The time mix; on a ``model`` axis on the rank's ``heads / model``
+    heads (the node's ``heads`` stays the global count)."""
     a = node.attrs
     return R.rwkv_time_mix(ctx.params_for(node), args[0], heads=a["heads"],
-                           head_dim=a["head_dim"], use_kernel=False)
+                           head_dim=a["head_dim"], use_kernel=False,
+                           axis=ctx.axis("model"))
 
 
 @impl("wkv6_pallas", engine="pallas")
 def _i_wkv_kernel(ctx, args, node):
     a = node.attrs
     return R.rwkv_time_mix(ctx.params_for(node), args[0], heads=a["heads"],
-                           head_dim=a["head_dim"], use_kernel=True)
+                           head_dim=a["head_dim"], use_kernel=True,
+                           axis=ctx.axis("model"))
 
 
 def _mamba_node_cfg(node):
@@ -773,19 +799,24 @@ def _mamba_node_cfg(node):
 
 @impl("ssd_chunked_xla")
 def _i_ssd_xla(ctx, args, node):
+    """The mamba block; on a ``model`` axis on the rank's heads."""
     return M.mamba2_block(ctx.params_for(node), args[0],
-                          _mamba_node_cfg(node), use_kernel=False)
+                          _mamba_node_cfg(node), use_kernel=False,
+                          axis=ctx.axis("model"))
 
 
 @impl("ssd_pallas", engine="pallas")
 def _i_ssd_kernel(ctx, args, node):
     return M.mamba2_block(ctx.params_for(node), args[0],
-                          _mamba_node_cfg(node), use_kernel=True)
+                          _mamba_node_cfg(node), use_kernel=True,
+                          axis=ctx.axis("model"))
 
 
 @impl("rwkv_channel_mix")
 def _i_rwkv_cm(ctx, args, node):
-    return R.rwkv_channel_mix(ctx.params_for(node), args[0])
+    """On a ``model`` axis on the rank's ffn columns."""
+    return R.rwkv_channel_mix(ctx.params_for(node), args[0],
+                              axis=ctx.axis("model"))
 
 
 @impl("unembed_matmul")
@@ -842,8 +873,13 @@ def _i_xent(ctx, args, node):
 @impl("concat_seq")
 def _i_concat_seq(ctx, args, node):
     """The vlm's frontend prefix before the text embeddings: ``a`` cast to
-    ``b``'s dtype, then joined along ``axis``."""
+    ``b``'s dtype, then joined along ``axis``.  Both must hold the same
+    rows (on a mesh: the rank's)."""
     a, b = args
+    if a.shape[0] != b.shape[0]:
+        raise ValueError(f"frontend_embeds holds {a.shape[0]} rows, the "
+                         f"text embeddings {b.shape[0]}: not this rank's "
+                         f"rows")
     return torch.cat([a.to(b.dtype), b], dim=node.attrs.get("axis", 1))
 
 
@@ -1103,13 +1139,12 @@ def _drain_counts(resolved, feedback) -> None:
         feedback.record(site, count, capacity)
 
 
-# the impls of the LM families that have no sharded form on a rank mesh
-_UNSHARDED_FAMILIES = {
-    "wkv6_scan_xla": "rwkv", "wkv6_pallas": "rwkv",
-    "rwkv_channel_mix": "rwkv", "ssd_chunked_xla": "hybrid",
-    "ssd_pallas": "hybrid", "concat_seq": "vlm",
-    "cross_attention_xla": "encdec"}
 _LM_IMPLS = {"embed_gather", "scan_layers_xla", "unembed_matmul"}
+# the impl that names a plan's family (the first found, in this order)
+_FAMILY_OF = (("concat_seq", "vlm"), ("cross_attention_xla", "encdec"),
+              ("ssd_pallas", "hybrid"), ("ssd_chunked_xla", "hybrid"),
+              ("wkv6_pallas", "rwkv"), ("wkv6_scan_xla", "rwkv"),
+              ("rwkv_channel_mix", "rwkv"))
 
 
 def _all_nodes(plan):
@@ -1126,22 +1161,54 @@ def _mesh_size(mesh) -> int:
     return n
 
 
+def _model_cut_dims(n) -> list:
+    """``(dim name, size)`` of each dim node ``n`` cuts over ``model``:
+    query heads of every attention, the rwkv heads and ffn, the mamba
+    heads and its in-projection's and conv's concatenated widths."""
+    a = n.attrs
+    if n.impl in ("wkv6_pallas", "wkv6_scan_xla"):
+        return [("heads", a["heads"])]
+    if n.impl == "rwkv_channel_mix":
+        return [("ffn", a["ffn"])]
+    if n.impl in ("ssd_pallas", "ssd_chunked_xla"):
+        ei = a.get("expand", 2) * a["embed"]
+        return [("heads", a["heads"]),
+                ("inner_cat", 2 * ei + 2 * a["state"] + a["heads"]),
+                ("inner_cat2", ei + 2 * a["state"])]
+    if "kv_heads" in a and "heads" in a:
+        return [("heads", a["heads"])]
+    return []
+
+
+def _check_model_cuts(nodes, mesh):
+    """Refuse a plan with a dim its family cuts over ``model`` that does
+    not divide (every rank would otherwise need the whole layer)."""
+    m = int(mesh.shape.get("model", 1))
+    if m <= 1:
+        return
+    impls = {n.impl for n in nodes}
+    family = next((f for i, f in _FAMILY_OF if i in impls), "dense")
+    own = {i for i, _f in _FAMILY_OF}
+    for n in sorted(nodes, key=lambda n: n.impl not in own):
+        for dim, size in _model_cut_dims(n):
+            if int(size) % m:
+                raise ValueError(
+                    f"the {family} family cuts {dim!r} ({size}, at "
+                    f"{n.impl}) over the model axis, which does not divide "
+                    f"over {m} ranks of the mesh {dict(mesh.shape)}")
+
+
 def _mesh_shardings(concrete, mesh, rules, param_specs):
     """The parameters' Sharding tree of an LM plan on a rank mesh of more
-    than one rank (None otherwise).  Refuses a family without a sharded
-    form, a serving (``collect_kv``) plan, a store's data mesh, and a
-    missing ``param_specs``."""
+    than one rank (None otherwise).  Refuses a dim cut over ``model`` that
+    does not divide, a serving (``collect_kv``) plan, a store's data mesh,
+    and a missing ``param_specs``."""
     nodes = list(_all_nodes(concrete))
     if mesh is None or _mesh_size(mesh) <= 1 or \
             not any(n.impl in _LM_IMPLS for n in nodes):
         return None
+    _check_model_cuts(nodes, mesh)
     for n in nodes:
-        fam = _UNSHARDED_FAMILIES.get(n.impl)
-        if fam is not None:
-            raise ValueError(
-                f"the {fam} family has no sharded form: its plan "
-                f"({n.impl}) runs on one rank, not on a mesh of shape "
-                f"{dict(mesh.shape)}")
         if n.attrs.get("collect_kv"):
             raise ValueError("a collect_kv (serving prefill) plan runs on "
                              "one rank")

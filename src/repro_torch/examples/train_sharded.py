@@ -3,10 +3,11 @@ end to end.
 
 Every rank builds the model and its global parameters from one seed (or
 takes the caller's), keeps its blocks (``state_shardings`` ->
-``shard_params``) and its rows of each batch (``input_shardings``), plans
-the train step with ``plan_and_compile(..., mesh=, param_specs=)`` and
-steps: the flash kernel runs on the rank's heads, the layers' collectives
-go through the mesh's sub-groups.  After ``save_at`` steps it saves the
+``shard_params``) and its rows of each batch (``input_shardings``; the
+vlm's and encdec's ``frontend_embeds`` too), plans the train step with
+``plan_and_compile(..., mesh=, param_specs=)`` and steps: the flash,
+wkv6 and ssd kernels run on the rank's heads, the layers' collectives go
+through the mesh's sub-groups.  After ``save_at`` steps it saves the
 state (the global leaves, written once), re-meshes the same world
 (``launch.elastic.remesh``), restores the checkpoint onto the new mesh and
 steps on.  :func:`rank_forward` is the prefill forward on a mesh (the MoE
@@ -15,6 +16,9 @@ family's experts cut over ``model``).
     PYTHONPATH=src python -m repro_torch.examples.train_sharded \\
         --arch qwen3-0.6b --smoke --mesh 2x2 --remesh-min-model 4 \\
         --device cpu
+
+``--arch`` takes every family (rwkv6-3b, zamba2-7b, llava-next-34b,
+seamless-m4t-medium, dbrx-132b, ...).
 """
 from __future__ import annotations
 
@@ -33,6 +37,8 @@ from ..core import tracing
 from ..core.executor import plan_and_compile
 from ..data.pipeline import DataConfig, synth_batch
 from ..launch.elastic import remesh
+from ..layers.common import torch_dtype
+from ..launch.train import device_batch
 from ..launch.mesh import (gather_state, input_shardings, make_rank_mesh,
                            run_ranks, shard_params, state_shardings,
                            syscat_for_mesh)
@@ -95,11 +101,28 @@ def local_params(model, job, mesh, shardings, *, inference=False):
     return out
 
 
+def data_config(cfg, job) -> DataConfig:
+    """The job's ``synth_batch`` stream: its seed, batch and sequence,
+    and the config's frontend (the vlm's prefix embeddings, the encdec
+    frames), as the train CLI's."""
+    return DataConfig(vocab=cfg.vocab, seq_len=int(job["seq"]),
+                      global_batch=int(job["batch"]), seed=int(job["seed"]),
+                      frontend_tokens=cfg.frontend_tokens,
+                      d_model=cfg.d_model, encdec=cfg.family == "encdec",
+                      dtype=cfg.dtype)
+
+
+def global_batch(cfg, job, step: int, device="cpu") -> dict:
+    """``synth_batch``'s global batch at ``step`` as tensors on ``device``,
+    the frontend embeddings in the config's dtype (the train CLI's
+    ``device_batch``)."""
+    return device_batch(synth_batch(data_config(cfg, job), step), device,
+                        torch_dtype(cfg.dtype))
+
+
 def batch_for(cfg, job, step: int, mesh, in_sh=None):
     """This rank's rows of ``synth_batch`` (the job's seed) at ``step``."""
-    dc = DataConfig(vocab=cfg.vocab, seq_len=int(job["seq"]),
-                    global_batch=int(job["batch"]), seed=int(job["seed"]))
-    glob = {k: torch.from_numpy(v) for k, v in synth_batch(dc, step).items()}
+    glob = global_batch(cfg, job, step)
     in_sh = in_sh or input_shardings(mesh, glob)
     return {k: in_sh[k].block(v).to(mesh.device) for k, v in glob.items()}
 
@@ -252,7 +275,8 @@ def restored_mismatches(path, state, shardings) -> list:
 def rank_forward(world, job: dict) -> dict:
     """One rank of the prefill forward on a mesh: the job's model (its
     parameters cast as the serving tree), planned with ``mode="prefill"``
-    and run on this rank's rows of ``synth_batch``'s tokens, twice.
+    and run on this rank's rows of ``synth_batch``'s inputs (the tokens,
+    and the vlm's and encdec's ``frontend_embeds``), twice.
     Returns the plan id, the chosen impls, the launches, wall and
     collectives of the second run (counts set to 0 just before it) and
     this rank's logits block (rows over ``data``, vocab over ``model``) as
@@ -270,15 +294,16 @@ def rank_forward(world, job: dict) -> dict:
     p_sh = state_shardings(mesh, model, make_optimizer(
         "adamw", cosine_schedule(1e-3, 1, 100))).params
     params = local_params(model, job, mesh, p_sh, inference=True)
-    tokens = batch_for(cfg, job, 0, mesh)["tokens"]
+    inputs = {k: v for k, v in batch_for(cfg, job, 0, mesh).items()
+              if k != "labels"}
     with torch.inference_mode():
-        fwd(params, {"tokens": tokens})
+        fwd(params, inputs)
         mesh.barrier()
         _sync(mesh.device)
         mesh.reset_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        logits = fwd(params, {"tokens": tokens})
+        logits = fwd(params, inputs)
         _sync(mesh.device)
         wall = time.perf_counter() - t0
     out = {"rank": mesh.rank, "coords": dict(mesh.coords),

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core import collectives as C
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -24,11 +26,18 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def rmsnorm(x, scale, eps=1e-6):
-    """``x * rsqrt(mean(x²) + eps) * (1 + scale)`` in float32, cast back."""
+def rmsnorm(x, scale, eps=1e-6, *, axis=None, width=None):
+    """``x * rsqrt(mean(x²) + eps) * (1 + scale)`` in float32, cast back.
+    On a live ``axis`` (a rank mesh's sub-group) ``x`` holds the rank's
+    block of ``width`` columns: the sum of squares is summed over the
+    axis, forward and backward."""
     dt = x.dtype
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if C.live(axis):
+        var = C.copy_to(axis, C.reduce_from(axis, (x32 * x32).sum(
+            dim=-1, keepdim=True))) / width
+    else:
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
     return ((x32 * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
 
 

@@ -9,12 +9,28 @@ dt_bias)·exp(a_log))`` is computed in float32 and cast to the activation
 dtype, as the reference's.  B and C are one (B, T, N) matrix each, shared
 by every head: the scan gets them expanded over heads as a view (head
 stride 0), never copied per head.
+
+On a ``model`` axis (``axis``: a rank mesh's sub-group) the block runs
+the rank's ``heads / model`` heads, which are contiguous.  ``w_in`` and
+``conv`` are stored as GSPMD's contiguous blocks of their concatenated
+widths (a rank's block of ``w_in`` may straddle ``z`` and ``x``), so the
+rank all-gathers both stored blocks over ``model`` (one collective) and
+takes the columns it computes: its heads' ``z`` / ``x`` / ``dt`` and all
+of ``B`` and ``C`` (one group: every head reads them).  The gather's
+gradients are partial: each rank's are summed and it keeps its block.
+Gathering the weights moves a block's parameters whatever the token
+count; gathering the projection's output instead would move
+``tokens x d_in`` activations, more past a few thousand tokens a rank.
+``w_out`` is row-parallel on the rank's heads, summed over ``model``;
+``a_log`` / ``dt_bias`` / ``d_skip`` and the input pass through
+``copy_to``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F_
 
+from ..core import collectives as C
 from ..kernels.ssd import ssd as ssd_kernel
 from ..kernels.ssd import ssd_chunked, ssd_reference
 from .common import he_init
@@ -77,21 +93,51 @@ def _causal_conv(x, w, conv_state=None):
     return F_.silu(out), new_state
 
 
+def _rank_heads(p, x, cfg, axis):
+    """The rank's part of the in-projection and conv on ``axis``:
+    ``(p, x, z, xin, bmat, cmat, dt, conv weights, local heads)`` with the
+    per-head leaves cut to the rank's heads."""
+    _, n, ei, pdim, h = _dims(cfg)
+    r = int(axis.rank)
+    hl = h // int(axis.world)
+    lo, hi = r * hl * pdim, (r + 1) * hl * pdim
+    heads = slice(r * hl, (r + 1) * hl)
+    w_in, conv = C.gather_leaves(axis, [p["w_in"], p["conv"]], [1, 1])
+    w_in = torch.cat([w_in[:, lo:hi], w_in[:, ei + lo:ei + hi],
+                      w_in[:, 2 * ei:2 * ei + 2 * n],
+                      w_in[:, 2 * ei + 2 * n:][:, heads]], dim=1)
+    conv = torch.cat([conv[:, lo:hi], conv[:, ei:]], dim=1).to(x.dtype)
+    x = C.copy_to(axis, x)
+    z, xin, bmat, cmat, dt = torch.split(
+        torch.matmul(x, w_in.to(x.dtype)), [hi - lo, hi - lo, n, n, hl],
+        dim=-1)
+    p = {**p, **{k: C.copy_to(axis, p[k])[heads]
+                 for k in ("a_log", "dt_bias", "d_skip")}}
+    return p, x, z, xin, bmat, cmat, dt, conv, hl
+
+
 def mamba2_block(p, x, cfg, *, use_kernel=False, state=None,
-                 conv_state=None):
+                 conv_state=None, axis=None):
     """x: (B, T, E).  Three modes: decode (``state`` given: the sequential
     recurrence from it; returns (y, new state, new conv state)), kernel
     (``use_kernel``: :func:`ssd_kernel`) and chunked (the XLA engine's
-    :func:`ssd_chunked`)."""
+    :func:`ssd_chunked`).  On a live ``axis`` (not in decode) the rank's
+    heads, summed over it."""
     b, t, _ = x.shape
     _, n, ei, pdim, h = _dims(cfg)
     decode = state is not None
 
-    zxbcdt = torch.matmul(x, p["w_in"].to(x.dtype))
-    z, xin, bmat, cmat, dt = _split(cfg, zxbcdt)
+    if C.live(axis):
+        if decode:
+            raise NotImplementedError("mamba decode runs on one rank")
+        p, x, z, xin, bmat, cmat, dt, conv, h = _rank_heads(p, x, cfg, axis)
+        ei = h * pdim
+    else:
+        zxbcdt = torch.matmul(x, p["w_in"].to(x.dtype))
+        z, xin, bmat, cmat, dt = _split(cfg, zxbcdt)
+        conv = p["conv"].to(x.dtype)
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
-    conv_out, new_conv = _causal_conv(conv_in, p["conv"].to(x.dtype),
-                                      conv_state)
+    conv_out, new_conv = _causal_conv(conv_in, conv, conv_state)
     xin, bmat, cmat = torch.split(conv_out, [ei, n, n], dim=-1)
 
     dt = F_.softplus(dt.float() + p["dt_bias"].float())          # (B, T, H)
@@ -114,4 +160,4 @@ def mamba2_block(p, x, cfg, *, use_kernel=False, state=None,
     out = torch.matmul(y, p["w_out"].to(x.dtype))
     if decode:
         return out, new_state, new_conv
-    return out
+    return C.reduce_from(axis, out)

@@ -8,12 +8,25 @@ reference's: the projections run in the activation dtype; the decay is
 computed in float32 and cast to the activation dtype before the
 recurrence; ``u`` stays float32; the head-merge norm runs over the whole
 embedding with ``ln_scale``.
+
+On a ``model`` axis (``axis``: a rank mesh's sub-group, the reference's
+GSPMD layout written out) the time mix runs the rank's ``heads / model``
+heads: ``wr`` / ``wk`` / ``wv`` / ``wg`` column-parallel on the rank's
+stored columns, ``wo`` row-parallel with a sum over ``model``, the
+decay LoRA's hidden whole on every rank and the rank's columns of ``wB``
+and ``w0``, its heads of ``u``, and the head-merge norm's sum of squares
+summed over ``model``.  The channel mix runs the rank's ffn columns of
+``wk`` and rows of ``wv``; the receptance, whole on every rank, scales
+the rank's partial value before the one sum, so every branch's gradient
+is a partial sum.  The leaves that are whole over ``model`` and the
+input pass through ``copy_to``: their gradients are summed over it.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F_
 
+from ..core import collectives as C
 from ..kernels.wkv6 import wkv6 as wkv6_kernel
 from ..kernels.wkv6 import wkv6_chunked, wkv6_reference
 from .common import he_init, rmsnorm
@@ -66,14 +79,38 @@ def _shifted(x, last_x):
     return torch.cat([last_x[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _whole_over(axis, p, names):
+    """``p`` with the leaves ``names`` through ``copy_to(axis)``."""
+    return {**p, **{k: C.copy_to(axis, p[k]) for k in names}}
+
+
+def _rank_heads(p, x, axis, heads, head_dim):
+    """The time mix's view of the rank's heads: the input and the leaves
+    that are whole over ``axis`` through ``copy_to`` (their gradients are
+    partial sums), ``w0`` / ``wB`` / ``ln_scale`` cut to the rank's
+    columns and ``u`` to its heads.  Returns ``(p, x, local heads)``."""
+    m, r = int(axis.world), int(axis.rank)
+    hl = heads // m
+    lo, hi = r * hl * head_dim, (r + 1) * hl * head_dim
+    p = _whole_over(axis, p, ("mu", "wA", "wB", "w0", "u", "ln_scale"))
+    p.update(wB=p["wB"][:, lo:hi], w0=p["w0"][lo:hi],
+             ln_scale=p["ln_scale"][lo:hi], u=p["u"][r * hl:(r + 1) * hl])
+    return p, C.copy_to(axis, x), hl
+
+
 def rwkv_time_mix(p, x, *, heads, head_dim, use_kernel=False, last_x=None,
-                  state=None):
+                  state=None, axis=None):
     """x: (B, T, E).  Three modes: decode (``state`` and ``last_x`` given:
     the sequential recurrence from ``state``; returns (y, new last_x, new
     state)), kernel (``use_kernel``: :func:`wkv6_kernel`) and chunked (the
-    XLA engine's :func:`wkv6_chunked`)."""
+    XLA engine's :func:`wkv6_chunked`).  On a live ``axis`` (not in
+    decode) the rank's heads of the global ``heads``, summed over it."""
     b, t, e = x.shape
     decode = state is not None
+    if C.live(axis):
+        if decode:
+            raise NotImplementedError("rwkv decode runs on one rank")
+        p, x, heads = _rank_heads(p, x, axis, heads, head_dim)
     xs = _shifted(x, last_x if decode else None)
     mu = p["mu"].to(x.dtype)
 
@@ -98,12 +135,13 @@ def rwkv_time_mix(p, x, *, heads, head_dim, use_kernel=False, last_x=None,
     else:
         y, _ = wkv6_chunked(rh, kh, vh, wh, p["u"])
 
-    y = rmsnorm(y.reshape(b, t, e), p["ln_scale"])      # head-merge norm
+    y = rmsnorm(y.reshape(b, t, heads * head_dim), p["ln_scale"],
+                axis=axis, width=e)                     # head-merge norm
     y = y * F_.silu(g)
     out = torch.matmul(y, p["wo"].to(x.dtype))
     if decode:
         return out, x[:, -1], new_state
-    return out
+    return C.reduce_from(axis, out)
 
 
 def init_rwkv_channel_mix(gen, cfg, dtype=torch.float32):
@@ -123,9 +161,15 @@ def rwkv_channel_mix_specs() -> dict:
             "wr": ("embed", "embed2"), "mu": ("mix",)}
 
 
-def rwkv_channel_mix(p, x, last_x=None):
+def rwkv_channel_mix(p, x, last_x=None, axis=None):
     """relu² key, sigmoid receptance gate.  With ``last_x`` (decode)
-    returns (y, new last_x)."""
+    returns (y, new last_x).  On a live ``axis`` the rank's ffn columns,
+    gated by the whole receptance, summed over it."""
+    if C.live(axis):
+        if last_x is not None:
+            raise NotImplementedError("rwkv decode runs on one rank")
+        p = _whole_over(axis, p, ("wr", "mu"))
+        x = C.copy_to(axis, x)
     xs = _shifted(x, last_x)
     mu = p["mu"].to(x.dtype)
     xk = x + mu[0] * (xs - x)
@@ -135,4 +179,4 @@ def rwkv_channel_mix(p, x, last_x=None):
     out = torch.sigmoid(torch.matmul(xr, p["wr"].to(x.dtype))) * kv
     if last_x is not None:
         return out, x[:, -1]
-    return out
+    return C.reduce_from(axis, out)

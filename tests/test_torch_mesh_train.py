@@ -21,8 +21,9 @@ reference's ``init_params`` carried across as numpy.
   * bf16 live parameters with float32 masters gather at most 0.55 x the
     FSDP bytes of float32 ones (the port's form of the reference's
     ``test_bf16_master_params_cut_wire_bytes``);
-  * the families without a sharded form (rwkv, hybrid, vlm, encdec) are
-    refused on a 1 x 2 mesh, with no rank started.
+  * a dim the rwkv, hybrid, vlm or encdec family cuts over ``model``
+    that does not divide is refused when the plan is bound, with no rank
+    started (their sharded steps: ``test_torch_mesh_families.py``).
 
 The ranks import this module to find their entries, so the reference
 package is imported inside the functions that use it.
@@ -394,7 +395,7 @@ def test_bf16_master_params_cut_fsdp_bytes(tmp_path_factory):
 
 
 # --------------------------------------------------------------------------
-# families with no sharded form
+# refusals
 # --------------------------------------------------------------------------
 
 def _stub_mesh(n_data, n_model):
@@ -404,16 +405,23 @@ def _stub_mesh(n_data, n_model):
                            axis=lambda name: SimpleNamespace(world=2))
 
 
-@pytest.mark.parametrize("arch,family", [
-    ("rwkv6-3b", "rwkv"), ("zamba2-7b", "hybrid"),
-    ("llava-next-34b", "vlm"), ("seamless-m4t-medium", "encdec")])
-def test_families_without_a_sharded_form_are_refused(arch, family):
-    model = build_model(tsmoke(arch))
-    with pytest.raises(ValueError, match=family):
+@pytest.mark.parametrize("arch,family,cut,n_model,dim", [
+    ("rwkv6-3b", "rwkv", {}, 3, "heads"),
+    ("zamba2-7b", "hybrid", {"ssm_state": 9}, 4, "inner_cat"),
+    ("llava-next-34b", "vlm", {}, 3, "heads"),
+    ("seamless-m4t-medium", "encdec", {}, 3, "heads.*cross_attention")])
+def test_families_refuse_dims_that_do_not_divide(arch, family, cut, n_model,
+                                                 dim):
+    """A dim the family cuts over ``model`` that does not divide is refused
+    when the plan is bound, before any rank starts (the stub mesh starts
+    none)."""
+    model = build_model(tsmoke(arch).replace(**cut))
+    with pytest.raises(ValueError, match=f"{family} family cuts '{dim}"):
         plan_and_compile(model.build_plan(2, 16, mode="train"), CATALOG,
                          SystemCatalog(mesh_axes=("data", "model"),
-                                       mesh_shape=(1, 2)),
-                         cache=False, device="cpu", mesh=_stub_mesh(1, 2),
+                                       mesh_shape=(1, n_model)),
+                         cache=False, device="cpu",
+                         mesh=_stub_mesh(1, n_model),
                          param_specs=model.param_specs())
 
 

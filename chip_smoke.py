@@ -143,9 +143,9 @@ package.  Phases, one line each; any failure raises and exits non-zero:
   model before it freed:
 
  15./19. data — rwkv6-3b (d_model 2560, 40 heads of 64, vocab 65,536;
-     **16 of its 32 layers**) / zamba2-7b (d_model 3584, 112 SSD heads of
+     **8 of its 32 layers**) / zamba2-7b (d_model 3584, 112 SSD heads of
      64, state 64, and a shared attention block of 32 heads of 112 every 6
-     blocks; vocab 32,000; **27 of its 81 mamba blocks**: 4 periods and
+     blocks; vocab 32,000; **15 of its 81 mamba blocks**: 2 periods and
      the 3-block remainder group) at full width, bfloat16 activations,
      float32 parameters from ``he_init`` on a seeded generator on the card:
      parameter count, bytes, seconds;
@@ -493,12 +493,16 @@ package.  Phases, one line each; any failure raises and exits non-zero:
   talk through gloo staged in pinned host memory; each runs
   ``repro_torch.examples.train_sharded``'s rank entries:
 
- 43. [mesh-single], [mesh-predict] — qwen3-0.6b (full width, 28 layers)
+ 43. [mesh-single], [mesh-predict] — qwen3-0.6b (full width, cut to 14
+     of 28 layers)
      trained 3 steps at 4 x 2048 on one rank from the seeded params and
      batches every rank draws (losses, grad norms, step walls), and a
      float32 2-layer step; the bytes a rank's step should move, reckoned
-     from the config and the specs (``mesh_prediction``); then the
-     parent frees its card memory;
+     from the config and the specs (``mesh_prediction``), and beside it
+     the dry run's trace of rank (0, 0) of the same step planned
+     ``("xla",)`` (``dryrun_*``: its state bytes, counters and the host
+     bytes they would stage), printed, not checked; then the parent frees
+     its card memory;
  44. [mesh-train] — the same 3 steps on a 2 x 2 (data, model) mesh, one
      line a rank: the step walls and tokens/s beside one rank's; the loss
      and ``grad_norm`` within 5e-3 / 1 % of one rank's (step 1);
@@ -553,6 +557,29 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      heads, mask) on the arguments rank 0's step gave them (saved with
      ``torch.save``, strides kept), against their plain versions, timed;
      their JSON records carry the launches of rank 0's step;
+
+  ``dryrun`` (the dry run, slice 19; runs last): no kernel launches (the
+  dry run plans ``("xla",)``), no kernel record:
+
+ 51. [dryrun] — ``launch.dryrun.lower_cell`` of qwen3-0.6b ``train_4k``
+     on the (16, 16) layout and zamba2-7b ``decode_32k`` on (2, 16, 16),
+     traced on the meta device on the host: dot FLOPs, argument / temp /
+     output bytes, HBM and wire bytes, aten ops, trace seconds;
+ 52. [dryrun-check] — the dry run's prediction beside the live step it
+     predicts, both on ``("xla",)``: qwen3-0.6b at full width and 2
+     layers, a 4 x 2048 train step, and MESH_DECODE's decode cell, each
+     on 2 x 2 ranks sharing the card (zeroed arguments), one line a rank:
+     every ``RankMesh.stats`` counter equal to the rank's traced
+     prediction (the staged host bytes reckoned from it: each input out,
+     each result back), the state / params, inputs and cache bytes equal
+     to ``argument_bytes``, and the predicted argument + temp bytes
+     within 10 % of ``torch.cuda.max_memory_allocated()`` over the step
+     (peak reset just before it);
+ 53. [mesh-decode] — qwen3-0.6b at full width and depth in float32 on
+     2 x 2 ranks: 8 decode steps (batch 4, cache 2048) of the sharded
+     ``decode_step`` from the seeded params, each rank's logits block
+     within 1e-4 of one rank's ``decode_step`` on the card, relative to
+     the largest |logit|; the median step wall.
 
  42. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
@@ -711,8 +738,15 @@ from repro_torch.kernels.graph_kernels import (  # noqa: E402
 from repro_torch.kernels.ssd import ssd, ssd_reference  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_reference  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.configs import ShapeConfig  # noqa: E402
+from repro_torch.core.executor import (ShardingRules,  # noqa: E402
+                                       params_sharding)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import (make_cpu_mesh,  # noqa: E402
-                                     run_ranks, state_shardings)
+                                     make_production_mesh, make_rank_mesh,
+                                     placeholder_rank_mesh, run_ranks,
+                                     shard_params, state_shardings)
+from repro_torch.launch.op_analysis import storage_bytes  # noqa: E402
 from repro_torch.layers import attention as attention_layer  # noqa: E402
 from repro_torch.layers import embedding as embedding_layer  # noqa: E402
 from repro_torch.layers import mamba as mamba_layer  # noqa: E402
@@ -729,9 +763,9 @@ from repro_torch.data import DataConfig, synth_batch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import CATALOG  # noqa: E402
 from repro_torch.models.decode import (DecodeGraph,  # noqa: E402
-                                       decode_step, decode_step_batched,
-                                       init_cache, prefill,
-                                       seed_cache_from_prefill)
+                                       cache_shardings, decode_step,
+                                       decode_step_batched, init_cache,
+                                       prefill, seed_cache_from_prefill)
 from repro_torch.serving import (AnalysisRequest,  # noqa: E402
                                  AsyncServingRuntime, DegradePolicy,
                                  ServeRequest, bucket_len, serve_sequential)
@@ -873,9 +907,10 @@ RECURRENT = {
         "xla": "wkv6_scan_xla",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6/wkv6.py:70", "cpu_check": True,
-        "n_layers": 16,
-        "cut": "n_layers 32 -> 16: the replay's time is linear in depth, "
-               "cut to keep the whole script near 900 s beside mesh_train"},
+        "n_layers": 8,
+        "cut": "n_layers 32 -> 8: the replay's time is linear in depth, "
+               "cut to keep the whole script near 900 s beside mesh_train "
+               "and dryrun"},
     "zamba2-7b": {
         "name": "ssd", "path": "zamba2_serve", "kernel": ssd,
         "plain": ssd_reference, "module": mamba_layer,
@@ -883,11 +918,11 @@ RECURRENT = {
         "xla": "ssd_chunked_xla",
         "source": "src/repro_torch/kernels/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:76", "cpu_check": False,
-        "n_layers": 27,
-        "cut": "n_layers 81 -> 27: 4 periods of 5 mamba + 1 shared-attention "
+        "n_layers": 15,
+        "cut": "n_layers 81 -> 15: 2 periods of 5 mamba + 1 shared-attention "
                "block and the 3-layer remainder group; the replay's time is "
                "linear in depth, cut to keep the whole script near 900 s "
-               "beside mesh_train"},
+               "beside mesh_train and dryrun"},
 }
 
 
@@ -942,9 +977,11 @@ TRAIN_KERNEL_OF = {"gmm_backward": "gmm", "wkv6_backward": "wkv6",
 # dbrx-132b's forward (2 of 40 layers) on 1 x 2, in float32: in bfloat16
 # the row-parallel sums round apart from the one-card GEMM's by an ulp,
 # which now and then flips a token's top-4 experts and so its logits
-MESH = {"arch": "qwen3-0.6b", "smoke": False, "mesh": (2, 2), "batch": 4,
-        "seq": 2048, "steps": 3, "save_at": 2, "remesh": {"min_model": 4},
-        "lr": 1e-3}
+# qwen3-0.6b cut to 14 of its 28 layers: the steps, the checkpoint and
+# the traces are linear in depth, cut to keep the whole script near 900 s
+MESH = {"arch": "qwen3-0.6b", "smoke": False, "overrides": {"n_layers": 14},
+        "mesh": (2, 2), "batch": 4, "seq": 2048, "steps": 3, "save_at": 2,
+        "remesh": {"min_model": 4}, "lr": 1e-3}
 MESH_F32 = {"n_layers": 2, "dtype": "float32"}
 MESH_F32_STEPS = 2
 MESH_MOE = {"arch": "dbrx-132b", "smoke": False, "n_layers": 2,
@@ -970,6 +1007,20 @@ MESH_FAMILIES = {
     "llava-next-34b": {"cut": {"n_layers": 2}, "batch": 2, "seq": 2048},
     "seamless-m4t-medium": {"cut": {}, "batch": 4, "seq": 1024},
 }
+# dryrun (slice 19): the dry run's cells traced on the meta device
+# ([dryrun]); its prediction of a live step, one rank's counters, argument
+# bytes and peak, beside the step on 2 x 2 ranks sharing the card
+# ([dryrun-check]: a qwen3-0.6b train cell at full width and 2 layers, and
+# MESH_DECODE's decode cell); the sharded decode step against one rank's
+# ([mesh-decode]: qwen3-0.6b at full width and depth in float32)
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
+                ("zamba2-7b", "decode_32k", True))
+DRYRUN_CHECK = {"arch": "qwen3-0.6b", "overrides": {"n_layers": 2},
+                "batch": 4, "seq": 2048, "kind": "train"}
+MESH_DECODE = {"arch": "qwen3-0.6b", "overrides": {"dtype": "float32"},
+               "mesh": (2, 2), "batch": 4, "cache": 2048, "steps": 8}
+MESH_DECODE_TOL = 1e-4     # of the largest |logit| of one rank's step
+DRYRUN_PEAK_RTOL = 0.10    # predicted argument + temp bytes against the peak
 # the layers' kernel entries: kernel name -> (module, attribute)
 FAMILY_ENTRIES = {"wkv6": (rwkv_layer, "wkv6_kernel"),
                   "ssd": (mamba_layer, "ssd_kernel"),
@@ -6150,7 +6201,8 @@ def mesh_path(args, dev, syscat) -> list:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    cfg = (get_smoke_config if MESH["smoke"] else get_config)(MESH["arch"])
+    cfg = (get_smoke_config if MESH["smoke"] else get_config)(
+        MESH["arch"]).replace(**MESH["overrides"])
     cfg32 = cfg.replace(**MESH_F32)
 
     # 43. [mesh-single] / [mesh-predict]: one rank's steps on the same
@@ -6166,14 +6218,21 @@ def mesh_path(args, dev, syscat) -> list:
           f32_grad_norms=json.dumps(single32["grad_norms"]),
           seconds=round(time.perf_counter() - t0, 1), card=smi)
     pred = mesh_prediction(cfg, MESH["mesh"], MESH["batch"], MESH["seq"])
+    traced = dryrun_prediction(
+        cfg, MESH["mesh"], ShapeConfig("mesh", MESH["seq"], MESH["batch"],
+                                       "train"),
+        {"grad_dtype": "float32"}, coords=[(0, 0)])[0]
     phase("mesh-predict", mesh="x".join(map(str, MESH["mesh"])),
-          **{k: v for k, v in pred.items()})
+          **{k: v for k, v in pred.items()},
+          dryrun_engines="xla", dryrun_state_bytes=traced["state_bytes"],
+          dryrun_coll=json.dumps(traced["stats"]),
+          dryrun_staged_bytes=traced["staged_bytes"])
     free_memory()
 
     # 44-46. [mesh-train], [mesh-f32], [mesh-elastic]: one world of 4
     base = {"arch": MESH["arch"], "smoke": MESH["smoke"],
-            "batch": MESH["batch"], "seq": MESH["seq"], "lr": MESH["lr"],
-            "seed": SEED}
+            "overrides": MESH["overrides"], "batch": MESH["batch"],
+            "seq": MESH["seq"], "lr": MESH["lr"], "seed": SEED}
     with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:
         jobs = [{**base, "mesh": MESH["mesh"], "steps": MESH["steps"],
                  "save_at": MESH["save_at"], "ckpt_dir": f"{tmp}/ckpt",
@@ -6590,6 +6649,260 @@ def mesh_families_path(args, dev, syscat) -> list:
     return records
 
 
+# -- phases 51-53: the dry run (dryrun) -------------------------------------
+
+
+def staged_prediction(stats, mesh_shape: dict) -> int:
+    """The host bytes a card rank stages for the collectives ``stats``
+    counts: each input out to the host and each result back (an
+    all-gather's result is the axis size times its input)."""
+    out = 0
+    for name, size in mesh_shape.items():
+        out += 2 * stats.get(f"{name}.all_reduce_bytes", 0)
+        out += 2 * stats.get(f"{name}.all_to_all_bytes", 0)
+        out += (1 + int(size)) * stats.get(f"{name}.all_gather_bytes", 0)
+    return out
+
+
+def dryrun_prediction(cfg, mesh, shape, opts=None, coords=None) -> list:
+    """The dry run's prediction of one step of ``cfg`` at ``shape`` for
+    the ranks at ``coords`` (``(data, model)`` pairs; every rank of the
+    mesh by default): each rank traced on the meta device at its
+    coordinates (``dryrun.trace_cell`` on a ``placeholder_rank_mesh``),
+    its counters, argument bytes (and those of its state), temp bytes and
+    the host bytes its collectives would stage on a card."""
+    layout = make_cpu_mesh(*mesh)
+    out = []
+    for d, m in coords or [(d, m) for d in range(mesh[0])
+                           for m in range(mesh[1])]:
+        rank = placeholder_rank_mesh(layout, {"data": d, "model": m})
+        rec = dryrun.trace_cell(cfg, shape, rank, opts=opts)
+        stats = dict(rank.stats)
+        out.append({"coords": {"data": d, "model": m}, "stats": stats,
+                    "argument_bytes": rec["memory"]["argument_bytes"],
+                    "state_bytes": rec["state_bytes"],
+                    "temp_bytes": rec["memory"]["temp_bytes"],
+                    "flops": rec["flops"],
+                    "staged_bytes": staged_prediction(
+                        stats, layout.shape)})
+    return out
+
+
+def dryrun_rank(world, jobs):
+    """One rank of the dryrun path's world, per job: ``cell`` one step of a
+    dry-run cell on the live mesh (the arguments zeros on the card; its
+    counters, argument bytes, allocated bytes before the step and peak);
+    ``decode`` MESH_DECODE's steps from the seeded params (the logits
+    blocks)."""
+    out = []
+    for job in jobs:
+        mesh = make_rank_mesh(world, *job["mesh"])
+        dev = mesh.device
+        cfg = get_config(job["arch"]).replace(**job["overrides"])
+        if job["job"] == "cell":
+            run, args, _ = dryrun.build_cell(cfg, job["shape"], mesh)
+            torch.cuda.synchronize(dev)
+            mesh.barrier()
+            mesh.reset_stats()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            out.append({"coords": dict(mesh.coords),
+                        "stats": dict(mesh.stats),
+                        "argument_bytes": storage_bytes(args),
+                        "allocated_before": before,
+                        "peak": torch.cuda.max_memory_allocated(dev),
+                        "wall_s": wall})
+            del run, args, res
+        else:
+            out.append(mesh_decode_steps(mesh, cfg, job))
+        free_memory()
+        mesh.barrier()
+    return out
+
+
+def mesh_decode_tokens(cfg, step):
+    """The (batch, 1) tokens every rank and the one rank decode at
+    ``step``."""
+    rng = np.random.default_rng(SEED + 1000 + step)
+    return torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         (MESH_DECODE["batch"], 1)))
+
+
+def mesh_decode_steps(mesh, cfg, job):
+    """MESH_DECODE's steps on the rank's blocks of the seeded params (drawn
+    one rank at a time) and of a zeroed cache: its logits blocks."""
+    model = build_model(cfg)
+    b, cache_len = MESH_DECODE["batch"], MESH_DECODE["cache"]
+    p_sh = params_sharding(model.param_specs(), mesh, ShardingRules())
+    params = train_sharded.local_params(
+        model, {"params": None, "seed": SEED, "staggered_init": True},
+        mesh, p_sh)
+    meta = init_cache(model, b, cache_len, device="meta")
+    c_sh = cache_shardings(mesh, model, meta, ShapeConfig(
+        "decode", cache_len, b, "decode"))
+    cache = dryrun.on_device(shard_params(meta, c_sh), mesh.device)
+    rows = b // mesh.shape["data"]
+    d = mesh.coords["data"]
+    logits, walls = [], []
+    for t in range(MESH_DECODE["steps"]):
+        tok = mesh_decode_tokens(cfg, t)[d * rows:(d + 1) * rows].to(
+            mesh.device)
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        out, cache = decode_step(model, params, cache, tok, t, mesh=mesh,
+                                 shardings=p_sh, cache_sh=c_sh)
+        torch.cuda.synchronize(mesh.device)
+        walls.append(time.perf_counter() - t0)
+        logits.append(out.float().cpu().numpy())
+    return {"coords": dict(mesh.coords), "rows": rows, "logits": logits,
+            "walls_s": walls, "stats": dict(mesh.stats)}
+
+
+def mesh_decode_single(cfg, dev) -> list:
+    """One rank's MESH_DECODE steps on the card (the reference of
+    [mesh-decode]): the logits of each step, as numpy."""
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    cache = init_cache(model, MESH_DECODE["batch"],
+                              MESH_DECODE["cache"], device=dev)
+    out = []
+    for t in range(MESH_DECODE["steps"]):
+        logits, cache = decode_step(model, params, cache,
+                                    mesh_decode_tokens(cfg, t).to(dev), t)
+        out.append(logits.float().cpu().numpy())
+    del params, cache
+    free_memory()
+    return out
+
+
+def dryrun_checks(kind, ranks, preds, smi):
+    """[dryrun-check] for one cell: every rank's counters (the staged host
+    bytes too) equal to its prediction, its argument bytes equal, the
+    predicted argument + temp bytes within DRYRUN_PEAK_RTOL of its peak."""
+    for r in ranks:
+        pred = next(p for p in preds if p["coords"] == {
+            "data": r["coords"]["data"], "model": r["coords"]["model"]})
+        want = Counter({**pred["stats"],
+                        "staged_bytes": pred["staged_bytes"]})
+        check(Counter(r["stats"]) == want,
+              f"{kind} rank {r['coords']}: counters {r['stats']} != the "
+              f"prediction {dict(want)}")
+        check(r["argument_bytes"] == pred["argument_bytes"],
+              f"{kind} rank {r['coords']}: argument bytes "
+              f"{r['argument_bytes']} != {pred['argument_bytes']}")
+        predicted = pred["argument_bytes"] + pred["temp_bytes"]
+        err = abs(predicted - r["peak"]) / r["peak"]
+        check(err <= DRYRUN_PEAK_RTOL,
+              f"{kind} rank {r['coords']}: predicted argument + temp "
+              f"{predicted} bytes against a peak of {r['peak']} ({err:.3f})")
+        phase("dryrun-check", cell=kind, coords=json.dumps(r["coords"]),
+              argument_bytes=r["argument_bytes"],
+              predicted_argument_bytes=pred["argument_bytes"],
+              allocated_before=r["allocated_before"],
+              predicted_temp_bytes=pred["temp_bytes"],
+              predicted_peak_bytes=predicted, peak_bytes=r["peak"],
+              peak_rel_err=err, coll=json.dumps(r["stats"]),
+              predicted_coll=json.dumps(dict(want)),
+              predicted_flops=pred["flops"], step_s=r["wall_s"], card=smi)
+
+
+def dryrun_path(args, dev, syscat) -> list:
+    """Phases 51-53: the dry run.  Launches no kernel (the dry run plans
+    ``("xla",)``) and returns no kernel record."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+    # 51. [dryrun]: production cells traced on the meta device
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        rec = dryrun.lower_cell(arch, shape,
+                                make_production_mesh(multi_pod=multi_pod))
+        mem = rec["memory"]
+        check(rec["flops"] > 0 and mem["argument_bytes"] > 0,
+              f"{arch} {shape}: an empty trace {rec}")
+        phase("dryrun", arch=arch, shape=shape,
+              mesh="x".join(map(str, rec["mesh"].values())),
+              flops=rec["flops"], argument_bytes=mem["argument_bytes"],
+              temp_bytes=mem["temp_bytes"], output_bytes=mem["output_bytes"],
+              hbm_bytes=rec["hbm_bytes"], wire_bytes=rec["wire_bytes"],
+              aten_ops=rec["aten_ops"], trace_s=rec["t_trace_s"])
+
+    # 52. [dryrun-check]: the prediction of the train and decode cells on
+    # 2 x 2, then the live steps; [mesh-decode]'s one-rank reference
+    ccfg = get_config(DRYRUN_CHECK["arch"]).replace(
+        **DRYRUN_CHECK["overrides"])
+    cshape = ShapeConfig("check", DRYRUN_CHECK["seq"], DRYRUN_CHECK["batch"],
+                         DRYRUN_CHECK["kind"])
+    dcfg = get_config(MESH_DECODE["arch"]).replace(
+        **MESH_DECODE["overrides"])
+    dshape = ShapeConfig("check", MESH_DECODE["cache"], MESH_DECODE["batch"],
+                         "decode")
+    mesh = MESH_DECODE["mesh"]
+    t0 = time.perf_counter()
+    preds = {"train": dryrun_prediction(ccfg, mesh, cshape),
+             "decode": dryrun_prediction(dcfg, mesh, dshape)}
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = mesh_decode_single(dcfg, dev)
+    single_s = time.perf_counter() - t0
+    jobs = [{"job": "cell", "arch": DRYRUN_CHECK["arch"],
+             "overrides": DRYRUN_CHECK["overrides"], "mesh": mesh,
+             "shape": cshape},
+            {"job": "cell", "arch": MESH_DECODE["arch"],
+             "overrides": MESH_DECODE["overrides"], "mesh": mesh,
+             "shape": dshape},
+            {"job": "decode", "arch": MESH_DECODE["arch"],
+             "overrides": MESH_DECODE["overrides"], "mesh": mesh}]
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(dryrun_rank, mesh[0] * mesh[1], device=dev.type,
+                          init_file=Path(tmp) / "group",
+                          timeout=MESH_TIMEOUT, args=(jobs,))
+        world_s = time.perf_counter() - t0
+    dryrun_checks("train", [r[0] for r in ranks], preds["train"], smi)
+    dryrun_checks("decode", [r[1] for r in ranks], preds["decode"], smi)
+
+    # 53. [mesh-decode]: each rank's logits block against one rank's
+    # (the padded vocab columns hold -1e30 on both sides; the scale is
+    # the largest |logit| of the true vocab)
+    top = max(float(np.abs(x[..., :dcfg.vocab]).max()) for x in single)
+    vocab = single[0].shape[-1]
+    for r in (r[2] for r in ranks):
+        d, m = r["coords"]["data"], r["coords"]["model"]
+        cols = vocab // mesh[1]
+        errs = []
+        for t, got in enumerate(r["logits"]):
+            want = single[t][d * r["rows"]:(d + 1) * r["rows"], :,
+                             m * cols:(m + 1) * cols]
+            check(got.shape == want.shape,
+                  f"rank {r['coords']} step {t}: logits {got.shape} != "
+                  f"{want.shape}")
+            errs.append(float(np.abs(got - want).max()) / top)
+        check(len(errs) == MESH_DECODE["steps"]
+              and max(errs) <= MESH_DECODE_TOL,
+              f"rank {r['coords']}: logits off by {errs} of the largest "
+              f"|logit|")
+        phase("mesh-decode", coords=json.dumps(r["coords"]),
+              mesh="x".join(map(str, mesh)), arch=dcfg.name,
+              layers=dcfg.n_layers, b=MESH_DECODE["batch"],
+              cache=MESH_DECODE["cache"], steps=len(errs),
+              rel_err_max=max(errs), rel_errs=json.dumps(errs),
+              step_s_median=statistics.median(r["walls_s"]),
+              coll_calls=json.dumps({k: v for k, v in sorted(
+                  r["stats"].items()) if k.endswith("_calls")}),
+              card=smi)
+    phase("dryrun-world", ranks=len(ranks), world_s=round(world_s, 1),
+          predict_s=round(predict_s, 1), single_decode_s=round(single_s, 1))
+    del ranks
+    free_memory()
+    return []
+
+
 def gmm_call_record(x, w, path) -> dict:
     """gmm on ``x`` @ ``w`` against its plain version, timed beside the
     plain version and ``torch.bmm``; returns its JSON record."""
@@ -6681,6 +6994,7 @@ def main(argv=None) -> int:
     paths.append(("tri_sharded", sharded_path))
     paths.append(("mesh_train", mesh_path))
     paths.append(("mesh_families", mesh_families_path))
+    paths.append(("dryrun", dryrun_path))
     if args.paths:
         wanted = args.paths.split(",")
         unknown = set(wanted) - {p for p, _ in paths}

@@ -29,7 +29,10 @@ output on the axis's ranks:
     replicated and the backward only slices.
 
 :func:`gather_leaves` gathers several tensors in one collective per dtype
-(a layer's FSDP shards), with the same two backwards.
+(a layer's FSDP shards), with the same two backwards.  :func:`span` is a
+range of a leaf cut over an axis: the rank's own block as it is when the
+range is that block, else the gathered leaf's range (the heads a rank
+computes when they do not divide over ``model``).
 """
 from __future__ import annotations
 
@@ -156,3 +159,19 @@ def gather(axis, x, dim, *, partial=True):
     the backward sums the gradient over the axis before slicing; else the
     backward only slices."""
     return gather_leaves(axis, [x], [dim], partial=partial)[0]
+
+
+def span(axis, xs, dim, lo, hi) -> list:
+    """Elements ``[lo, hi)`` along ``dim`` of each global leaf whose block
+    on this rank is ``xs[i]`` (cut contiguously over ``axis``): the blocks
+    themselves when ``[lo, hi)`` is exactly the rank's block, else every
+    leaf gathered over ``axis`` (one collective per dtype, the backward
+    summed as :func:`gather`'s with ``partial``) and narrowed."""
+    xs = list(xs)
+    if not live(axis):
+        return [x.narrow(dim, lo, hi - lo) for x in xs]
+    n, r = xs[0].shape[dim], int(axis.rank)
+    if (lo, hi) == (r * n, (r + 1) * n):
+        return xs
+    full = gather_leaves(axis, xs, [dim] * len(xs))
+    return [x.narrow(dim, lo, hi - lo) for x in full]

@@ -59,23 +59,26 @@ shape and, on a live mesh, the rank's block.  On a
 :class:`~repro_torch.launch.mesh.RankMesh` (``plan_and_compile(...,
 mesh=, param_specs=)``) the LM impls run GSPMD's layout written out: each
 rank holds its block of every parameter (``embed`` over ``data``, heads,
-ffn, vocab and experts over ``model``) and of the batch (over ``data``),
-and calls the collectives of :mod:`.collectives` itself.  ``partition``
-takes the rank's rows of a global value and ``merge`` gathers them;
+ffn, vocab and experts over ``model``) and of the batch (over ``(pod,
+data)``), and calls the collectives of :mod:`.collectives` itself.
+``partition`` takes the rank's rows of a global value and ``merge``
+gathers them;
 ``scan_layers_xla`` gathers each layer's ``data`` shards just before the
 layer (FSDP; again in a ``remat`` recompute); ``embed_gather`` gathers
 its rows of a vocab-sharded table and sums over ``model``; the q / k / v
 projections are column-parallel on heads (every KV head a rank's query
-heads read, when ``kv_heads`` does not divide over ``model``); the out and
+heads read, when ``kv_heads`` does not divide over ``model``; when the
+query heads do not divide, the first ranks take one more, gathering and
+narrowing the projections: ``layers.attention.head_block``); the out and
 down projections row-parallel with a sum over ``model``;
 ``unembed_matmul`` gives the rank's vocab columns and
 ``softmax_xent_xla`` is the vocab-parallel cross-entropy, a mean over the
-global batch; the moe impls run the rank's experts (``layers/moe.py``);
+global batch (sums over ``pod`` and ``data``); the moe impls run the rank's experts (``layers/moe.py``);
 the rwkv time and channel mixes and the mamba block run the rank's heads
 and ffn columns (``layers/rwkv.py``, ``layers/mamba.py``), the encdec
 decoder's cross attention its heads of q from ``x`` and of K/V from the
 encoder's output.  A plan value is then the rank's block of the global
-value; the loss is whole on every rank.  A dim a family cuts over
+value; the loss is whole on every rank.  A stored dim a family cuts over
 ``model`` that does not divide is refused when the plan is bound
 (:func:`_mesh_shardings`), before any rank runs it.
 
@@ -112,10 +115,13 @@ from ..layers.common import layer_slice, rmsnorm, torch_dtype
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card (``"cuda"``) unless the
     caller names another.  Raises when that is a CUDA device and PyTorch
-    sees none — the port never falls back to the CPU on its own."""
+    sees none — the port never falls back to the CPU on its own.
+    ``"meta"`` (shapes and dtypes only, nothing computed) is taken only
+    when the caller names it: the dry run traces a step there."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}: use 'cuda', 'cpu' or "
+                         f"'meta'")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} requested but torch.cuda.is_available() is False;"
@@ -365,9 +371,9 @@ class ExecContext:
 
     def axis(self, name: str):
         """The mesh's sub-group along ``name`` when it has more than one
-        rank, else None (one device, or a store's data mesh)."""
+        rank, else None (one device, a store's data mesh, no such axis)."""
         m = self.mesh
-        if m is None or not hasattr(m, "axis"):
+        if m is None or not hasattr(m, "axis") or name not in m.axis_names:
             return None
         ax = m.axis(name)
         return ax if int(ax.world) > 1 else None
@@ -422,11 +428,13 @@ def gather_params(ctx, p, sh):
     return out
 
 
-def _layer_shardings(sh):
+def layer_shardings(sh):
+    """The shardings of one layer of a stacked tree (``Sharding.layer``
+    of each leaf; None stays None)."""
     if sh is None:
         return None
     if isinstance(sh, dict):
-        return {k: _layer_shardings(v) for k, v in sh.items()}
+        return {k: layer_shardings(v) for k, v in sh.items()}
     return sh.layer()
 
 
@@ -458,14 +466,23 @@ def _i_resid(ctx, args, node):
 # language-model impls
 # --------------------------------------------------------------------------
 
+def _batch_axes(ctx) -> list:
+    """The live axes the batch is cut over, outermost first: ``pod``, then
+    ``data`` (the reference's ``("pod", "data")``)."""
+    return [ax for ax in (ctx.axis("pod"), ctx.axis("data"))
+            if ax is not None]
+
+
 def _batch_block(ctx, x):
     """Whether ``x`` (batch-leading) is the global value (True) or this
     rank's rows already (False); anything else is refused."""
-    n = int(ctx.mesh.shape.get("data", 1))
+    n = 1
+    for ax in _batch_axes(ctx):
+        n *= int(ax.world)
     gb = ctx.global_batch
     if gb is None or gb % n:
-        raise ValueError(f"global batch {gb} does not divide over the data "
-                         f"axis ({n} ranks)")
+        raise ValueError(f"global batch {gb} does not divide over the "
+                         f"batch axes (pod, data: {n} ranks)")
     if x.shape[0] == gb and n > 1:
         return True
     if x.shape[0] == gb // n:
@@ -476,34 +493,41 @@ def _batch_block(ctx, x):
 
 def _rank_rows(ctx, x):
     """This rank's rows of the batch-leading ``x``: ``x`` itself when it
-    holds them already (or off a ``data`` axis)."""
-    data = ctx.axis("data")
-    if data is None or not isinstance(x, torch.Tensor) or \
+    holds them already (or off the batch axes).  Block ``p * data + d`` of
+    the rows is the rank's at ``(pod p, data d)``."""
+    axes = _batch_axes(ctx)
+    if not axes or not isinstance(x, torch.Tensor) or \
             not _batch_block(ctx, x):
         return x
-    n = x.shape[0] // int(data.world)
-    return x[int(data.rank) * n:(int(data.rank) + 1) * n]
+    i, n = 0, 1
+    for ax in axes:
+        i = i * int(ax.world) + int(ax.rank)
+        n *= int(ax.world)
+    rows = x.shape[0] // n
+    return x[i * rows:(i + 1) * rows]
 
 
 @impl("partition")
 def _i_partition(ctx, args, node):
     """This rank's rows of a batch-leading value (the reference's
-    constraint of the batch dim to ``data``); a value already cut passes
-    through.  One device: the identity."""
+    constraint of the batch dim to ``(pod, data)``); a value already cut
+    passes through.  One device: the identity."""
     return _rank_rows(ctx, args[0])
 
 
 @impl("merge")
 def _i_merge(ctx, args, node):
     """The global value of this rank's rows, replicated (the reference's
-    replicating constraint): an all-gather over ``data`` whose backward
-    slices.  One device: the identity."""
+    replicating constraint): an all-gather over ``data``, then over
+    ``pod``, whose backward slices.  One device: the identity."""
     x = args[0]
-    data = ctx.axis("data")
-    if data is None or not isinstance(x, torch.Tensor) or \
+    axes = _batch_axes(ctx)
+    if not axes or not isinstance(x, torch.Tensor) or \
             _batch_block(ctx, x):
         return x
-    return C.gather(data, x, 0, partial=False)
+    for ax in reversed(axes):
+        x = C.gather(ax, x, 0, partial=False)
+    return x
 
 
 @impl("embed_gather")
@@ -540,51 +564,53 @@ def _attn_cfg(node):
 
 
 def _local_heads(ctx, node):
-    """``(model axis, local query heads, first / count of the KV heads the
-    rank's query heads read)``; the axis None on one device."""
+    """``(model axis, (lo, hi), (klo, khi, index))``: the rank's query
+    heads (``A.head_block``), the KV heads they read and how they group
+    over them (``A.kv_heads_read``); the axis None and every head on one
+    device."""
     h, k, d = _attn_cfg(node)
     model = ctx.axis("model")
     if model is None:
-        return None, h, 0, k
-    m, r = int(model.world), int(model.rank)
-    if h % m:
-        raise ValueError(f"{h} query heads do not divide over the model "
-                         f"axis ({m} ranks)")
-    hl, g = h // m, h // k
-    if hl % g and g % hl:
-        raise ValueError(f"a rank's {hl} query heads straddle the {k} KV "
-                         f"groups of {g} heads")
-    lo = r * hl // g
-    return model, hl, lo, (r * hl + hl - 1) // g + 1 - lo
+        return None, (0, h), (0, k, None)
+    lo, hi = A.head_block(h, int(model.world), int(model.rank))
+    return model, (lo, hi), A.kv_heads_read(h, k, lo, hi)
 
 
-def _kv_weights(ctx, model, p, k, d, lo, kl):
-    """``wk`` / ``wv`` of the KV heads ``[lo, lo + kl)``.  They are stored
-    cut over ``model`` (``kv_flat``); when the KV heads divide over it the
-    rank's block is those heads, else every rank gathers the columns
+def _q_weight(model, p, d, heads):
+    """``wq``'s columns of the rank's query heads: its stored block when
+    the heads divide over ``model``, else gathered and narrowed."""
+    lo, hi = heads
+    return C.span(model, [p["wq"]], 1, lo * d, hi * d)[0]
+
+
+def _kv_weights(model, p, d, kv):
+    """``wk`` / ``wv`` of the KV heads ``[klo, khi)``.  They are stored cut
+    over ``model`` (``kv_flat``); when those heads are the rank's block
+    they are used as stored, else every rank gathers the columns
     (backward: summed over ``model``) and keeps the heads it reads."""
-    if k % int(model.world) == 0:
-        return p["wk"], p["wv"]
-    wk, wv = C.gather_leaves(model, [p["wk"], p["wv"]], [1, 1])
-    return (wk[:, lo * d:(lo + kl) * d], wv[:, lo * d:(lo + kl) * d])
+    klo, khi, _ = kv
+    return C.span(model, [p["wk"], p["wv"]], 1, klo * d, khi * d)
 
 
 @impl("q_proj_xla")
 def _i_qproj(ctx, args, node):
     h, k, d = _attn_cfg(node)
-    model, hl, _, _ = _local_heads(ctx, node)
-    return A.project_q(ctx.params_for(node), C.copy_to(model, args[0]),
-                       hl, d)
+    p = ctx.params_for(node)
+    model, heads, _ = _local_heads(ctx, node)
+    if model is not None:
+        p = {"wq": _q_weight(model, p, d, heads)}
+    return A.project_q(p, C.copy_to(model, args[0]), heads[1] - heads[0], d)
 
 
 def _kv_proj(ctx, args, node, which):
     h, k, d = _attn_cfg(node)
     p = ctx.params_for(node)
-    model, _, lo, kl = _local_heads(ctx, node)
+    model, _, kv = _local_heads(ctx, node)
     if model is not None:
-        wk, wv = _kv_weights(ctx, model, p, k, d, lo, kl)
+        wk, wv = _kv_weights(model, p, d, kv)
         p = {"wk": wk, "wv": wv}
-    return A.project_kv(p, C.copy_to(model, args[0]), kl, d)[which]
+    out = A.project_kv(p, C.copy_to(model, args[0]), kv[1] - kv[0], d)
+    return A.expand_heads(out[which], kv[2])
 
 
 @impl("k_proj_xla")
@@ -608,11 +634,13 @@ def _i_qkv_fused(ctx, args, node):
     column-parallel: the rank's query heads and the KV heads they read."""
     h, k, d = _attn_cfg(node)
     p = ctx.params_for(node)
-    model, hl, lo, kl = _local_heads(ctx, node)
+    model, heads, kv = _local_heads(ctx, node)
     if model is not None:
-        wk, wv = _kv_weights(ctx, model, p, k, d, lo, kl)
-        p = {"wq": p["wq"], "wk": wk, "wv": wv}
-    return A.project_qkv_fused(p, C.copy_to(model, args[0]), hl, kl, d)
+        wk, wv = _kv_weights(model, p, d, kv)
+        p = {"wq": _q_weight(model, p, d, heads), "wk": wk, "wv": wv}
+    q, kk, vv = A.project_qkv_fused(p, C.copy_to(model, args[0]),
+                                    heads[1] - heads[0], kv[1] - kv[0], d)
+    return q, A.expand_heads(kk, kv[2]), A.expand_heads(vv, kv[2])
 
 
 def _prep(ctx, node, q, k):
@@ -668,12 +696,25 @@ def _i_flash(ctx, args, node):
                         window=node.attrs.get("window", 0) or 0)
 
 
+def _o_weight(model, p, d, heads):
+    """``wo``'s rows of the rank's query heads (stored, or gathered and
+    narrowed as :func:`_q_weight`)."""
+    lo, hi = heads
+    return C.span(model, [p["wo"]], 0, lo * d, hi * d)[0]
+
+
 @impl("out_proj_xla")
 def _i_outproj(ctx, args, node):
     """Row-parallel on a ``model`` axis: the rank's heads against its rows
-    of ``wo``, summed over ``model``."""
-    return C.reduce_from(ctx.axis("model"),
-                         A.out_project(ctx.params_for(node), args[0]))
+    of ``wo``, summed over ``model``.  The node carries no head count: it
+    is the rank's stored rows times the axis over the head size."""
+    p = ctx.params_for(node)
+    model = ctx.axis("model")
+    if model is not None:
+        m, d = int(model.world), args[0].shape[-1]
+        heads = A.head_block(p["wo"].shape[0] * m // d, m, int(model.rank))
+        p = {"wo": _o_weight(model, p, d, heads)}
+    return C.reduce_from(model, A.out_project(p, args[0]))
 
 
 @impl("cross_attention_xla")
@@ -689,15 +730,17 @@ def _i_xattn(ctx, args, node):
     x, mem = args
     p = ctx.params_for(node)
     h, k, d = _attn_cfg(node)
-    model, hl, lo, kl = None, h, 0, k
+    model, heads, kv = None, (0, h), (0, k, None)
     if getattr(ctx, "mesh", None) is not None:   # else one device (also
-        model, hl, lo, kl = _local_heads(ctx, node)  # a bare context)
+        model, heads, kv = _local_heads(ctx, node)   # a bare context)
         mem = _rank_rows(ctx, mem)
     if model is not None:
-        wk, wv = _kv_weights(ctx, model, p, k, d, lo, kl)
-        p = {**p, "wk": wk, "wv": wv}
-    q = A.project_q(p, C.copy_to(model, x), hl, d)
-    kk, vv = A.project_kv(p, C.copy_to(model, mem), kl, d)
+        wk, wv = _kv_weights(model, p, d, kv)
+        p = {"wq": _q_weight(model, p, d, heads), "wk": wk, "wv": wv,
+             "wo": _o_weight(model, p, d, heads)}
+    q = A.project_q(p, C.copy_to(model, x), heads[1] - heads[0], d)
+    kk, vv = (A.expand_heads(t, kv[2]) for t in A.project_kv(
+        p, C.copy_to(model, mem), kv[1] - kv[0], d))
     return C.reduce_from(model, A.out_project(
         p, A.sdpa_full(q, kk, vv, causal=False)))
 
@@ -841,8 +884,8 @@ def _i_xent(ctx, args, node):
     max and the sum over ``model``, the gold logit comes from the rank
     holding its column, and the mean is over the global batch (sums over
     ``data``), so every rank holds the whole loss."""
-    model, data = ctx.axis("model"), ctx.axis("data")
-    if model is None and data is None:
+    model = ctx.axis("model")
+    if model is None and not _batch_axes(ctx):
         return E.softmax_xent(args[0], args[1])
     logits, labels = args
     valid = labels != -100
@@ -863,10 +906,11 @@ def _i_xent(ctx, args, node):
             inside, gold[..., 0], torch.zeros((), dtype=logits.dtype,
                                               device=logits.device)))
     weight = valid.to(logits.dtype)
-    total = C.reduce_from(data, (logz - gold).mul(weight).sum())
+    total = (logz - gold).mul(weight).sum()
     count = weight.sum()
-    if data is not None:
-        count = data.all_reduce(count)
+    for ax in _batch_axes(ctx):
+        total = C.reduce_from(ax, total)
+        count = ax.all_reduce(count)
     return total / count.clamp(min=1.0)
 
 
@@ -943,7 +987,7 @@ def _layer_context(ctx, node, i, aux=None):
     again for the recompute, and freed after either)."""
     p_stack, sh_stack = ctx.local_params_for(node)
     scope = layer_slice(p_stack, i)
-    sh = _layer_shardings(sh_stack)
+    sh = layer_shardings(sh_stack)
     if sh is not None:
         scope = gather_params(ctx, scope, sh)
     return replace(ctx, scope=scope, sh_scope=sh, gathered=sh is not None,
@@ -1162,12 +1206,14 @@ def _mesh_size(mesh) -> int:
 
 
 def _model_cut_dims(n) -> list:
-    """``(dim name, size)`` of each dim node ``n`` cuts over ``model``:
-    query heads of every attention, the rwkv heads and ffn, the mamba
-    heads and its in-projection's and conv's concatenated widths."""
+    """``(dim name, size)`` of each stored dim node ``n`` cuts over
+    ``model``: the query heads' width of every attention and of the rwkv
+    time mix (their head counts may not divide: ``A.head_block``), the
+    rwkv ffn, the mamba heads and its in-projection's and conv's
+    concatenated widths."""
     a = n.attrs
     if n.impl in ("wkv6_pallas", "wkv6_scan_xla"):
-        return [("heads", a["heads"])]
+        return [("heads_flat", a["heads"] * a["head_dim"])]
     if n.impl == "rwkv_channel_mix":
         return [("ffn", a["ffn"])]
     if n.impl in ("ssd_pallas", "ssd_chunked_xla"):
@@ -1176,7 +1222,7 @@ def _model_cut_dims(n) -> list:
                 ("inner_cat", 2 * ei + 2 * a["state"] + a["heads"]),
                 ("inner_cat2", ei + 2 * a["state"])]
     if "kv_heads" in a and "heads" in a:
-        return [("heads", a["heads"])]
+        return [("heads_flat", a["heads"] * a["head_dim"])]
     return []
 
 

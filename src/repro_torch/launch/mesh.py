@@ -26,10 +26,14 @@ shape with no process behind it: :func:`make_production_mesh` (the
 reference's (16, 16) and (2, 16, 16)) and :func:`make_cpu_mesh` give one,
 so shard shapes at 512 ranks are reckoned without starting any.
 :class:`RankMesh` is a live (data, model) mesh over a world's ranks
-(:func:`make_rank_mesh`): this rank's coordinates and the ``data`` and
-``model`` sub-groups, each a :class:`DataMesh` over the ranks that differ
-along that axis only, with its collectives (host-staged, counted; the
-layers' autograd forms are ``core/collectives.py``).  The reference's
+(:func:`make_rank_mesh`), with a ``pod`` axis before them for more than
+one pod: this rank's coordinates and one sub-group per axis, each a
+:class:`DataMesh` over the ranks that differ along that axis only, with
+its collectives (host-staged, counted; the layers' autograd forms are
+``core/collectives.py``).  :func:`placeholder_rank_mesh` is a rank with
+no world behind it (the dry run, ``launch/dryrun.py``): its axes are
+:class:`PlaceholderAxis` records whose collectives return tensors of the
+right shapes, move nothing and count as a live rank's do.  The reference's
 helpers follow it: :func:`syscat_for_mesh`, :func:`data_spec`,
 :func:`data_axis_size`, :func:`input_shardings` and
 :func:`state_shardings` (``core.executor.Sharding`` records: spec, shard
@@ -270,16 +274,18 @@ def make_cpu_mesh(n_data: int = 1, n_model: int = 1) -> MeshLayout:
 
 
 class RankMesh:
-    """A live (data, model) mesh over the first ``data x model`` ranks of a
-    world: rank ``d * model + m`` sits at coordinates ``(d, m)``.
-    ``axis(name)`` is this rank's sub-group along ``name`` (a
-    :class:`DataMesh` whose ``rank`` is the coordinate and ``world`` the
-    axis size; an axis of one rank has no group and is never called).
-    ``stats`` counts every collective by axis (``data.all_gather_bytes``,
-    ``model.all_reduce_calls``, ...) and the staged host bytes."""
+    """A live mesh over the first ``pod x data x model`` ranks of a world:
+    rank ``(p * data + d) * model + m`` sits at coordinates ``(p, d, m)``
+    (no ``pod`` axis when there is one pod).  ``axis(name)`` is this rank's
+    sub-group along ``name`` (a :class:`DataMesh` whose ``rank`` is the
+    coordinate and ``world`` the axis size; an axis of one rank has no
+    group and is never called).  The batch is cut over ``(pod, data)``,
+    FSDP over ``data`` alone, and every gradient is also summed over
+    ``pod``.  ``stats`` counts every collective by axis
+    (``data.all_gather_bytes``, ``model.all_reduce_calls``, ...) and the
+    staged host bytes."""
 
-    def __init__(self, world: DataMesh, layout: MeshLayout, coords: dict,
-                 axes: dict):
+    def __init__(self, world, layout: MeshLayout, coords: dict, axes: dict):
         self.world = world
         self.layout = layout
         self.coords = coords
@@ -312,35 +318,90 @@ class RankMesh:
         self.world.barrier()
 
 
-def make_rank_mesh(world: DataMesh, n_data: int, n_model: int):
-    """The ``n_data x n_model`` :class:`RankMesh` over the first ranks of
-    ``world`` (the :class:`DataMesh` of every rank).  Every rank of the
-    world calls it (it makes the sub-groups); a rank past the mesh gets
-    None."""
-    n_data, n_model = int(n_data), int(n_model)
-    if n_data * n_model > world.world:
-        raise ValueError(f"a {n_data} x {n_model} mesh needs "
-                         f"{n_data * n_model} ranks; the world has "
+def make_rank_mesh(world: DataMesh, n_data: int, n_model: int,
+                   n_pod: int = 1):
+    """The ``n_pod x n_data x n_model`` :class:`RankMesh` over the first
+    ranks of ``world`` (the :class:`DataMesh` of every rank); with one pod
+    the layout is ``(data, model)``.  Every rank of the world calls it (it
+    makes the sub-groups, in one order on every rank); a rank past the
+    mesh gets None."""
+    sizes = {"pod": int(n_pod), "data": int(n_data), "model": int(n_model)}
+    names = ("pod", "data", "model") if sizes["pod"] > 1 \
+        else ("data", "model")
+    total = int(np.prod([sizes[a] for a in names]))
+    if total > world.world:
+        raise ValueError(f"a {' x '.join(str(sizes[a]) for a in names)} "
+                         f"mesh needs {total} ranks; the world has "
                          f"{world.world}")
     me = world.rank
-    groups = {"data": None, "model": None}
-    for d in range(n_data):
-        ranks = [d * n_model + m for m in range(n_model)]
-        g = dist.new_group(ranks) if n_model > 1 else None
-        if me in ranks:
-            groups["model"] = g
-    for m in range(n_model):
-        ranks = [d * n_model + m for d in range(n_data)]
-        g = dist.new_group(ranks) if n_data > 1 else None
-        if me in ranks:
-            groups["data"] = g
-    if me >= n_data * n_model:
+    strides = {"model": 1, "data": sizes["model"],
+               "pod": sizes["model"] * sizes["data"]}
+    groups = {}
+    for a in names:
+        others = [b for b in names if b != a]
+        for base in sorted({sum(((r // strides[b]) % sizes[b]) * strides[b]
+                                for b in others) for r in range(total)}):
+            ranks = [base + i * strides[a] for i in range(sizes[a])]
+            g = dist.new_group(ranks) if sizes[a] > 1 else None
+            if me in ranks:
+                groups[a] = g
+    if me >= total:
         return None
-    coords = {"data": me // n_model, "model": me % n_model}
-    sizes = {"data": n_data, "model": n_model}
+    coords = {a: (me // strides[a]) % sizes[a] for a in names}
     axes = {a: DataMesh(groups[a], coords[a], sizes[a], world.device)
-            for a in ("data", "model")}
-    return RankMesh(world, MeshLayout((n_data, n_model)), coords, axes)
+            for a in names}
+    layout = MeshLayout(tuple(sizes[a] for a in names), names)
+    return RankMesh(world, layout, coords, axes)
+
+
+@dataclass
+class PlaceholderAxis:
+    """An axis of a rank that runs without a world (the dry run): the
+    coordinate ``rank`` and the axis size ``world``, no process group.  Its
+    collectives take and return meta tensors (a new one of the right shape
+    and dtype) and move no data; each is counted under the keys
+    :class:`DataMesh` uses (nothing is staged)."""
+
+    rank: int
+    world: int
+    device: torch.device
+    stats: Counter = field(default_factory=Counter)
+
+    group = None
+    _note = DataMesh._note
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        self._note("all_reduce", t)
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        self._note("all_gather", t)
+        return t.new_empty((self.world * t.shape[0],) + tuple(t.shape[1:]))
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        self._note("all_to_all", t)
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+    def barrier(self):
+        pass
+
+
+def placeholder_rank_mesh(layout: MeshLayout, coords=None) -> RankMesh:
+    """A :class:`RankMesh` of ``layout`` for one rank that runs without a
+    world (coordinates ``coords``, 0 on every axis by default) on the meta
+    device: every axis a :class:`PlaceholderAxis`.  A step traced on it
+    calls and counts the collectives a live rank at those coordinates
+    would."""
+    coords = {a: int((coords or {}).get(a, 0)) for a in layout.axis_names}
+    dev = torch.device("meta")
+    sizes = layout.shape
+    linear = 0
+    for a in layout.axis_names:
+        linear = linear * int(sizes[a]) + coords[a]
+    axes = {a: PlaceholderAxis(coords[a], int(sizes[a]), dev)
+            for a in layout.axis_names}
+    return RankMesh(PlaceholderAxis(linear, layout.size, dev), layout,
+                    coords, axes)
 
 
 def data_spec(mesh) -> tuple:

@@ -52,6 +52,46 @@ def attention_specs(cfg_attn) -> dict:
 
 
 # --------------------------------------------------------------------------
+# heads on a model axis
+# --------------------------------------------------------------------------
+
+def head_block(h: int, m: int, r: int) -> tuple:
+    """Rank ``r``'s query heads ``[lo, hi)`` of ``h`` over ``m`` ranks:
+    ``h / m`` each when ``m`` divides ``h``, else the first ``h mod m``
+    ranks take one head more (rank 0 holds a largest block).  Refuses
+    fewer heads than ranks."""
+    if h < m:
+        raise ValueError(f"{h} heads are fewer than the {m} ranks of the "
+                         f"model axis")
+    f, rem = divmod(h, m)
+    lo = r * f + min(r, rem)
+    return lo, lo + f + (r < rem)
+
+
+def kv_heads_read(h: int, k: int, lo: int, hi: int) -> tuple:
+    """``(klo, khi, index)``: the KV heads ``[klo, khi)`` that query heads
+    ``[lo, hi)`` read (``h / k`` query heads a group), and ``index`` None
+    when the query heads group over them in order (GQA), else the KV head
+    (relative to ``klo``) of each query head: the K/V must then be
+    expanded to one head per query head."""
+    g = h // k
+    klo, khi = lo // g, (hi - 1) // g + 1
+    hl, kl = hi - lo, khi - klo
+    rel = [i // g - klo for i in range(lo, hi)]
+    if hl % kl == 0 and rel == [j // (hl // kl) for j in range(hl)]:
+        return klo, khi, None
+    return klo, khi, rel
+
+
+def expand_heads(x, index):
+    """``x`` (B, S, K, D) with its heads taken as ``index`` lists them (None:
+    ``x`` itself)."""
+    if index is None:
+        return x
+    return x[:, :, torch.tensor(index, device=x.device)]
+
+
+# --------------------------------------------------------------------------
 # projections
 # --------------------------------------------------------------------------
 

@@ -116,29 +116,65 @@ def _rank_heads(p, x, cfg, axis):
     return p, x, z, xin, bmat, cmat, dt, conv, hl
 
 
+def _decode_heads(p, x, cfg, conv_state, axis):
+    """The rank's part of a decode step's in-projection and conv on
+    ``axis``: ``conv_state`` (B, K-1, C) holds the conv inputs of all C
+    channels or (B, K-1, C/m) the rank's contiguous block of them (the
+    cache's layout, which does not follow the heads).  The conv is
+    depthwise, so the rank computes the new conv inputs of every channel
+    from the gathered ``w_in`` (a token a row), gathers a cut conv state
+    over ``axis``, convolves every channel, keeps the ones its heads read
+    (their ``x``, all of ``B`` and ``C``) and its block of the new conv
+    state.  Returns ``(p, z, xin, bmat, cmat, dt, new conv state, local
+    heads)`` with the per-head leaves cut to the rank's heads."""
+    _, n, ei, pdim, h = _dims(cfg)
+    r = int(axis.rank)
+    hl = h // int(axis.world)
+    lo, hi = r * hl * pdim, (r + 1) * hl * pdim
+    heads = slice(r * hl, (r + 1) * hl)
+    w_in, conv = C.gather_leaves(axis, [p["w_in"], p["conv"]], [1, 1])
+    w_in = w_in.to(x.dtype)
+    z = torch.matmul(x, w_in[:, lo:hi])
+    dt = torch.matmul(x, w_in[:, 2 * ei + 2 * n:][:, heads])
+    xbc = torch.matmul(x, w_in[:, ei:2 * ei + 2 * n])        # every channel
+    cb = conv_state.shape[-1]
+    whole = cb == ei + 2 * n
+    old = conv_state if whole else C.gather(axis, conv_state.contiguous(),
+                                            2, partial=False)
+    conv_out, new_conv = _causal_conv(xbc, conv.to(x.dtype), old)
+    xin, bmat, cmat = torch.split(conv_out, [ei, n, n], dim=-1)
+    if not whole:
+        new_conv = new_conv[..., r * cb:(r + 1) * cb]
+    p = {**p, **{k: p[k][heads] for k in ("a_log", "dt_bias", "d_skip")}}
+    return p, z, xin[..., lo:hi], bmat, cmat, dt, new_conv, hl
+
+
 def mamba2_block(p, x, cfg, *, use_kernel=False, state=None,
                  conv_state=None, axis=None):
     """x: (B, T, E).  Three modes: decode (``state`` given: the sequential
     recurrence from it; returns (y, new state, new conv state)), kernel
     (``use_kernel``: :func:`ssd_kernel`) and chunked (the XLA engine's
-    :func:`ssd_chunked`).  On a live ``axis`` (not in decode) the rank's
-    heads, summed over it."""
+    :func:`ssd_chunked`).  On a live ``axis`` the rank's heads, summed
+    over it (decode: :func:`_decode_heads`)."""
     b, t, _ = x.shape
-    _, n, ei, pdim, h = _dims(cfg)
+    _, n, _, pdim, h = _dims(cfg)
     decode = state is not None
 
-    if C.live(axis):
-        if decode:
-            raise NotImplementedError("mamba decode runs on one rank")
-        p, x, z, xin, bmat, cmat, dt, conv, h = _rank_heads(p, x, cfg, axis)
-        ei = h * pdim
+    if decode and C.live(axis):
+        p, z, xin, bmat, cmat, dt, new_conv, h = _decode_heads(
+            p, x, cfg, conv_state, axis)
     else:
-        zxbcdt = torch.matmul(x, p["w_in"].to(x.dtype))
-        z, xin, bmat, cmat, dt = _split(cfg, zxbcdt)
-        conv = p["conv"].to(x.dtype)
-    conv_in = torch.cat([xin, bmat, cmat], dim=-1)
-    conv_out, new_conv = _causal_conv(conv_in, conv, conv_state)
-    xin, bmat, cmat = torch.split(conv_out, [ei, n, n], dim=-1)
+        if C.live(axis):
+            p, x, z, xin, bmat, cmat, dt, conv, h = _rank_heads(
+                p, x, cfg, axis)
+        else:
+            zxbcdt = torch.matmul(x, p["w_in"].to(x.dtype))
+            z, xin, bmat, cmat, dt = _split(cfg, zxbcdt)
+            conv = p["conv"].to(x.dtype)
+        conv_in = torch.cat([xin, bmat, cmat], dim=-1)
+        conv_out, new_conv = _causal_conv(conv_in, conv, conv_state)
+        xin, bmat, cmat = torch.split(conv_out, [h * pdim, n, n], dim=-1)
+    ei = h * pdim
 
     dt = F_.softplus(dt.float() + p["dt_bias"].float())          # (B, T, H)
     a = torch.exp(-dt * torch.exp(p["a_log"].float()))           # (B, T, H)
@@ -157,7 +193,7 @@ def mamba2_block(p, x, cfg, *, use_kernel=False, state=None,
 
     y = y + xh * p["d_skip"].to(xh.dtype)[None, None, :, None]
     y = y.reshape(b, t, ei) * F_.silu(z)
-    out = torch.matmul(y, p["w_out"].to(x.dtype))
+    out = C.reduce_from(axis, torch.matmul(y, p["w_out"].to(x.dtype)))
     if decode:
         return out, new_state, new_conv
-    return C.reduce_from(axis, out)
+    return out

@@ -11,7 +11,9 @@ embedding with ``ln_scale``.
 
 On a ``model`` axis (``axis``: a rank mesh's sub-group, the reference's
 GSPMD layout written out) the time mix runs the rank's ``heads / model``
-heads: ``wr`` / ``wk`` / ``wv`` / ``wg`` column-parallel on the rank's
+heads (``attention.head_block``: when they do not divide, the first
+ranks take one more and the projections are gathered and narrowed to
+them): ``wr`` / ``wk`` / ``wv`` / ``wg`` column-parallel on the rank's
 stored columns, ``wo`` row-parallel with a sum over ``model``, the
 decay LoRA's hidden whole on every rank and the rank's columns of ``wB``
 and ``w0``, its heads of ``u``, and the head-merge norm's sum of squares
@@ -29,6 +31,7 @@ import torch.nn.functional as F_
 from ..core import collectives as C
 from ..kernels.wkv6 import wkv6 as wkv6_kernel
 from ..kernels.wkv6 import wkv6_chunked, wkv6_reference
+from .attention import head_block
 from .common import he_init, rmsnorm
 
 LORA_RANK = 64
@@ -85,17 +88,23 @@ def _whole_over(axis, p, names):
 
 
 def _rank_heads(p, x, axis, heads, head_dim):
-    """The time mix's view of the rank's heads: the input and the leaves
-    that are whole over ``axis`` through ``copy_to`` (their gradients are
-    partial sums), ``w0`` / ``wB`` / ``ln_scale`` cut to the rank's
-    columns and ``u`` to its heads.  Returns ``(p, x, local heads)``."""
-    m, r = int(axis.world), int(axis.rank)
-    hl = heads // m
-    lo, hi = r * hl * head_dim, (r + 1) * hl * head_dim
+    """The time mix's view of the rank's heads (``head_block``: ``heads /
+    model`` each, or one more on the first ranks when they do not
+    divide): the input and the leaves that are whole over ``axis`` through
+    ``copy_to`` (their gradients are partial sums), ``w0`` / ``wB`` /
+    ``ln_scale`` cut to the rank's columns and ``u`` to its heads, the
+    projections' columns and ``wo``'s rows the rank's (stored, or
+    gathered and narrowed when the heads do not divide).  Returns ``(p,
+    x, local heads)``."""
+    hlo, hhi = head_block(heads, int(axis.world), int(axis.rank))
+    lo, hi = hlo * head_dim, hhi * head_dim
+    proj = C.span(axis, [p[k] for k in ("wr", "wk", "wv", "wg")], 1, lo, hi)
+    wo = C.span(axis, [p["wo"]], 0, lo, hi)[0]
     p = _whole_over(axis, p, ("mu", "wA", "wB", "w0", "u", "ln_scale"))
-    p.update(wB=p["wB"][:, lo:hi], w0=p["w0"][lo:hi],
-             ln_scale=p["ln_scale"][lo:hi], u=p["u"][r * hl:(r + 1) * hl])
-    return p, C.copy_to(axis, x), hl
+    p.update(zip(("wr", "wk", "wv", "wg"), proj), wo=wo,
+             wB=p["wB"][:, lo:hi], w0=p["w0"][lo:hi],
+             ln_scale=p["ln_scale"][lo:hi], u=p["u"][hlo:hhi])
+    return p, C.copy_to(axis, x), hhi - hlo
 
 
 def rwkv_time_mix(p, x, *, heads, head_dim, use_kernel=False, last_x=None,
@@ -103,13 +112,12 @@ def rwkv_time_mix(p, x, *, heads, head_dim, use_kernel=False, last_x=None,
     """x: (B, T, E).  Three modes: decode (``state`` and ``last_x`` given:
     the sequential recurrence from ``state``; returns (y, new last_x, new
     state)), kernel (``use_kernel``: :func:`wkv6_kernel`) and chunked (the
-    XLA engine's :func:`wkv6_chunked`).  On a live ``axis`` (not in
-    decode) the rank's heads of the global ``heads``, summed over it."""
+    XLA engine's :func:`wkv6_chunked`).  On a live ``axis`` the rank's
+    heads of the global ``heads``, summed over it (in decode ``state``
+    holds the rank's heads)."""
     b, t, e = x.shape
     decode = state is not None
     if C.live(axis):
-        if decode:
-            raise NotImplementedError("rwkv decode runs on one rank")
         p, x, heads = _rank_heads(p, x, axis, heads, head_dim)
     xs = _shifted(x, last_x if decode else None)
     mu = p["mu"].to(x.dtype)
@@ -138,10 +146,10 @@ def rwkv_time_mix(p, x, *, heads, head_dim, use_kernel=False, last_x=None,
     y = rmsnorm(y.reshape(b, t, heads * head_dim), p["ln_scale"],
                 axis=axis, width=e)                     # head-merge norm
     y = y * F_.silu(g)
-    out = torch.matmul(y, p["wo"].to(x.dtype))
+    out = C.reduce_from(axis, torch.matmul(y, p["wo"].to(x.dtype)))
     if decode:
         return out, x[:, -1], new_state
-    return C.reduce_from(axis, out)
+    return out
 
 
 def init_rwkv_channel_mix(gen, cfg, dtype=torch.float32):
@@ -166,8 +174,6 @@ def rwkv_channel_mix(p, x, last_x=None, axis=None):
     returns (y, new last_x).  On a live ``axis`` the rank's ffn columns,
     gated by the whole receptance, summed over it."""
     if C.live(axis):
-        if last_x is not None:
-            raise NotImplementedError("rwkv decode runs on one rank")
         p = _whole_over(axis, p, ("wr", "mu"))
         x = C.copy_to(axis, x)
     xs = _shifted(x, last_x)
@@ -176,7 +182,8 @@ def rwkv_channel_mix(p, x, last_x=None, axis=None):
     xr = x + mu[1] * (xs - x)
     k = torch.square(F_.relu(torch.matmul(xk, p["wk"].to(x.dtype))))
     kv = torch.matmul(k, p["wv"].to(x.dtype))
-    out = torch.sigmoid(torch.matmul(xr, p["wr"].to(x.dtype))) * kv
+    out = C.reduce_from(axis, torch.sigmoid(torch.matmul(
+        xr, p["wr"].to(x.dtype))) * kv)
     if last_x is not None:
         return out, x[:, -1]
-    return C.reduce_from(axis, out)
+    return out

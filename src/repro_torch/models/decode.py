@@ -23,6 +23,11 @@ int8 K/V with per-(position, head) bfloat16 abs-max scales ``b{i}_ksc`` /
 up to that count.  The decode step reads each layer's slot count off its
 own leaf, so ring and full-length leaves mix in one step.
 
+On a rank mesh (``mesh=``, a ``launch.mesh.RankMesh``) the step runs on
+the rank's blocks of the parameters (their ``Sharding`` tree), of the
+cache (:func:`cache_shardings`, the reference's ``dryrun.cache_shardings``)
+and of the rows: :func:`decode_step_batched` documents the layout.
+
 The encdec family decodes as the reference does: the encoder's groups are
 skipped (their K/V leaves exist and stay untouched), and each decoder
 block attends over its cross leaves under an all-valid mask.  Nothing
@@ -32,10 +37,14 @@ feature neither package has (ROADMAP §1).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from ..configs.base import ModelConfig
-from ..core.executor import resolve_device
+from ..core import collectives as C
+from ..core.executor import (Sharding, gather_params, layer_shardings,
+                             resolve_device)
 from ..layers import attention as A
 from ..layers import embedding as E
 from ..layers import mamba as M
@@ -58,7 +67,8 @@ def init_cache(model: LM, batch: int, max_seq: int, *, device=None,
                ring_local: bool = False, kv_repeat_to: int = 0,
                quantize_kv: bool = False) -> dict:
     """Zeroed caches for every block, on ``device`` (the card unless the
-    caller names another): K/V for attention blocks (a ring of ``window``
+    caller names another; ``"meta"`` gives the shapes and dtypes alone):
+    K/V for attention blocks (a ring of ``window``
     slots for a sliding-window layer under ``ring_local``; int8 with
     bfloat16 scales under ``quantize_kv``; ``kv_repeat_to`` heads where
     that is more than the model's), the recurrent leaves for rwkv and
@@ -113,119 +123,61 @@ def init_cache(model: LM, batch: int, max_seq: int, *, device=None,
     return cache
 
 
+def batch_spec(mesh, batch: int):
+    """The axes a cache's or a decode batch's rows are cut over: ``(pod,
+    data)`` when they divide the batch, else None (whole on every rank,
+    as the reference's ``_batch_axes``)."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    n = 1
+    for a in axes:
+        n *= int(mesh.shape[a])
+    if not axes or batch % n:
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def cache_shardings(mesh, model: LM, cache: dict, shape) -> dict:
+    """The reference's rule for the decode caches (``dryrun.py``'s
+    ``cache_shardings``), a tree of ``Sharding`` keyed as ``cache`` (global
+    leaves, meta tensors will do): the batch over ``(pod, data)`` when it
+    divides ``shape.global_batch``, else whole; the K/V heads of ``_k`` /
+    ``_v`` / ``_xk`` / ``_xv`` (count, B, S, KV, D) over ``model`` when
+    they divide, else replicated; a recurrent ``_state``'s heads (dim 2)
+    and a ``_conv``'s channels (dim 3) over ``model`` when they divide.
+    Every other leaf (int8 scales, rwkv ``_last_*``) is cut on its batch
+    only."""
+    bspec = batch_spec(mesh, int(shape.global_batch))
+    m = int(mesh.shape.get("model", 1))
+
+    def one(name, leaf):
+        r = leaf.dim()
+        spec = [None] * r
+        if r >= 2:
+            spec[1] = bspec
+        key = name.rsplit(".", 1)[-1]
+        if key.endswith(("_k", "_v", "_xk", "_xv")) and r == 5:
+            if leaf.shape[3] % m == 0:
+                spec[3] = "model"
+        elif key.endswith("_state") and r >= 4:
+            if leaf.shape[2] % m == 0:
+                spec[2] = "model"
+        elif key.endswith("_conv") and r == 4:
+            if leaf.shape[3] % m == 0:
+                spec[3] = "model"
+        return Sharding(mesh, tuple(spec), name)
+
+    return {g: {k: one(f"{g}.{k}", v) for k, v in gc.items()}
+            for g, gc in cache.items()}
+
+
 # --------------------------------------------------------------------------
 # single-token decode
 # --------------------------------------------------------------------------
 
-def _decode_attn(p, x, ck, cv, cfg: ModelConfig, window: int, step: dict,
-                 *, ring: bool = False, ksc=None, vsc=None):
-    """x: (B, 1, E); ck/cv: one layer's (B, S, KV, D) cache, written in
-    place at each row's own position ``step["pos"]`` — at slot ``pos % S``
-    in a ring (``ring``), which holds the last S positions and needs no
-    window mask.  With int8 caches, ``ksc`` / ``vsc`` (B, S, KV, 1) take
-    the new entries' scales at the same slot.  S is this layer's own, read
-    off its leaf: a ring and a full-length layer may share the step."""
-    h, kvh, d = _attn_dims(cfg)
-    q = A.project_q(p, x, h, d)
-    k, v = A.project_kv(p, x, kvh, d)
-    if cfg.qk_norm and "q_norm" in p:
-        q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
-    q = rope_apply(q, step["cos"], step["sin"])
-    k = rope_apply(k, step["cos"], step["sin"])
-    if ck.shape[2] > kvh:                   # a replicated-KV cache
-        reps = ck.shape[2] // kvh
-        k = k.repeat_interleave(reps, dim=2)
-        v = v.repeat_interleave(reps, dim=2)
-    rows, pos = step["rows"], step["pos"]
-    s_alloc = ck.shape[1]
-    slot = pos % s_alloc if ring else pos
-    if ksc is not None:
-        k, k_s = A.quantize_kv(k)
-        v, v_s = A.quantize_kv(v)
-        ksc[rows, slot] = k_s[:, 0]
-        vsc[rows, slot] = v_s[:, 0]
-    ck[rows, slot] = k[:, 0].to(ck.dtype)
-    cv[rows, slot] = v[:, 0].to(cv.dtype)
-    keys = step["keys"][s_alloc]
-    valid = keys[None, :] < (pos + 1).clamp(max=s_alloc)[:, None]
-    if window and window > 0 and not ring:
-        valid = valid & (keys[None, :] > (pos - window)[:, None])
-    return A.out_project(p, A.decode_attend_gqa(q, ck, cv, valid,
-                                                k_scale=ksc, v_scale=vsc))
-
-
-def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, root, x, lc,
-                  step, ring_local: bool = False):
-    """One block of the decode step.  ``p`` holds the layer's parameters,
-    ``root`` the whole tree (the hybrid's shared attention reads
-    ``root["shared"]``); ``lc`` the layer's cache leaves, each written in
-    place.  Under ``ring_local`` a windowed block whose leaf holds exactly
-    ``window`` slots decodes as a ring, as the reference decides.  A cross
-    block attends over its cross leaves, which it reads and never
-    writes."""
-    pre = f"b{i}"
-    if blk.kind in ("attn_mlp", "attn_moe"):
-        h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
-        ring = bool(ring_local and blk.window
-                    and lc[f"{pre}_k"].shape[1] == blk.window)
-        x = x + _decode_attn(p[f"{pre}_attn"], h, lc[f"{pre}_k"],
-                             lc[f"{pre}_v"], cfg, blk.window, step,
-                             ring=ring, ksc=lc.get(f"{pre}_ksc"),
-                             vsc=lc.get(f"{pre}_vsc"))
-        if blk.cross:
-            xp, xk = p[f"{pre}_xattn"], lc[f"{pre}_xk"]
-            hq = A.project_q(xp, rmsnorm(x, p[f"{pre}_lnx"]["scale"]),
-                             cfg.heads, cfg.resolved_head_dim)
-            valid = torch.ones((x.shape[0], xk.shape[1]), dtype=torch.bool,
-                               device=x.device)
-            x = x + A.out_project(xp, A.decode_attend_gqa(
-                hq, xk, lc[f"{pre}_xv"], valid))
-        h = rmsnorm(x, p[f"{pre}_ln2"]["scale"])
-        if blk.kind == "attn_moe":
-            # capacity dispatch at s = 1: cap 8 a row, never drops
-            return x + X.moe_dense(p[f"{pre}_moe"], h, top_k=cfg.top_k,
-                                   experts=cfg.experts, act=cfg.act)
-        return x + F.mlp_fused(p[f"{pre}_mlp"], h, gated=cfg.gated,
-                               act=cfg.act)
-    if blk.kind == "rwkv":
-        h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
-        tm, last, st = R.rwkv_time_mix(
-            p[f"{pre}_tm"], h, heads=cfg.heads,
-            head_dim=cfg.resolved_head_dim, last_x=lc[f"{pre}_last_tm"],
-            state=lc[f"{pre}_state"])
-        lc[f"{pre}_last_tm"].copy_(last)
-        lc[f"{pre}_state"].copy_(st)
-        x = x + tm
-        h = rmsnorm(x, p[f"{pre}_ln2"]["scale"])
-        cm, last_cm = R.rwkv_channel_mix(p[f"{pre}_cm"], h,
-                                         last_x=lc[f"{pre}_last_cm"])
-        lc[f"{pre}_last_cm"].copy_(last_cm)
-        return x + cm
-    if blk.kind in ("mamba", "shared_attn"):
-        h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
-        mb, st, conv = M.mamba2_block(p[f"{pre}_mamba"], h, _mamba_cfg(cfg),
-                                      state=lc[f"{pre}_state"],
-                                      conv_state=lc[f"{pre}_conv"])
-        lc[f"{pre}_state"].copy_(st)
-        lc[f"{pre}_conv"].copy_(conv)
-        x = x + mb
-        if blk.kind == "shared_attn":
-            sp = root["shared"]
-            h = rmsnorm(x, sp["ln1"]["scale"])
-            x = x + _decode_attn(sp["attn"], h, lc[f"{pre}_k"],
-                                 lc[f"{pre}_v"], cfg, 0, step,
-                                 ksc=lc.get(f"{pre}_ksc"),
-                                 vsc=lc.get(f"{pre}_vsc"))
-            h = rmsnorm(x, sp["ln2"]["scale"])
-            x = x + F.mlp_fused(sp["mlp"], h, gated=cfg.gated, act=cfg.act)
-        return x
-    raise ValueError(blk.kind)
-
-
 @torch.inference_mode()
 def decode_step_batched(model: LM, params, cache, tokens, indices, *,
-                        ring_local: bool = False):
+                        ring_local: bool = False, mesh=None, shardings=None,
+                        cache_sh=None):
     """Continuous-batching decode: one token per batch slot at a per-slot
     position.  tokens: (B, 1) int; indices: (B,) int — slot b decodes
     position ``indices[b]``: its K/V land there (at ``indices[b] % W`` in a
@@ -233,8 +185,36 @@ def decode_step_batched(model: LM, params, cache, tokens, indices, *,
     ``<= indices[b]``; its recurrent state advances one step.  Returns
     (logits (B, 1, V), cache), the cache updated in place.  The
     reference's ``vmap`` over ``decode_step`` becomes this batch dimension
-    written out."""
+    written out.
+
+    On a rank mesh (``mesh``, with ``shardings`` the parameters'
+    ``Sharding`` tree and ``cache_sh`` the cache's, :func:`cache_shardings`)
+    ``params``, ``cache``, ``tokens`` and ``indices`` are the rank's
+    blocks: the rows over ``(pod, data)`` when they divide, else whole.
+    Each layer's ``data`` shards are gathered before it runs (FSDP, none
+    under inference rules); over ``model`` the rank runs its query heads
+    (``attention.head_block``) and the KV heads they read, its ffn
+    columns, its experts, its rwkv / mamba heads when the recurrent state
+    is cut over ``model`` (the whole block, weights gathered, when it is
+    not), and every row-parallel output is summed over ``model``.  The
+    logits come back as the rank's vocab block (B, 1, V / model).  A mesh
+    step runs eagerly (``DecodeGraph`` is one rank's)."""
+    if mesh is not None and (shardings is None or cache_sh is None):
+        raise ValueError("a decode step on a mesh takes shardings= (the "
+                         "parameters') and cache_sh= (cache_shardings)")
     cfg = model.cfg
+    ctx = SimpleNamespace(axis=lambda name: (
+        mesh.axis(name) if mesh is not None and name in mesh.axis_names
+        and int(mesh.shape[name]) > 1 else None))
+    axis = ctx.axis("model")
+
+    def fsdp(p, sh):
+        """``p`` with its ``data`` shards gathered (FSDP; ``sh`` its
+        shardings, None on one rank)."""
+        return gather_params(ctx, p, sh) if ctx.axis("data") else p
+
+    shd = shardings or {}
+
     pos = indices.to(device=tokens.device, dtype=torch.long)
     cos, sin = rope_tables(pos[:, None], cfg.resolved_head_dim,
                            theta=cfg.rope_theta)
@@ -247,20 +227,41 @@ def decode_step_batched(model: LM, params, cache, tokens, indices, *,
             "cos": cos, "sin": sin,
             "keys": {n: torch.arange(n, device=tokens.device)
                      for n in lens}}
-    x = E.embed(params["embed"], tokens.long(),
-                scale=cfg.embed_scale).to(model.dtype)
+    emb = fsdp(params["embed"], shd.get("embed"))
+    ids = tokens.long()
+    if axis is None:
+        x = E.embed(emb, ids, scale=cfg.embed_scale).to(model.dtype)
+    else:                                   # a vocab-parallel embedding
+        rows = emb["table"].shape[0]
+        local = ids - int(axis.rank) * rows
+        inside = (local >= 0) & (local < rows)
+        x = E.embed(emb, local.clamp(0, rows - 1),
+                    scale=cfg.embed_scale).to(model.dtype)
+        x = C.reduce_from(axis, torch.where(
+            inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                              device=x.device)))
+    root = dict(params)
+    if "shared" in params:
+        root["shared"] = fsdp(params["shared"], shd.get("shared"))
     for g in model.groups:
         if g.name.startswith("enc"):
             continue
         gp, gc = params[g.name], cache[g.name]
+        lsh = layer_sh = None
+        if mesh is not None:
+            lsh = layer_shardings(cache_sh[g.name])
+            layer_sh = layer_shardings(shardings[g.name])
         for layer in range(g.count):
-            lp, lc = layer_slice(gp, layer), layer_slice(gc, layer)
+            lp = fsdp(layer_slice(gp, layer), layer_sh)
+            lc = layer_slice(gc, layer)
             for i, blk in enumerate(g.blocks):
-                x = _decode_block(cfg, blk, i, lp, params, x, lc, step,
-                                  ring_local)
-    x = rmsnorm(x, params["final_norm"]["scale"])
-    logits = E.mask_padded_logits(E.unembed(params["embed"], x), cfg.vocab)
-    return logits, cache
+                x = _decode_block(cfg, blk, i, lp, root, x, lc, step,
+                                  ring_local, axis, lsh)
+    norm = fsdp(params["final_norm"], shd.get("final_norm"))
+    x = rmsnorm(x, norm["scale"])
+    logits = E.unembed(emb, x)
+    lo = 0 if axis is None else int(axis.rank) * logits.shape[-1]
+    return E.mask_padded_logits(logits, cfg.vocab - lo), cache
 
 
 class DecodeGraph:
@@ -307,13 +308,20 @@ class DecodeGraph:
 
 
 def decode_step(model: LM, params, cache, tokens, index, *,
-                ring_local: bool = False):
-    """tokens: (B, 1) int; index: the position every row decodes.
-    Returns (logits (B, 1, V), cache), the cache updated in place."""
-    idx = torch.full((tokens.shape[0],), int(index), dtype=torch.long,
-                     device=tokens.device)
+                ring_local: bool = False, mesh=None, shardings=None,
+                cache_sh=None):
+    """tokens: (B, 1) int; index: the position every row decodes (an int
+    or a scalar tensor).  Returns (logits (B, 1, V), cache), the cache
+    updated in place; on a rank mesh as :func:`decode_step_batched`."""
+    if isinstance(index, torch.Tensor):
+        idx = index.to(device=tokens.device, dtype=torch.long).expand(
+            tokens.shape[0])
+    else:
+        idx = torch.full((tokens.shape[0],), int(index), dtype=torch.long,
+                         device=tokens.device)
     return decode_step_batched(model, params, cache, tokens, idx,
-                               ring_local=ring_local)
+                               ring_local=ring_local, mesh=mesh,
+                               shardings=shardings, cache_sh=cache_sh)
 
 
 def prefill(model: LM, params, tokens, max_seq: int, *,
@@ -366,3 +374,197 @@ def seed_cache_from_prefill(model: LM, cache, kv_groups, prompt_len: int, *,
                 else:
                     leaf[:, slot, :prompt_len] = val[:, 0]
     return cache
+
+
+# --------------------------------------------------------------------------
+# the decode step's blocks, on one rank or a rank mesh
+# --------------------------------------------------------------------------
+
+def _cut(lsh, key: str, dim: int) -> bool:
+    """Whether dim ``dim`` of the layer's cache leaf ``key`` is cut over
+    ``model`` (``lsh``: the layer's cache shardings; None on one rank)."""
+    return lsh is not None and "model" in lsh[key].axes(dim)
+
+
+def _axis_coords(axis) -> tuple:
+    """``(ranks, rank)`` of a ``model`` axis; ``(1, 0)`` for one rank."""
+    return (1, 0) if axis is None else (int(axis.world), int(axis.rank))
+
+
+def _decode_attn(p, x, ck, cv, cfg: ModelConfig, window: int, step: dict,
+                 axis=None, *, kv_cut=False, ring: bool = False, ksc=None,
+                 vsc=None):
+    """x: (B, 1, E); ck/cv: one layer's (B, S, KV, D) cache, written in
+    place at each row's own position ``step["pos"]`` — at slot ``pos % S``
+    in a ring (``ring``), which holds the last S positions and needs no
+    window mask.  With int8 caches, ``ksc`` / ``vsc`` (B, S, KV, 1) take
+    the new entries' scales at the same slot.  S is this layer's own, read
+    off its leaf: a ring and a full-length layer may share the step.  A
+    cache of more KV heads than the model's (``kv_repeat_to``) gets each
+    head's K/V repeated.
+
+    On a ``model`` axis: the rank's query heads ``[lo, hi)``; K/V computed
+    for the cache heads the rank writes (its block when ``kv_cut``; every
+    head when the block is whole, or when int8 scales, whole over
+    ``model``, are written) and read by its query heads; the out
+    projection row-parallel, summed over ``axis``."""
+    h, kvh, d = _attn_dims(cfg)
+    m, r = _axis_coords(axis)
+    lo, hi = A.head_block(h, m, r)
+    hc = ck.shape[2] * (m if kv_cut else 1)        # the cache's KV heads
+    reps = hc // kvh
+    clo, chi = (r * ck.shape[2], (r + 1) * ck.shape[2]) if kv_cut \
+        else (0, hc)
+    wlo, whi = (0, hc) if ksc is not None else (clo, chi)
+    olo, ohi = wlo // reps, (whi - 1) // reps + 1  # the model's KV heads
+    wq = C.span(axis, [p["wq"]], 1, lo * d, hi * d)[0]
+    wk, wv = C.span(axis, [p["wk"], p["wv"]], 1, olo * d, ohi * d)
+    q = A.project_q({"wq": wq}, x, hi - lo, d)
+    k, v = A.project_kv({"wk": wk, "wv": wv}, x, ohi - olo, d)
+    if cfg.qk_norm and "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    q = rope_apply(q, step["cos"], step["sin"])
+    k = rope_apply(k, step["cos"], step["sin"])
+    if reps > 1:
+        k = k.repeat_interleave(reps, dim=2)
+        v = v.repeat_interleave(reps, dim=2)
+    base = olo * reps                               # cache head of k[:, :, 0]
+    rows, pos = step["rows"], step["pos"]
+    s_alloc = ck.shape[1]
+    slot = pos % s_alloc if ring else pos
+    if ksc is not None:
+        k, k_s = A.quantize_kv(k)
+        v, v_s = A.quantize_kv(v)
+        ksc[rows, slot] = k_s[:, 0]
+        vsc[rows, slot] = v_s[:, 0]
+    ck[rows, slot] = k[:, 0, clo - base:chi - base].to(ck.dtype)
+    cv[rows, slot] = v[:, 0, clo - base:chi - base].to(cv.dtype)
+    alo, ahi, index = A.kv_heads_read(h, hc, lo, hi)
+    keys = step["keys"][s_alloc]
+    valid = keys[None, :] < (pos + 1).clamp(max=s_alloc)[:, None]
+    if window and window > 0 and not ring:
+        valid = valid & (keys[None, :] > (pos - window)[:, None])
+    rk, rv = ck[:, :, alo - clo:ahi - clo], cv[:, :, alo - clo:ahi - clo]
+    sk = None if ksc is None else ksc[:, :, alo:ahi]
+    sv = None if vsc is None else vsc[:, :, alo:ahi]
+    rk, rv = A.expand_heads(rk, index), A.expand_heads(rv, index)
+    if index is not None and sk is not None:
+        sk, sv = A.expand_heads(sk, index), A.expand_heads(sv, index)
+    out = A.decode_attend_gqa(q, rk, rv, valid, k_scale=sk, v_scale=sv)
+    wo = C.span(axis, [p["wo"]], 0, lo * d, hi * d)[0]
+    return C.reduce_from(axis, A.out_project({"wo": wo}, out))
+
+
+def _decode_cross(xp, x, xk, xv, cfg, axis, kv_cut):
+    """The decoder's cross attention over its cross leaves (read, never
+    written) under an all-valid mask; on a ``model`` axis the rank's query
+    heads against the KV heads they read (of its block, or of the whole
+    leaves), the out projection summed."""
+    h, kvh, d = _attn_dims(cfg)
+    m, r = _axis_coords(axis)
+    lo, hi = A.head_block(h, m, r)
+    clo = r * xk.shape[2] if kv_cut else 0
+    alo, ahi, index = A.kv_heads_read(h, kvh, lo, hi)
+    wq = C.span(axis, [xp["wq"]], 1, lo * d, hi * d)[0]
+    q = A.project_q({"wq": wq}, x, hi - lo, d)
+    rk = A.expand_heads(xk[:, :, alo - clo:ahi - clo], index)
+    rv = A.expand_heads(xv[:, :, alo - clo:ahi - clo], index)
+    valid = torch.ones((x.shape[0], xk.shape[1]), dtype=torch.bool,
+                       device=x.device)
+    wo = C.span(axis, [xp["wo"]], 0, lo * d, hi * d)[0]
+    return C.reduce_from(axis, A.out_project(
+        {"wo": wo}, A.decode_attend_gqa(q, rk, rv, valid)))
+
+
+def _whole(axis, p, cols, rows=()):
+    """``p`` with its leaves ``cols`` (cut on dim 1) and ``rows`` (dim 0)
+    gathered whole over ``axis``: a block run whole on every rank."""
+    names = list(cols) + list(rows)
+    full = C.gather_leaves(axis, [p[k] for k in names],
+                           [1] * len(cols) + [0] * len(rows))
+    return {**p, **dict(zip(names, full))}
+
+
+def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, root, x, lc,
+                  step, ring_local: bool = False, axis=None, lsh=None):
+    """One block of the decode step.  ``p`` holds the layer's parameters,
+    ``root`` the whole tree (the hybrid's shared attention reads
+    ``root["shared"]``); ``lc`` the layer's cache leaves, each written in
+    place.  Under ``ring_local`` a windowed block whose leaf holds exactly
+    ``window`` slots decodes as a ring, as the reference decides.  A cross
+    block attends over its cross leaves, which it reads and never writes.
+    On a ``model`` axis (``axis``; ``lsh`` the layer's cache shardings)
+    each part runs on the rank's heads, ffn columns or experts, summed
+    over ``axis``; a recurrent block whose state is whole over ``model``
+    runs whole, its weights gathered."""
+    pre = f"b{i}"
+    if blk.kind in ("attn_mlp", "attn_moe"):
+        h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
+        ring = bool(ring_local and blk.window
+                    and lc[f"{pre}_k"].shape[1] == blk.window)
+        x = x + _decode_attn(p[f"{pre}_attn"], h, lc[f"{pre}_k"],
+                             lc[f"{pre}_v"], cfg, blk.window, step, axis,
+                             kv_cut=_cut(lsh, f"{pre}_k", 2), ring=ring,
+                             ksc=lc.get(f"{pre}_ksc"),
+                             vsc=lc.get(f"{pre}_vsc"))
+        if blk.cross:
+            x = x + _decode_cross(p[f"{pre}_xattn"],
+                                  rmsnorm(x, p[f"{pre}_lnx"]["scale"]),
+                                  lc[f"{pre}_xk"], lc[f"{pre}_xv"], cfg,
+                                  axis, _cut(lsh, f"{pre}_xk", 2))
+        h = rmsnorm(x, p[f"{pre}_ln2"]["scale"])
+        if blk.kind == "attn_moe":
+            # capacity dispatch at s = 1: cap 8 a row, never drops
+            return x + X.moe_dense(p[f"{pre}_moe"], h, top_k=cfg.top_k,
+                                   experts=cfg.experts, act=cfg.act,
+                                   experts_axis=axis)
+        return x + C.reduce_from(axis, F.mlp_fused(
+            p[f"{pre}_mlp"], h, gated=cfg.gated, act=cfg.act))
+    if blk.kind == "rwkv":
+        h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
+        tp, tax = p[f"{pre}_tm"], axis
+        if axis is not None and not _cut(lsh, f"{pre}_state", 1):
+            tp, tax = _whole(axis, tp, ("wr", "wk", "wv", "wg"), ("wo",)), None
+        tm, last, st = R.rwkv_time_mix(
+            tp, h, heads=cfg.heads, head_dim=cfg.resolved_head_dim,
+            last_x=lc[f"{pre}_last_tm"], state=lc[f"{pre}_state"], axis=tax)
+        lc[f"{pre}_last_tm"].copy_(last)
+        lc[f"{pre}_state"].copy_(st)
+        x = x + tm
+        h = rmsnorm(x, p[f"{pre}_ln2"]["scale"])
+        cm, last_cm = R.rwkv_channel_mix(p[f"{pre}_cm"], h,
+                                         last_x=lc[f"{pre}_last_cm"],
+                                         axis=axis)
+        lc[f"{pre}_last_cm"].copy_(last_cm)
+        return x + cm
+    if blk.kind in ("mamba", "shared_attn"):
+        h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
+        mp, conv, max_ = p[f"{pre}_mamba"], lc[f"{pre}_conv"], axis
+        conv_cut = _cut(lsh, f"{pre}_conv", 2)
+        if axis is not None and not _cut(lsh, f"{pre}_state", 1):
+            mp, max_ = _whole(axis, mp, ("w_in", "conv"), ("w_out",)), None
+            if conv_cut:
+                conv = C.gather(axis, conv.contiguous(), 2, partial=False)
+        mb, st, new_conv = M.mamba2_block(mp, h, _mamba_cfg(cfg), state=lc[
+            f"{pre}_state"], conv_state=conv, axis=max_)
+        if max_ is None and conv_cut:
+            n = lc[f"{pre}_conv"].shape[-1]
+            new_conv = new_conv[..., int(axis.rank) * n:
+                                (int(axis.rank) + 1) * n]
+        lc[f"{pre}_state"].copy_(st)
+        lc[f"{pre}_conv"].copy_(new_conv)
+        x = x + mb
+        if blk.kind == "shared_attn":
+            sp = root["shared"]
+            h = rmsnorm(x, sp["ln1"]["scale"])
+            x = x + _decode_attn(sp["attn"], h, lc[f"{pre}_k"],
+                                 lc[f"{pre}_v"], cfg, 0, step, axis,
+                                 kv_cut=_cut(lsh, f"{pre}_k", 2),
+                                 ksc=lc.get(f"{pre}_ksc"),
+                                 vsc=lc.get(f"{pre}_vsc"))
+            h = rmsnorm(x, sp["ln2"]["scale"])
+            x = x + C.reduce_from(axis, F.mlp_fused(
+                sp["mlp"], h, gated=cfg.gated, act=cfg.act))
+        return x
+    raise ValueError(blk.kind)

@@ -18,8 +18,9 @@ group's layers), so the plans' ``pp`` paths index them unchanged;
 :func:`params_from_numpy` carries the reference's parameters across, and
 :func:`train_state_from_numpy` a whole train state.  ``LM.param_specs``
 is the reference's specs tree (each leaf's tuple of dim names, for the
-sharding rules), built without making a tensor, and ``abstract_params``
-the parameter tree as meta tensors (shapes and dtypes, nothing drawn).
+sharding rules), built without making a tensor, ``abstract_params``
+the parameter tree as meta tensors (shapes and dtypes, nothing drawn),
+and ``input_specs`` a cell's inputs as meta tensors.
 """
 from __future__ import annotations
 
@@ -295,6 +296,34 @@ class LM:
         """The parameter tree as meta tensors: every leaf's shape and dtype,
         nothing drawn and no memory allocated."""
         return self._init(META, cast=False)
+
+    def input_specs(self, shape) -> dict:
+        """The inputs of a ``ShapeConfig`` cell as meta tensors, named,
+        shaped and typed as the reference's ``input_specs``: a decode cell's
+        ``tokens`` (B, 1) and scalar ``index``; else ``tokens`` (B, S) (the
+        vlm's text after its ``frontend_tokens`` prefix), the vlm's and
+        encdec's ``frontend_embeds`` in the activation dtype, and a train
+        cell's ``labels`` (B, S).  Nothing is allocated."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def spec(dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":
+            return {"tokens": spec((b, 1)), "index": spec(())}
+        if cfg.family == "encdec":
+            out = {"frontend_embeds": spec((b, s, cfg.d_model), self.dtype),
+                   "tokens": spec((b, s))}
+        elif cfg.frontend != "none":
+            out = {"frontend_embeds": spec((b, cfg.frontend_tokens,
+                                            cfg.d_model), self.dtype),
+                   "tokens": spec((b, s - cfg.frontend_tokens))}
+        else:
+            out = {"tokens": spec((b, s))}
+        if shape.kind == "train":
+            out["labels"] = spec((b, s))
+        return out
 
     def inference_params(self, params: dict) -> dict:
         """``params`` with every parameter the layers cast per call (the

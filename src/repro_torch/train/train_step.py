@@ -22,7 +22,8 @@ parameters, the optimizer state and the batch are this rank's blocks; the
 planned loss is the global one on every rank, and the backward's
 collectives leave each gradient as this rank's block of the global
 gradient (the FSDP gathers sum it over ``data``, a whole leaf's use sums
-it over the axes it is partial on).  The clipping norm and the optimizer
+it over the axes it is partial on, and on a mesh with a ``pod`` axis the
+step sums every gradient over ``pod``).  The clipping norm and the optimizer
 read ``fwd.param_shardings``.
 """
 from __future__ import annotations
@@ -75,6 +76,17 @@ def loss_and_grads(fwd, params, batch: dict, *, grad_dtype="float32",
     return loss.detach(), tree_map(lambda _p: next(it), params)
 
 
+def _sum_over_pod(mesh, grads):
+    """``grads`` summed over the mesh's ``pod`` axis, when it has one of
+    more than one rank: each pod's ranks hold the gradient of their pod's
+    rows (the loss is the global mean), and no FSDP gather spans pods."""
+    if mesh is None or "pod" not in getattr(mesh, "axis_names", ()) or \
+            int(mesh.shape["pod"]) <= 1:
+        return grads
+    pod = mesh.axis("pod")
+    return tree_map(lambda g: pod.all_reduce(g.contiguous()), grads)
+
+
 def make_train_step(fwd, optimizer, *, num_microbatches: int = 1,
                     grad_dtype: str = "float32", clip_norm: float = 1.0,
                     positions_fn: Optional[Callable] = None):
@@ -102,6 +114,7 @@ def make_train_step(fwd, optimizer, *, num_microbatches: int = 1,
                     grads = tree_map(torch.add, grads, g)
             grads = tree_map(lambda g: (g / n).to(g.dtype), grads)
             loss = loss / n
+        grads = _sum_over_pod(getattr(fwd, "mesh", None), grads)
         shardings = getattr(fwd, "param_shardings", None)
         grads, gnorm = clip_by_global_norm(grads, clip_norm, shardings)
         params, opt_state = optimizer.update(grads, state.opt_state,

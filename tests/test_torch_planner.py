@@ -114,6 +114,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.examples.tri_sharded\n"
         "import repro_torch.launch.elastic, repro_torch.core.collectives\n"
         "import repro_torch.examples.train_sharded\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.op_analysis\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and m.split('.')[0] in ('repro', 'jax', 'jaxlib')]\n"

@@ -252,14 +252,15 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      heads of 160, vocab 100,352) at full width and depth; gemma3-27b
      (d_model 5376, 32 / 16 heads of 128, GELU, embedding scale, a tied
      vocab of 262,144, window 1024 on 5 of every 6 layers) at full width
-     and **20 of its 62 layers**: one layer holds 412,876,800 parameters
-     (2.48 GB in float32, 0.83 GB more as the runtime's bf16 copy), the
-     tied table 5.64 GB, and the width-4 prefill at 2048 makes 8.6 GB of
-     float32 logits and as much again masked; 20 layers are 3 periods of
-     5 local + 1 global plus the 2-layer local remainder group the
-     62-layer stack also has (62 = 10 x 6 + 2), so the cut plans the same
-     two scan groups; 26 (4 periods + 2) would hold 70.1 GB of parameters
-     and copies before the activations.  bfloat16 activations, float32
+     and **8 of its 62 layers** (cut from 20 for the script's time): one
+     layer holds 412,876,800 parameters (2.48 GB in float32, 0.83 GB
+     more as the runtime's bf16 copy), the tied table 5.64 GB,
+     and the width-4 prefill at 2048 makes 8.6 GB of float32 logits and
+     as much again masked; 8 layers are 1 period of 5 local + 1 global
+     plus the 2-layer local remainder group the 62-layer stack also has
+     (62 = 10 x 6 + 2), so the cut plans the same two scan groups; 26 (4
+     periods + 2) would hold 70.1 GB of parameters and copies before the
+     activations.  bfloat16 activations, float32
      parameters from ``he_init`` on a seeded generator on the card.
      Parameter count (the tree's, and ``param_count()``), bytes, seconds,
      peak memory (after the runtime's bf16 copies and after warmup);
@@ -493,7 +494,7 @@ package.  Phases, one line each; any failure raises and exits non-zero:
   talk through gloo staged in pinned host memory; each runs
   ``repro_torch.examples.train_sharded``'s rank entries:
 
- 43. [mesh-single], [mesh-predict] — qwen3-0.6b (full width, cut to 14
+ 43. [mesh-single], [mesh-predict] — qwen3-0.6b (full width, cut to 7
      of 28 layers)
      trained 3 steps at 4 x 2048 on one rank from the seeded params and
      batches every rank draws (losses, grad norms, step walls), and a
@@ -558,8 +559,8 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      ``torch.save``, strides kept), against their plain versions, timed;
      their JSON records carry the launches of rank 0's step;
 
-  ``dryrun`` (the dry run, slice 19; runs last): no kernel launches (the
-  dry run plans ``("xla",)``), no kernel record:
+  ``dryrun`` (the dry run, slice 19): no kernel launches (the dry run
+  plans ``("xla",)``), no kernel record:
 
  51. [dryrun] — ``launch.dryrun.lower_cell`` of qwen3-0.6b ``train_4k``
      on the (16, 16) layout and zamba2-7b ``decode_32k`` on (2, 16, 16),
@@ -580,6 +581,51 @@ package.  Phases, one line each; any failure raises and exits non-zero:
      ``decode_step`` from the seeded params, each rank's logits block
      within 1e-4 of one rank's ``decode_step`` on the card, relative to
      the largest |logit|; the median step wall.
+
+  ``mesh_decode_kv`` (slice 20): the reference's decode caches for KV
+  heads that do not divide ``model``, no kernel launches, no kernel
+  record:
+
+ 54. [mesh-decode-kv] — qwen3-0.6b at full width and depth in float32 on
+     1 x 16 ranks sharing the card (its 8 KV heads do not divide 16; its
+     head dim 128 and the cache 2048 do): 8 decode steps (batch 4) of the
+     sharded ``decode_step`` from the seeded params under each of
+     ``KV_LAYOUTS`` (the cache cut on its positions, ``kv_shard_seq``; on
+     its channels, ``kv_shard_dim``; int8 with the positions cut), each
+     rank's logits block within 1e-4 of one rank's ``decode_step`` on the
+     card (int8 against one rank's int8 decode), relative to the largest
+     |logit|, at every step; the median step wall;
+ 55. [kv-dryrun-check] — every rank's step against the dry run's trace of
+     it (``dryrun.trace_cell`` with the layout's ``opts`` on a placeholder
+     at the rank's coordinates, traced in the rank's process): every
+     ``RankMesh.stats`` counter (the staged host bytes reckoned from the
+     trace) and the argument bytes (params, cache, tokens, index) equal
+     at every step, and the step's peak (the allocator's peak over it,
+     reset just before, less the bytes resident before it that are not
+     arguments: the cuBLAS workspace, the last step's logits) within 10 %
+     of the predicted argument + temp bytes.
+
+  ``examples`` (slice 20): the four root examples through their ``main``
+  on the card, each against its CPU run on the same parameters (drawn on
+  the card from the seed, copied to the CPU first); the launches of each
+  counted, reset just before it:
+
+ 56. [example] quickstart — gemma3-27b's SMOKE config in float32, 20
+     AdamW steps at 4 x 32 planned with ``("xla", "pallas")``: the plan id
+     and choices equal, every loss within 5e-3 of the CPU's, flash
+     launched;
+ 57. [example] polisci_analysis — the ADIL analysis (embed, windowed
+     attention, mlp, unembed): the chosen impls equal, the output within
+     2e-3 of the CPU's largest |value|, flash launched;
+ 58. [example] serve_async — six staggered requests on qwen3-0.6b's SMOKE
+     config: every request ok, each request's first-token logits (the
+     planned prefill's last prompt position) within 2e-3 absolute and
+     relative of the CPU's, the token streams of both listed, flash
+     launched;
+ 59. [example] serve_batched — the serving CLI on qwen3-0.6b and rwkv6-3b
+     SMOKE: as phase 58 for each, wkv6 launched; then the flash record on
+     polisci's call and the wkv6 record on the largest rwkv6 prefill's,
+     their ``launches`` those of the four examples.
 
  42. the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
@@ -723,6 +769,10 @@ from repro_torch.core.resilience import (CircuitBreaker,  # noqa: E402
 from repro_torch.core.rewrite import (DEFAULT_PIPELINE,  # noqa: E402
                                       UNPUSHED_PIPELINE)
 from repro_torch.examples import multi_query as mq  # noqa: E402
+from repro_torch.examples import polisci_analysis  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
+from repro_torch.examples import serve_async  # noqa: E402
+from repro_torch.examples import serve_batched  # noqa: E402
 from repro_torch.examples import tri_influence  # noqa: E402
 from repro_torch.examples import tri_sharded  # noqa: E402
 from repro_torch.examples import train_sharded  # noqa: E402
@@ -849,19 +899,19 @@ DBRX = {"arch": "dbrx-132b", "n_layers": 2, "requests": 8,
                "fit 80 GB"}
 DSUB = {"prompt_lens": (100, 500), "gen": 8, "moe_bucket": 512}
 # deepseek_serve / stablelm_serve / gemma3_serve: the other dense configs
-# at full width through prefill_kv, one at a time; gemma3 at 20 of its 62
+# at full width through prefill_kv, one at a time; gemma3 at 8 of its 62
 # layers (one layer is 412,876,800 parameters, 2.48 GB in float32 plus
-# its bf16 copy; 26 layers would hold 70.1 GB before the activations)
+# its bf16 copy; 26 layers would hold 70.1 GB before the activations; cut
+# from 20 to 8 beside mesh_decode_kv and examples, for the script's time)
 DENSE = {
     "deepseek-7b": {"path": "deepseek_serve", "n_layers": 30, "cut": None},
     "stablelm-12b": {"path": "stablelm_serve", "n_layers": 40, "cut": None},
     "gemma3-27b": {
-        "path": "gemma3_serve", "n_layers": 20,
-        "cut": "n_layers 62 -> 20: 3 periods of 5 local + 1 global and the "
+        "path": "gemma3_serve", "n_layers": 8,
+        "cut": "n_layers 62 -> 8: 1 period of 5 local + 1 global and the "
                "2-layer local remainder group the 62-layer stack also has; "
-               "float32 38.7 GB + bf16 copies 16.5 GB + the 4 x 2048 "
-               "prefill's float32 logits 8.6 GB (twice, masked); 26 layers "
-               "do not fit 80 GB"}}
+               "26 layers do not fit 80 GB, and 20 were cut to 8 for the "
+               "script's time beside mesh_decode_kv and examples"}}
 # prefill width 1: the 4 requests fall in 4 buckets, so the runtime never
 # batches two, and the warmup's width-4 prefill at 2048 does not fit
 # beside stablelm-12b's 72.7 GB of parameters, bf16 copies and pool
@@ -977,9 +1027,10 @@ TRAIN_KERNEL_OF = {"gmm_backward": "gmm", "wkv6_backward": "wkv6",
 # dbrx-132b's forward (2 of 40 layers) on 1 x 2, in float32: in bfloat16
 # the row-parallel sums round apart from the one-card GEMM's by an ulp,
 # which now and then flips a token's top-4 experts and so its logits
-# qwen3-0.6b cut to 14 of its 28 layers: the steps, the checkpoint and
-# the traces are linear in depth, cut to keep the whole script near 900 s
-MESH = {"arch": "qwen3-0.6b", "smoke": False, "overrides": {"n_layers": 14},
+# qwen3-0.6b cut to 7 of its 28 layers (from 14, beside mesh_decode_kv
+# and examples): the steps, the checkpoint and the traces are linear in
+# depth, cut to keep the whole script near 900 s
+MESH = {"arch": "qwen3-0.6b", "smoke": False, "overrides": {"n_layers": 7},
         "mesh": (2, 2), "batch": 4, "seq": 2048, "steps": 3, "save_at": 2,
         "remesh": {"min_model": 4}, "lr": 1e-3}
 MESH_F32 = {"n_layers": 2, "dtype": "float32"}
@@ -1021,6 +1072,35 @@ MESH_DECODE = {"arch": "qwen3-0.6b", "overrides": {"dtype": "float32"},
                "mesh": (2, 2), "batch": 4, "cache": 2048, "steps": 8}
 MESH_DECODE_TOL = 1e-4     # of the largest |logit| of one rank's step
 DRYRUN_PEAK_RTOL = 0.10    # predicted argument + temp bytes against the peak
+# mesh_decode_kv (slice 20): the reference's decode caches for KV heads
+# that do not divide ``model`` (``cache_shardings(kv_shard_seq=,
+# kv_shard_dim=)``): qwen3-0.6b at full width in float32 on 1 x 16 ranks
+# sharing the card, where its 8 KV heads do not divide and its head dim
+# (128) and cache (2048) do; each layout's 8 steps against one rank
+# ([mesh-decode-kv]), every counter and the argument bytes against the dry
+# run's trace of the same step, the step's peak against its prediction
+MESH_DECODE_KV = {"arch": "qwen3-0.6b",
+                  "overrides": {"dtype": "float32", "n_layers": 4},
+                  "mesh": (1, 16), "batch": 4, "cache": 2048, "steps": 8,
+                  "start": 124}
+# cut: n_layers 28 -> 4 (16 ranks on the host's 8 cores take ~70 ms a
+# gloo collective, 141 a step at 28 layers: ~10 s a step).  The steps
+# decode positions 124-131, across the first two ranks' slots of the
+# sequence cut (128 each); the positions before them hold zeros on both
+# sides.
+KV_LAYOUTS = {"seq": {"kv_shard_seq": True},
+              "dim": {"kv_shard_dim": True},
+              "int8-seq": {"quantize_kv": True, "kv_shard_seq": True}}
+# examples (slice 20): the four root examples on the card against their
+# CPU runs: quickstart's losses, polisci's output (of its largest |value|),
+# the served examples' first-token logits (LOGIT_TOL, as the serve paths)
+# an int8 entry whose float32 input differs from one rank's by an ulp
+# (a GEMM's block, the row-parallel sums' order) near a rounding midpoint
+# lands one step (1/127 of its head's abs-max) away: each written entry
+# must be equal or one step off, at most this share of them off
+KV_INT8_FLIP_SHARE = 1e-3
+EXAMPLE_LOSS_TOL = 5e-3
+EXAMPLE_OUTPUT_TOL = 2e-3
 # the layers' kernel entries: kernel name -> (module, attribute)
 FAMILY_ENTRIES = {"wkv6": (rwkv_layer, "wkv6_kernel"),
                   "ssd": (mamba_layer, "ssd_kernel"),
@@ -6903,6 +6983,491 @@ def dryrun_path(args, dev, syscat) -> list:
     return []
 
 
+# -- phases 54-55: the sequence- and channel-cut decode caches ------------
+
+
+def kv_tokens(cfg, step):
+    """The (batch, 1) int32 tokens every rank and the one rank decode at
+    ``step`` of MESH_DECODE_KV."""
+    rng = np.random.default_rng(SEED + 2000 + step)
+    return torch.from_numpy(rng.integers(
+        0, cfg.vocab, (MESH_DECODE_KV["batch"], 1)).astype(np.int32))
+
+
+def kv_decode_rank(world, job):
+    """One rank of mesh_decode_kv's world: the seeded params' blocks drawn
+    once, then for each of KV_LAYOUTS the dry run's trace of this rank's
+    step (``dryrun.trace_cell`` on a placeholder at its coordinates: the
+    counters, argument and temp bytes, the staged host bytes reckoned
+    from them) and MESH_DECODE_KV's steps on a zeroed cache of that
+    layout: per step the logits block, the counters, the argument bytes
+    (params, cache, tokens and index, as the dry run's), the bytes
+    resident before it and the allocator's peak over it."""
+    mesh = make_rank_mesh(world, *job["mesh"])
+    dev = mesh.device
+    cfg = get_config(job["arch"]).replace(**job["overrides"])
+    model = build_model(cfg)
+    b, n = job["batch"], job["cache"]
+    shape = ShapeConfig("check", n, b, "decode")
+    p_sh = params_sharding(model.param_specs(), mesh, ShardingRules())
+    # at 4 layers the global tree is 0.7 GB: the 16 ranks draw it at once
+    params = train_sharded.local_params(
+        model, {"params": None, "seed": SEED, "staggered_init": False},
+        mesh, p_sh)
+    rows = b // mesh.shape["data"]
+    d = mesh.coords["data"]
+    out = {"coords": dict(mesh.coords), "rows": rows}
+    # a first GEMM allocates cuBLAS's workspace (32 MiB on this card),
+    # which the trace does not model: before the steps it counts as
+    # resident
+    torch.matmul(torch.ones((1, 1, 8), device=dev),
+                 torch.ones((8, 8), device=dev))
+    for name, opts in KV_LAYOUTS.items():
+        t0 = time.perf_counter()
+        rank = placeholder_rank_mesh(mesh.layout, mesh.coords)
+        rec = dryrun.trace_cell(cfg, shape, rank, opts=opts)
+        stats = dict(rank.stats)
+        pred = {"stats": {**stats, "staged_bytes": staged_prediction(
+                    stats, mesh.layout.shape)},
+                "argument_bytes": rec["memory"]["argument_bytes"],
+                "temp_bytes": rec["memory"]["temp_bytes"],
+                "wire_bytes": rec["wire_bytes"],
+                "trace_s": time.perf_counter() - t0}
+        meta = init_cache(model, b, n, device="meta",
+                          quantize_kv=opts.get("quantize_kv", False))
+        c_sh = cache_shardings(
+            mesh, model, meta, shape,
+            kv_shard_seq=opts.get("kv_shard_seq", False),
+            kv_shard_dim=opts.get("kv_shard_dim", False))
+        cache = dryrun.on_device(shard_params(meta, c_sh), dev)
+        steps = []
+        for t in range(job["steps"]):
+            tok = kv_tokens(cfg, t)[d * rows:(d + 1) * rows].to(dev)
+            index = torch.tensor(job["start"] + t, dtype=torch.int32,
+                                 device=dev)
+            argument_bytes = storage_bytes((params, cache, tok, index))
+            torch.cuda.synchronize(dev)
+            mesh.barrier()
+            mesh.reset_stats()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            logits, cache = decode_step(model, params, cache, tok, index,
+                                        mesh=mesh, shardings=p_sh,
+                                        cache_sh=c_sh)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            steps.append({"logits": logits.float().cpu().numpy(),
+                          "stats": dict(mesh.stats),
+                          "argument_bytes": argument_bytes,
+                          "before": before,
+                          "peak": torch.cuda.max_memory_allocated(dev),
+                          "wall_s": wall})
+            del logits, tok, index
+        out[name] = {"pred": pred, "steps": steps,
+                     "written": written_entries(cache, c_sh, job)}
+        del cache
+        free_memory()
+        mesh.barrier()
+    return out
+
+
+def written_entries(cache, c_sh, job) -> dict:
+    """The int8 K/V entries a rank's block holds of the positions the
+    steps wrote (``start`` on), as numpy, keyed by leaf, with the global
+    positions of their dim 2 and the rank's channels (dim 4); empty for a
+    cache that is not int8 (``c_sh``: its shardings, None for one rank's
+    whole cache)."""
+    out = {}
+    lo, hi = job["start"], job["start"] + job["steps"]
+    for g, gc in cache.items():
+        for key, leaf in gc.items():
+            if leaf.dtype != torch.int8:
+                continue
+            sh = None if c_sh is None else c_sh[g][key]
+            n = leaf.shape[2]
+            p0 = 0 if sh is None or not sh.axes(2) else \
+                int(sh.mesh.coords["model"]) * n
+            c0 = 0 if sh is None or not sh.axes(4) else \
+                int(sh.mesh.coords["model"]) * leaf.shape[4]
+            a, b = max(lo, p0), min(hi, p0 + n)
+            if a < b:
+                out[f"{g}.{key}"] = (a, c0, leaf[:, :, a - p0:b - p0]
+                                     .cpu().numpy())
+    return out
+
+
+def kv_decode_single(cfg, dev, quantize_kv) -> tuple:
+    """One rank's MESH_DECODE_KV steps on the card from the seeded params
+    (the reference of [mesh-decode-kv]), on a whole cache (int8 under
+    ``quantize_kv``): the logits of each step, as numpy, and the int8
+    entries written (:func:`written_entries`)."""
+    job = MESH_DECODE_KV
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    cache = init_cache(model, job["batch"], job["cache"], device=dev,
+                       quantize_kv=quantize_kv)
+    out = []
+    for t in range(job["steps"]):
+        logits, cache = decode_step(model, params, cache,
+                                    kv_tokens(cfg, t).to(dev),
+                                    job["start"] + t)
+        out.append(logits.float().cpu().numpy())
+    written = written_entries(cache, None, job)
+    del params, cache
+    free_memory()
+    return out, written
+
+
+def kv_flips(ranks, name, written) -> dict:
+    """Every rank's written int8 K/V entries of layout ``name`` against
+    one rank's (``written``): each equal or one quantization step off (a
+    float32 sum order that rounds the other way), at most
+    KV_INT8_FLIP_SHARE of them off.  Returns the counts."""
+    entries, off = 0, 0
+    for r in ranks:
+        for key, (p0, c0, block) in r[name]["written"].items():
+            q0, _, whole = written[key]
+            ref = whole[:, :, p0 - q0:p0 - q0 + block.shape[2], :,
+                        c0:c0 + block.shape[4]]
+            diff = np.abs(block.astype(np.int32) - ref.astype(np.int32))
+            check(int(diff.max()) <= 1,
+                  f"{name} rank {r['coords']} {key}: int8 entries "
+                  f"{int(diff.max())} steps off")
+            entries += diff.size
+            off += int((diff > 0).sum())
+    check(entries > 0 and off <= KV_INT8_FLIP_SHARE * entries,
+          f"{name}: {off} of {entries} int8 entries one step off")
+    return {"int8_entries": entries, "int8_one_step_off": off}
+
+
+def mesh_decode_kv_path(args, dev, syscat) -> list:
+    """Phases 54-55: the reference's sequence- and channel-cut decode
+    caches on 1 x 16 ranks sharing the card.  Launches no kernel (the
+    decode step runs no TPU kernel's port) and returns no kernel record."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    job = dict(MESH_DECODE_KV)
+    cfg = get_config(job["arch"]).replace(**job["overrides"])
+    n_data, n_model = job["mesh"]
+    slots = job["cache"] // n_model
+    check(cfg.kv_heads % n_model and cfg.resolved_head_dim % n_model == 0
+          and job["cache"] % n_model == 0
+          and job["start"] // slots != (job["start"] + job["steps"] - 1)
+          // slots,
+          f"mesh_decode_kv: {cfg.kv_heads} KV heads, head dim "
+          f"{cfg.resolved_head_dim} and cache {job['cache']} over "
+          f"{n_model} ranks, positions {job['start']} on")
+    t0 = time.perf_counter()
+    single = {False: kv_decode_single(cfg, dev, False),
+              True: kv_decode_single(cfg, dev, True)}
+    single_s = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)            # 16 ranks on the host's cores
+    try:
+        with tempfile.TemporaryDirectory(prefix="kvdecode-") as tmp:
+            t0 = time.perf_counter()
+            ranks = run_ranks(kv_decode_rank, n_data * n_model,
+                              device=dev.type, init_file=Path(tmp) / "group",
+                              timeout=MESH_TIMEOUT, args=(job,))
+            world_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+
+    # 54. [mesh-decode-kv]: each rank's logits block against one rank's
+    # (int8 against one rank's int8 decode), every step
+    vocab = single[False][0][0].shape[-1]
+    cols = vocab // n_model
+    for name, opts in KV_LAYOUTS.items():
+        want, written = single[bool(opts.get("quantize_kv"))]
+        top = max(float(np.abs(x[..., :cfg.vocab]).max()) for x in want)
+        flips = kv_flips(ranks, name, written) if written else {}
+        worst, walls = 0.0, []
+        for r in ranks:
+            d, m = r["coords"]["data"], r["coords"]["model"]
+            steps = r[name]["steps"]
+            check(len(steps) == job["steps"],
+                  f"{name} rank {r['coords']}: {len(steps)} steps")
+            for t, st in enumerate(steps):
+                block = want[t][d * r["rows"]:(d + 1) * r["rows"], :,
+                                m * cols:(m + 1) * cols]
+                got = st["logits"]
+                check(got.shape == block.shape,
+                      f"{name} rank {r['coords']} step {t}: logits "
+                      f"{got.shape} != {block.shape}")
+                worst = max(worst, float(np.abs(got - block).max()) / top)
+                walls.append(st["wall_s"])
+        phase("mesh-decode-kv", layout=name, opts=json.dumps(opts),
+              mesh="x".join(map(str, job["mesh"])), arch=cfg.name,
+              layers=cfg.n_layers, b=job["batch"], cache=job["cache"],
+              positions=f"{job['start']}-{job['start'] + job['steps'] - 1}",
+              steps=job["steps"], ranks=len(ranks), rel_err_max=worst,
+              **flips, step_s_median=statistics.median(walls), card=smi)
+        check(worst <= MESH_DECODE_TOL,
+              f"{name}: logits off by {worst} of the largest |logit|")
+
+    # 55. [kv-dryrun-check]: every rank's counters (the staged host bytes
+    # too) and argument bytes at every step equal to its trace; its step's
+    # peak (the allocator's peak less the bytes resident before the step
+    # that are not its arguments) within DRYRUN_PEAK_RTOL of the predicted
+    # argument + temp bytes
+    for name in KV_LAYOUTS:
+        errs = []
+        for r in ranks:
+            pred = r[name]["pred"]
+            for t, st in enumerate(r[name]["steps"]):
+                check(Counter(st["stats"]) == Counter(pred["stats"]),
+                      f"{name} rank {r['coords']} step {t}: counters "
+                      f"{st['stats']} != the trace's {pred['stats']}")
+                check(st["argument_bytes"] == pred["argument_bytes"],
+                      f"{name} rank {r['coords']} step {t}: argument bytes "
+                      f"{st['argument_bytes']} != {pred['argument_bytes']}")
+                resident = st["before"] - st["argument_bytes"]
+                step_peak = st["peak"] - resident
+                predicted = pred["argument_bytes"] + pred["temp_bytes"]
+                err = abs(predicted - step_peak) / step_peak
+                check(err <= DRYRUN_PEAK_RTOL,
+                      f"{name} rank {r['coords']} step {t}: predicted "
+                      f"argument + temp {predicted} bytes against a step "
+                      f"peak of {step_peak} ({err:.3f})")
+                errs.append(err)
+        r0 = ranks[0][name]
+        last = r0["steps"][-1]
+        phase("kv-dryrun-check", layout=name,
+              coords=json.dumps(ranks[0]["coords"]),
+              argument_bytes=last["argument_bytes"],
+              predicted_temp_bytes=r0["pred"]["temp_bytes"],
+              step_peak_bytes=last["peak"] - last["before"]
+              + last["argument_bytes"], peak_bytes=last["peak"],
+              resident_other_bytes=last["before"] - last["argument_bytes"],
+              peak_rel_err_max=max(errs), coll=json.dumps(last["stats"]),
+              wire_bytes=r0["pred"]["wire_bytes"],
+              trace_s=round(r0["pred"]["trace_s"], 2),
+              ranks_checked=len(ranks), card=smi)
+    phase("kv-world", ranks=len(ranks), world_s=round(world_s, 1),
+          single_decode_s=round(single_s, 1))
+    del ranks
+    free_memory()
+    return []
+
+
+# -- phases 56-59: the root examples (examples) ----------------------------
+
+
+def example_first_logits(model, params, dev, prompts, max_seq) -> list:
+    """The float32 first-token logits of each prompt (the last prompt
+    position of the planned prefill the runtime runs: ``prefill_kv`` for
+    a model that has it, else ``prefill``, both engines offered) on
+    ``dev``."""
+    mode = "prefill_kv" if model.supports_prefill_kv() else "prefill"
+    out = []
+    for prompt in prompts:
+        n = len(prompt)
+        bucket = bucket_len(n, hi=max_seq)
+        toks = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+        toks[0, :n] = torch.tensor(prompt)
+        fwd = plan_and_compile(model.build_plan(1, bucket, mode=mode),
+                               CATALOG, SystemCatalog(),
+                               engines=("xla", "pallas"), cache=False,
+                               device=dev)
+        res = fwd(params, {"tokens": toks})
+        logits = res[0] if isinstance(res, tuple) else res
+        out.append(logits[0, n - 1, :model.cfg.vocab].float().cpu())
+        del res, logits
+    return out
+
+
+@contextlib.contextmanager
+def recording_prompts(prompts):
+    """Append the prompts of every trace an ``AsyncServingRuntime`` serves
+    (its ``run``) to ``prompts``, one list a trace."""
+    run = AsyncServingRuntime.run
+
+    async def record(self, requests, *a, **kw):
+        prompts.append([tuple(r.prompt) for r in requests])
+        return await run(self, requests, *a, **kw)
+
+    AsyncServingRuntime.run = record
+    try:
+        yield
+    finally:
+        AsyncServingRuntime.run = run
+
+
+def served_agree(name, model, params, cpu_params, dev, card, host, prompts,
+                 max_seq):
+    """A served example's card results against its CPU run: every request
+    ok; each request's first-token logits (``prompts`` in request order) on
+    the card within LOGIT_TOL of the CPU's.  Returns the max abs error and
+    the count of token streams equal on both."""
+    check([r.status for r in card] == ["ok"] * len(card)
+          and [r.status for r in host] == ["ok"] * len(host)
+          and [r.rid for r in card] == [r.rid for r in host]
+          and len(prompts) == len(card),
+          f"{name}: statuses {[r.status for r in card]} / "
+          f"{[r.status for r in host]}")
+    got = example_first_logits(model, params, dev, prompts, max_seq)
+    want = example_first_logits(model, cpu_params, torch.device("cpu"),
+                                prompts, max_seq)
+    err = 0.0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+        err = max(err, float((g - w).abs().max()))
+    return err, sum(a.tokens == b.tokens for a, b in zip(card, host))
+
+
+def examples_path(args, dev, syscat) -> list:
+    """Phases 56-59: the four root examples run on the card through their
+    ``main`` and held against their CPU runs on the same parameters (made
+    on the card from the seed, copied to the CPU first).  Returns the
+    flash attention record (on polisci's call) and the wkv6 record (on
+    serve_batched's rwkv6 prefill), their launches those of all four."""
+    path = "examples"
+    cpu = torch.device("cpu")
+    cuda = ["--device", "cuda"]
+    host = ["--device", "cpu"]
+    launched = Counter()
+    flash_calls, wkv_calls = {}, {}
+    wkv = RECURRENT["rwkv6-3b"]
+
+    def on_card(run):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = run()
+        torch.cuda.synchronize()
+        counted = {k: v for k, v in kernels.launches().items() if v}
+        launched.update(counted)
+        return res, counted, time.perf_counter() - t0
+
+    def on_host(run):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = run()
+        return res, time.perf_counter() - t0
+
+    # 56. [example] quickstart: the losses of 20 AdamW steps
+    cfg = get_smoke_config("gemma3-27b").replace(dtype="float32")
+    params = build_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    cpu_params = params_to(params, cpu)
+    card, counted, card_s = on_card(lambda: quickstart.main(
+        cuda, params=params))
+    ref, host_s = on_host(lambda: quickstart.main(host, params=cpu_params))
+    errs = [abs(a - b) for a, b in zip(card["losses"], ref["losses"])]
+    check(card["plan_id"] == ref["plan_id"]
+          and card["chosen"] == ref["chosen"]
+          and len(errs) == quickstart.STEPS
+          and max(errs) <= EXAMPLE_LOSS_TOL
+          and counted.get("flash_attention", 0) > 0,
+          f"quickstart: plan {card['plan_id'][:12]} / {ref['plan_id'][:12]}"
+          f", losses {card['losses']} against {ref['losses']}, launches "
+          f"{counted}")
+    phase("example", name="quickstart", plan_id=card["plan_id"][:12],
+          chosen=json.dumps(sorted(Counter(c for _p, c in card["chosen"])
+                                   .items())),
+          losses=json.dumps(card["losses"]),
+          cpu_losses=json.dumps(ref["losses"]), loss_err_max=max(errs),
+          launches=json.dumps(counted), card_s=round(card_s, 2),
+          cpu_s=round(host_s, 2))
+    del params, cpu_params, card, ref
+    free_memory()
+
+    # 57. [example] polisci: the analysis's output and the planner's choice
+    params = polisci_analysis.init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+    cpu_params = params_to(params, cpu)
+    with recording_shapes(attention_layer, "flash_attention", flash_calls,
+                          kwarg="window"):
+        card, counted, card_s = on_card(lambda: polisci_analysis.main(
+            cuda, params=params))
+    ref, host_s = on_host(lambda: polisci_analysis.main(
+        host, params=cpu_params))
+    out, want = card["output"].float().cpu(), ref["output"].float()
+    top = float(want.abs().max())
+    err = float((out - want).abs().max()) / top
+    check(card["chosen"] == ref["chosen"] and err <= EXAMPLE_OUTPUT_TOL
+          and bool(torch.isfinite(out).all())
+          and counted.get("flash_attention", 0) > 0,
+          f"polisci: impls {card['chosen']} / {ref['chosen']}, output off "
+          f"by {err} of its largest |value|, launches {counted}")
+    phase("example", name="polisci_analysis",
+          decisions=json.dumps(card["decisions"]),
+          shape=json.dumps(list(out.shape)), rel_err=err,
+          launches=json.dumps(counted), card_s=round(card_s, 2),
+          cpu_s=round(host_s, 2))
+    del params, cpu_params, card, ref, out, want
+    free_memory()
+
+    # 58. [example] serve_async: six staggered requests
+    cfg = get_smoke_config("qwen3-0.6b").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    cpu_params = params_to(params, cpu)
+    traces = []
+    with recording_prompts(traces):
+        card, counted, card_s = on_card(lambda: serve_async.main(
+            cuda, params=params))
+    ref, host_s = on_host(lambda: serve_async.main(host, params=cpu_params))
+    err, same = served_agree("serve_async", model, params, cpu_params, dev,
+                             card, ref, traces[0], 64)
+    check(counted.get("flash_attention", 0) > 0,
+          f"serve_async: launches {counted}")
+    phase("example", name="serve_async", requests=len(card),
+          first_logits_err=err, same_streams=same,
+          tokens=json.dumps([r.tokens for r in card]),
+          cpu_tokens=json.dumps([r.tokens for r in ref]),
+          launches=json.dumps(counted), card_s=round(card_s, 2),
+          cpu_s=round(host_s, 2))
+    del params, cpu_params, card, ref
+    free_memory()
+
+    # 59. [example] serve_batched: qwen3 and rwkv6 through the serving CLI
+    params, cpu_params, models = {}, {}, {}
+    for arch in serve_batched.RUNS:
+        models[arch] = build_model(get_smoke_config(arch).replace(
+            dtype="float32"))
+        params[arch] = models[arch].init_params(
+            torch.Generator(device=dev).manual_seed(SEED))
+        cpu_params[arch] = params_to(params[arch], cpu)
+    traces = []
+    with recording_shapes(wkv["module"], wkv["entry"], wkv_calls), \
+            recording_prompts(traces):
+        card, counted, card_s = on_card(lambda: serve_batched.main(
+            cuda, params=params))
+    ref, host_s = on_host(lambda: serve_batched.main(host,
+                                                     params=cpu_params))
+    check(counted.get("wkv6", 0) > 0 and len(traces) == 2,
+          f"serve_batched: launches {counted}, {len(traces)} traces")
+    for arch, prompts in zip(serve_batched.RUNS, traces):
+        err, same = served_agree(f"serve_batched {arch}", models[arch],
+                                 params[arch], cpu_params[arch], dev,
+                                 card[arch], ref[arch], prompts, 64)
+        phase("example", name="serve_batched", arch=arch,
+              requests=len(card[arch]), first_logits_err=err,
+              same_streams=same,
+              tokens=json.dumps([r.tokens for r in card[arch]]),
+              cpu_tokens=json.dumps([r.tokens for r in ref[arch]]))
+    phase("example", name="serve_batched", launches=json.dumps(counted),
+          card_s=round(card_s, 2), cpu_s=round(host_s, 2))
+    del params, cpu_params, card, ref
+
+    # the kernels on the arguments the examples gave them
+    ((fargs, fkw),) = flash_calls.values()       # polisci's one layer
+    flash = flash_call_record(fargs, fkw, path)
+    flash.update(launches=launched["flash_attention"], path=path)
+    wargs, wkw = max(wkv_calls.values(), key=lambda c: c[0][0].shape[1])
+    rec = recurrence_call_record(wkv, wargs, wkw, path)
+    rec.update(launches=launched["wkv6"], path=path)
+    phase("examples", launches=json.dumps(dict(launched)))
+    del flash_calls, wkv_calls, fargs, wargs
+    free_memory()
+    return [flash, rec]
+
+
 def gmm_call_record(x, w, path) -> dict:
     """gmm on ``x`` @ ``w`` against its plain version, timed beside the
     plain version and ``torch.bmm``; returns its JSON record."""
@@ -6995,6 +7560,8 @@ def main(argv=None) -> int:
     paths.append(("mesh_train", mesh_path))
     paths.append(("mesh_families", mesh_families_path))
     paths.append(("dryrun", dryrun_path))
+    paths.append(("mesh_decode_kv", mesh_decode_kv_path))
+    paths.append(("examples", examples_path))
     if args.paths:
         wanted = args.paths.split(",")
         unknown = set(wanted) - {p for p, _ in paths}

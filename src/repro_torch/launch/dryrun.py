@@ -125,7 +125,9 @@ def build_cell(cfg, shape, mesh, *, opts=None):
                        device="meta", ring_local=ring,
                        kv_repeat_to=opts.get("kv_repeat_tp", 0),
                        quantize_kv=opts.get("quantize_kv", False))
-    c_sh = cache_shardings(mesh, model, cache, shape)
+    c_sh = cache_shardings(mesh, model, cache, shape,
+                           kv_shard_seq=opts.get("kv_shard_seq", False),
+                           kv_shard_dim=opts.get("kv_shard_dim", False))
     cache = blocks(cache, c_sh)
     specs = model.input_specs(shape)
     tok_sh = Sharding(mesh, (batch_spec(mesh, shape.global_batch), None),

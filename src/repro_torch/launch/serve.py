@@ -18,6 +18,11 @@ CPU-scale demo:
   python -m repro_torch.launch.serve --arch dbrx-132b --smoke --device cpu
   python -m repro_torch.launch.serve --arch gemma3-27b --smoke --device cpu \
       --engines xla
+
+``serve_request`` / ``planned_prefill`` are the sequential path's helpers,
+the reference's compatibility wrappers: a planned prefill for the prompt
+logits, then the prompt replayed through the decode step to build the
+cache, then token-by-token decode.
 """
 from __future__ import annotations
 
@@ -28,9 +33,62 @@ import numpy as np
 import torch
 
 from ..configs import get_config, get_smoke_config
-from ..core.executor import resolve_device
+from ..core.executor import plan_and_compile, resolve_device
 from ..models import build_model
+from ..models.decode import init_cache
+from ..models.lm import CATALOG
 from ..serving import AsyncServingRuntime, ServeRequest, check_servable
+from ..serving.admission import bucket_len
+
+
+def planned_prefill(model, syscat, batch: int, prompt_len: int,
+                    cache=None, engines=("xla",), *, device=None):
+    """Plan (or fetch from the plan cache ``cache``) the prefill forward
+    of this request's power-of-two bucket, bound to ``device`` (the card
+    unless the caller names another).  Returns (planned_fn, bucket)."""
+    bucket = bucket_len(prompt_len)
+    plan = model.build_plan(batch, bucket, mode="prefill")
+    fwd = plan_and_compile(plan, CATALOG, syscat, engines=engines,
+                           cache=cache, device=resolve_device(device))
+    return fwd, bucket
+
+
+@torch.inference_mode()
+def serve_request(model, cfg, params, dstep, fwd, bucket, prompts, gen: int,
+                  *, ring_local: bool = False, device=None):
+    """One sequential request: the planned prefill ``fwd`` (of ``bucket``)
+    for the prompt logits, then the prompt replayed through ``dstep(params,
+    cache, tokens, index)`` (``models.decode.decode_step`` bound to the
+    model) to build a fresh cache on ``device`` (the card unless the caller
+    names another), then ``gen`` greedy tokens from it.  ``prompts``: (B,
+    prompt_len) ints.  Returns (tokens (B, gen) numpy, prefill seconds,
+    decode seconds)."""
+    dev = resolve_device(device)
+    prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
+                              device=dev)
+    b, prompt_len = prompts.shape
+    max_seq = prompt_len + gen
+
+    t0 = time.time()
+    padded = torch.zeros((b, bucket), dtype=torch.long, device=dev)
+    padded[:, :prompt_len] = prompts
+    logits_all = fwd(params, {"tokens": padded})
+    tok = torch.argmax(logits_all[:, prompt_len - 1, :cfg.vocab],
+                       dim=-1)[:, None]
+    cache = init_cache(model, b, max_seq, device=dev, ring_local=ring_local)
+    for t in range(prompt_len):
+        _, cache = dstep(params, cache, prompts[:, t:t + 1], t)
+    tok = tok.cpu()
+    t_prefill = time.time() - t0
+
+    out_tokens = []
+    t0 = time.time()
+    for t in range(prompt_len, max_seq):
+        out_tokens.append(tok.numpy()[:, 0])
+        logits, cache = dstep(params, cache, tok.to(dev), t)
+        tok = torch.argmax(logits[:, :, :cfg.vocab], dim=-1).cpu()
+    t_gen = time.time() - t0
+    return np.stack(out_tokens, axis=1), t_prefill, t_gen
 
 
 def make_trace(rng, cfg, n_requests: int, prompt_lens, gen: int,
@@ -45,7 +103,10 @@ def make_trace(rng, cfg, n_requests: int, prompt_lens, gen: int,
     return reqs
 
 
-def main(argv=None):
+def main(argv=None, *, params=None):
+    """The CLI; ``params`` replaces the seeded parameters (a tree of the
+    model's shapes, e.g. ``models.lm.params_from_numpy`` of another
+    package's).  Returns the results in request order."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -78,8 +139,9 @@ def main(argv=None):
         cfg = cfg.replace(dtype="float32")
     model = build_model(cfg)
     check_servable(model)
-    params = model.init_params(
-        torch.Generator(device=dev).manual_seed(args.seed))
+    if params is None:
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(args.seed))
     rng = np.random.RandomState(args.seed)
     prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
 

@@ -25,8 +25,10 @@ own leaf, so ring and full-length leaves mix in one step.
 
 On a rank mesh (``mesh=``, a ``launch.mesh.RankMesh``) the step runs on
 the rank's blocks of the parameters (their ``Sharding`` tree), of the
-cache (:func:`cache_shardings`, the reference's ``dryrun.cache_shardings``)
-and of the rows: :func:`decode_step_batched` documents the layout.
+cache (:func:`cache_shardings`, the reference's ``dryrun.cache_shardings``,
+with its two layouts for KV heads that do not divide ``model``: the cache
+cut on its positions or on its channels) and of the rows:
+:func:`decode_step_batched` documents the layout.
 
 The encdec family decodes as the reference does: the encoder's groups are
 skipped (their K/V leaves exist and stay untouched), and each decoder
@@ -136,16 +138,21 @@ def batch_spec(mesh, batch: int):
     return axes if len(axes) > 1 else axes[0]
 
 
-def cache_shardings(mesh, model: LM, cache: dict, shape) -> dict:
+def cache_shardings(mesh, model: LM, cache: dict, shape, *,
+                    kv_shard_seq: bool = False,
+                    kv_shard_dim: bool = False) -> dict:
     """The reference's rule for the decode caches (``dryrun.py``'s
     ``cache_shardings``), a tree of ``Sharding`` keyed as ``cache`` (global
     leaves, meta tensors will do): the batch over ``(pod, data)`` when it
     divides ``shape.global_batch``, else whole; the K/V heads of ``_k`` /
     ``_v`` / ``_xk`` / ``_xv`` (count, B, S, KV, D) over ``model`` when
-    they divide, else replicated; a recurrent ``_state``'s heads (dim 2)
-    and a ``_conv``'s channels (dim 3) over ``model`` when they divide.
-    Every other leaf (int8 scales, rwkv ``_last_*``) is cut on its batch
-    only."""
+    they divide, else, under ``kv_shard_dim``, the channels D (dim 4) when
+    they divide (the channel-parallel cache), else, under
+    ``kv_shard_seq``, the positions S (dim 2) when they divide (the
+    sequence-parallel cache), else whole; a recurrent ``_state``'s heads
+    (dim 2) and a ``_conv``'s channels (dim 3) over ``model`` when they
+    divide.  Every other leaf (int8 scales, rwkv ``_last_*``) is cut on
+    its batch only."""
     bspec = batch_spec(mesh, int(shape.global_batch))
     m = int(mesh.shape.get("model", 1))
 
@@ -158,6 +165,10 @@ def cache_shardings(mesh, model: LM, cache: dict, shape) -> dict:
         if key.endswith(("_k", "_v", "_xk", "_xv")) and r == 5:
             if leaf.shape[3] % m == 0:
                 spec[3] = "model"
+            elif kv_shard_dim and leaf.shape[4] % m == 0:
+                spec[4] = "model"
+            elif kv_shard_seq and leaf.shape[2] % m == 0:
+                spec[2] = "model"
         elif key.endswith("_state") and r >= 4:
             if leaf.shape[2] % m == 0:
                 spec[2] = "model"
@@ -196,9 +207,12 @@ def decode_step_batched(model: LM, params, cache, tokens, indices, *,
     (``attention.head_block``) and the KV heads they read, its ffn
     columns, its experts, its rwkv / mamba heads when the recurrent state
     is cut over ``model`` (the whole block, weights gathered, when it is
-    not), and every row-parallel output is summed over ``model``.  The
-    logits come back as the rank's vocab block (B, 1, V / model).  A mesh
-    step runs eagerly (``DecodeGraph`` is one rank's)."""
+    not), and every row-parallel output is summed over ``model``.  A K/V
+    cache cut on its positions or channels (``cache_shardings``'
+    ``kv_shard_seq`` / ``kv_shard_dim``, read off ``cache_sh``) is read by
+    every query head on every rank, the softmax combined over ``model``.
+    The logits come back as the rank's vocab block (B, 1, V / model).  A
+    mesh step runs eagerly (``DecodeGraph`` is one rank's)."""
     if mesh is not None and (shardings is None or cache_sh is None):
         raise ValueError("a decode step on a mesh takes shardings= (the "
                          "parameters') and cache_sh= (cache_shardings)")
@@ -386,13 +400,23 @@ def _cut(lsh, key: str, dim: int) -> bool:
     return lsh is not None and "model" in lsh[key].axes(dim)
 
 
+def _kv_cut(lsh, key: str):
+    """How the layer's K/V leaf ``key`` (B, S, KV, D) is cut over
+    ``model``: ``"heads"``, ``"seq"`` (``kv_shard_seq``), ``"dim"``
+    (``kv_shard_dim``), or None (whole)."""
+    for dim, how in ((2, "heads"), (1, "seq"), (3, "dim")):
+        if _cut(lsh, key, dim):
+            return how
+    return None
+
+
 def _axis_coords(axis) -> tuple:
     """``(ranks, rank)`` of a ``model`` axis; ``(1, 0)`` for one rank."""
     return (1, 0) if axis is None else (int(axis.world), int(axis.rank))
 
 
 def _decode_attn(p, x, ck, cv, cfg: ModelConfig, window: int, step: dict,
-                 axis=None, *, kv_cut=False, ring: bool = False, ksc=None,
+                 axis=None, *, cut=None, ring: bool = False, ksc=None,
                  vsc=None):
     """x: (B, 1, E); ck/cv: one layer's (B, S, KV, D) cache, written in
     place at each row's own position ``step["pos"]`` — at slot ``pos % S``
@@ -404,10 +428,16 @@ def _decode_attn(p, x, ck, cv, cfg: ModelConfig, window: int, step: dict,
     head's K/V repeated.
 
     On a ``model`` axis: the rank's query heads ``[lo, hi)``; K/V computed
-    for the cache heads the rank writes (its block when ``kv_cut``; every
-    head when the block is whole, or when int8 scales, whole over
-    ``model``, are written) and read by its query heads; the out
-    projection row-parallel, summed over ``axis``."""
+    for the cache heads the rank writes (its block when ``cut`` is
+    ``"heads"``; every head when the block is whole, or when int8 scales,
+    whole over ``model``, are written) and read by its query heads; the out
+    projection row-parallel, summed over ``axis``.  A cache cut on its
+    positions or channels (``cut`` ``"seq"`` / ``"dim"``) goes to
+    :func:`_decode_attn_split`."""
+    if cut in ("seq", "dim"):
+        return _decode_attn_split(p, x, ck, cv, cfg, window, step, axis,
+                                  cut, ring, ksc, vsc)
+    kv_cut = cut == "heads"
     h, kvh, d = _attn_dims(cfg)
     m, r = _axis_coords(axis)
     lo, hi = A.head_block(h, m, r)
@@ -456,25 +486,155 @@ def _decode_attn(p, x, ck, cv, cfg: ModelConfig, window: int, step: dict,
     return C.reduce_from(axis, A.out_project({"wo": wo}, out))
 
 
-def _decode_cross(xp, x, xk, xv, cfg, axis, kv_cut):
-    """The decoder's cross attention over its cross leaves (read, never
-    written) under an all-valid mask; on a ``model`` axis the rank's query
-    heads against the KV heads they read (of its block, or of the whole
-    leaves), the out projection summed."""
+def _project_whole(axis, x, p, names, d) -> list:
+    """``x @ p[n]`` whole for each leaf ``n`` of ``names`` (cut on dim 1
+    over ``axis``): each rank projects onto its column block, and the
+    outputs, far smaller than the weights, are gathered in one collective;
+    each (B, 1, n, d)."""
+    outs = [torch.matmul(x, p[n].to(x.dtype)) for n in names]
+    outs = C.gather_leaves(axis, outs, [2] * len(outs), partial=False)
+    return [o.reshape(x.shape[0], x.shape[1], -1, d) for o in outs]
+
+
+def _attend_split(axis, cut, q, rk, rv, valid, sk=None, sv=None):
+    """Every query head of ``q`` (B, 1, H, D) against the rank's part of a
+    K/V cache cut over ``axis`` (GQA-grouped as
+    ``attention.decode_attend_gqa``, float32 logits and softmax):
+
+      * ``"seq"``: rk / rv (B, S/m, KV, D), the rank's positions of every
+        head, ``valid`` (B, S/m) their mask.  The softmax is combined
+        across ranks: the global max of each (row, head) (one max over
+        ``axis``), then one sum over ``axis`` of the unnormalised P·V and
+        of its denominator.  A rank whose positions are all masked adds
+        zeros (its logits sit ~1e30 below the global max).
+      * ``"dim"``: rk / rv (B, S, KV, D/m), the rank's channels of every
+        head.  The logits are partial over the channels and summed over
+        ``axis``; the softmax is whole on every rank; P·V over the rank's
+        channels, gathered over ``axis``.
+
+    int8 scales ``sk`` / ``sv`` (B, S', KV, 1) are those of the rank's
+    positions (every position under ``"dim"``).  Returns (B, 1, H, D) in
+    q's dtype, the same on every rank."""
+    b, _, h, d = q.shape
+    kv = rk.shape[2]
+    qg = q.reshape(b, kv, h // kv, d).float()
+    if cut == "dim":
+        w = rk.shape[3]
+        qg = qg[..., int(axis.rank) * w:(int(axis.rank) + 1) * w]
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, rk.float()) * (d ** -0.5)
+    if cut == "dim":
+        logits = C.reduce_from(axis, logits)
+    if sk is not None:                       # (B, S, KV, 1) -> (B, KV, 1, S)
+        logits = logits * sk[..., 0].transpose(1, 2)[:, :, None, :].float()
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full((), -1e30, device=q.device))
+    if cut == "dim":
+        pr = torch.softmax(logits, dim=-1)
+    else:
+        top = C.all_max(axis, logits.amax(dim=-1, keepdim=True))
+        pr = torch.exp(logits - top)
+        den = pr.sum(dim=-1)
+    if sv is not None:
+        pr = pr * sv[..., 0].transpose(1, 2)[:, :, None, :].float()
+    out = torch.einsum("bkgs,bskd->bkgd", pr, rv.float())
+    if cut == "dim":
+        out = C.gather(axis, out.contiguous(), 3, partial=False)
+    else:
+        n = out[0].numel()
+        both = C.reduce_from(axis, torch.cat([out.reshape(b, n),
+                                              den.reshape(b, -1)], dim=1))
+        out = both[:, :n].reshape(out.shape) / both[:, n:].reshape(
+            den.shape)[..., None]
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _decode_attn_split(p, x, ck, cv, cfg, window, step, axis, cut, ring,
+                       ksc, vsc):
+    """:func:`_decode_attn` over a cache cut on its positions (``"seq"``:
+    ck / cv (B, S/m, KV, D), the rank holding global slots ``[r S/m,
+    (r + 1) S/m)``) or its channels (``"dim"``: (B, S, KV, D/m), channels
+    ``[r D/m, (r + 1) D/m)``) over ``axis``, the reference's
+    ``kv_shard_seq`` / ``kv_shard_dim``.  Every rank projects q, K and V
+    of every head (:func:`_project_whole`) and applies qk-norm, rope and
+    int8 quantization to whole heads (rope pairs channel i with
+    i + D/2; the norm and the abs-max read all of D) before it takes its
+    part.  Under ``"seq"`` the new K/V entry lands only on the rank whose
+    positions hold the row's slot (decided on the device from ``pos``);
+    under ``"dim"`` every rank writes its channels.  The int8 scales are
+    whole on every rank and written by all.  The keys are masked by their
+    global positions.  Then :func:`_attend_split`, and the rank's query
+    heads ``[lo, hi)`` into the row-parallel out projection, summed."""
     h, kvh, d = _attn_dims(cfg)
     m, r = _axis_coords(axis)
     lo, hi = A.head_block(h, m, r)
-    clo = r * xk.shape[2] if kv_cut else 0
-    alo, ahi, index = A.kv_heads_read(h, kvh, lo, hi)
-    wq = C.span(axis, [xp["wq"]], 1, lo * d, hi * d)[0]
-    q = A.project_q({"wq": wq}, x, hi - lo, d)
-    rk = A.expand_heads(xk[:, :, alo - clo:ahi - clo], index)
-    rv = A.expand_heads(xv[:, :, alo - clo:ahi - clo], index)
+    hc = ck.shape[2]                               # whole heads
+    q, k, v = _project_whole(axis, x, p, ("wq", "wk", "wv"), d)
+    if cfg.qk_norm and "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    q = rope_apply(q, step["cos"], step["sin"])
+    k = rope_apply(k, step["cos"], step["sin"])
+    if hc > kvh:
+        k = k.repeat_interleave(hc // kvh, dim=2)
+        v = v.repeat_interleave(hc // kvh, dim=2)
+    rows, pos = step["rows"], step["pos"]
+    sl = ck.shape[1]                               # the rank's slots
+    slots = sl * m if cut == "seq" else sl
+    slot = pos % slots if ring else pos
+    if ksc is not None:
+        k, k_s = A.quantize_kv(k)
+        v, v_s = A.quantize_kv(v)
+        ksc[rows, slot] = k_s[:, 0]
+        vsc[rows, slot] = v_s[:, 0]
+    keys = step["keys"][sl]
+    if cut == "seq":
+        local = slot - r * sl
+        mine = ((local >= 0) & (local < sl))[:, None, None]
+        at = local.clamp(0, sl - 1)
+        ck[rows, at] = torch.where(mine, k[:, 0].to(ck.dtype), ck[rows, at])
+        cv[rows, at] = torch.where(mine, v[:, 0].to(cv.dtype), cv[rows, at])
+        keys = keys + r * sl                       # global positions
+        sk = None if ksc is None else ksc[:, r * sl:(r + 1) * sl]
+        sv = None if vsc is None else vsc[:, r * sl:(r + 1) * sl]
+    else:
+        w = ck.shape[3]
+        ck[rows, slot] = k[:, 0, :, r * w:(r + 1) * w].to(ck.dtype)
+        cv[rows, slot] = v[:, 0, :, r * w:(r + 1) * w].to(cv.dtype)
+        sk, sv = ksc, vsc
+    valid = keys[None, :] < (pos + 1).clamp(max=slots)[:, None]
+    if window and window > 0 and not ring:
+        valid = valid & (keys[None, :] > (pos - window)[:, None])
+    out = _attend_split(axis, cut, q, ck, cv, valid, sk, sv)
+    wo = C.span(axis, [p["wo"]], 0, lo * d, hi * d)[0]
+    return C.reduce_from(axis, A.out_project({"wo": wo},
+                                             out[:, :, lo:hi]))
+
+
+def _decode_cross(xp, x, xk, xv, cfg, axis, cut):
+    """The decoder's cross attention over its cross leaves (read, never
+    written) under an all-valid mask; on a ``model`` axis the rank's query
+    heads against the KV heads they read (of its block when ``cut`` is
+    ``"heads"``, or of the whole leaves), the out projection summed.
+    Leaves cut on their positions or channels (``"seq"`` / ``"dim"``) are
+    read by every query head (:func:`_attend_split`)."""
+    h, kvh, d = _attn_dims(cfg)
+    m, r = _axis_coords(axis)
+    lo, hi = A.head_block(h, m, r)
     valid = torch.ones((x.shape[0], xk.shape[1]), dtype=torch.bool,
                        device=x.device)
+    if cut in ("seq", "dim"):
+        q = _project_whole(axis, x, xp, ("wq",), d)[0]
+        out = _attend_split(axis, cut, q, xk, xv, valid)[:, :, lo:hi]
+    else:
+        clo = r * xk.shape[2] if cut == "heads" else 0
+        alo, ahi, index = A.kv_heads_read(h, kvh, lo, hi)
+        wq = C.span(axis, [xp["wq"]], 1, lo * d, hi * d)[0]
+        q = A.project_q({"wq": wq}, x, hi - lo, d)
+        rk = A.expand_heads(xk[:, :, alo - clo:ahi - clo], index)
+        rv = A.expand_heads(xv[:, :, alo - clo:ahi - clo], index)
+        out = A.decode_attend_gqa(q, rk, rv, valid)
     wo = C.span(axis, [xp["wo"]], 0, lo * d, hi * d)[0]
-    return C.reduce_from(axis, A.out_project(
-        {"wo": wo}, A.decode_attend_gqa(q, rk, rv, valid)))
+    return C.reduce_from(axis, A.out_project({"wo": wo}, out))
 
 
 def _whole(axis, p, cols, rows=()):
@@ -501,18 +661,20 @@ def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, root, x, lc,
     pre = f"b{i}"
     if blk.kind in ("attn_mlp", "attn_moe"):
         h = rmsnorm(x, p[f"{pre}_ln1"]["scale"])
-        ring = bool(ring_local and blk.window
-                    and lc[f"{pre}_k"].shape[1] == blk.window)
+        cut = _kv_cut(lsh, f"{pre}_k")
+        slots = lc[f"{pre}_k"].shape[1] * (_axis_coords(axis)[0]
+                                           if cut == "seq" else 1)
+        ring = bool(ring_local and blk.window and slots == blk.window)
         x = x + _decode_attn(p[f"{pre}_attn"], h, lc[f"{pre}_k"],
                              lc[f"{pre}_v"], cfg, blk.window, step, axis,
-                             kv_cut=_cut(lsh, f"{pre}_k", 2), ring=ring,
+                             cut=cut, ring=ring,
                              ksc=lc.get(f"{pre}_ksc"),
                              vsc=lc.get(f"{pre}_vsc"))
         if blk.cross:
             x = x + _decode_cross(p[f"{pre}_xattn"],
                                   rmsnorm(x, p[f"{pre}_lnx"]["scale"]),
                                   lc[f"{pre}_xk"], lc[f"{pre}_xv"], cfg,
-                                  axis, _cut(lsh, f"{pre}_xk", 2))
+                                  axis, _kv_cut(lsh, f"{pre}_xk"))
         h = rmsnorm(x, p[f"{pre}_ln2"]["scale"])
         if blk.kind == "attn_moe":
             # capacity dispatch at s = 1: cap 8 a row, never drops
@@ -560,7 +722,7 @@ def _decode_block(cfg: ModelConfig, blk: Block, i: int, p, root, x, lc,
             h = rmsnorm(x, sp["ln1"]["scale"])
             x = x + _decode_attn(sp["attn"], h, lc[f"{pre}_k"],
                                  lc[f"{pre}_v"], cfg, 0, step, axis,
-                                 kv_cut=_cut(lsh, f"{pre}_k", 2),
+                                 cut=_kv_cut(lsh, f"{pre}_k"),
                                  ksc=lc.get(f"{pre}_ksc"),
                                  vsc=lc.get(f"{pre}_vsc"))
             h = rmsnorm(x, sp["ln2"]["scale"])

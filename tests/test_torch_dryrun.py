@@ -51,7 +51,21 @@ LIVE_JOBS = [("qwen3-0.6b", "train", (2, 2)),
              ("qwen3-0.6b", "train", (2, 2, 2)),
              ("dbrx-132b", "train", (2, 2)),
              ("zamba2-7b", "decode", (2, 2)),
-             ("seamless-m4t-medium", "prefill", (2, 2, 2))]
+             ("seamless-m4t-medium", "prefill", (2, 2, 2)),
+             ("qwen3-0.6b", "decode", (1, 4), "kv_shard_seq"),
+             ("qwen3-0.6b", "decode", (1, 4), "kv_shard_dim")]
+# the reference's decode caches for KV heads that do not divide ``model``
+KV_OPTS = {"none": {}, "seq": {"kv_shard_seq": True},
+           "dim": {"kv_shard_dim": True},
+           "both": {"kv_shard_seq": True, "kv_shard_dim": True}}
+# (name, arch, config overrides, init_cache keywords) whose every cache
+# leaf's spec is held against the reference's
+SPEC_CACHES = (("qwen3-int8", "qwen3-0.6b", {}, {"quantize_kv": True}),
+               ("seamless-kv2", "seamless-m4t-medium", {"kv_heads": 2}, {}),
+               ("zamba2", "zamba2-7b", {}, {}),
+               ("rwkv6", "rwkv6-3b", {}, {}),
+               ("gemma3-ring", "gemma3-27b", {}, {"ring_local": True}))
+SPEC_MESHES = ((1, 4), (2, 2))
 REF_FLOPS_QWEN3_PREFILL = 7_077_888
 
 
@@ -65,14 +79,14 @@ def _live_rank(world, jobs):
     """One rank of the live world: per job, this rank's coordinates and
     ``RankMesh.stats`` after one step of the cell (None past the mesh)."""
     out = []
-    for arch, kind, sizes in jobs:
+    for arch, kind, sizes, *opt in jobs:
         n_pod = sizes[0] if len(sizes) == 3 else 1
         mesh = make_rank_mesh(world, sizes[-2], sizes[-1], n_pod)
         if mesh is None:
             out.append(None)
             continue
         run, _, _ = dryrun.build_cell(get_smoke_config(arch), CELLS[kind],
-                                      mesh)
+                                      mesh, opts={o: True for o in opt})
         mesh.reset_stats()
         run()
         out.append({"coords": dict(mesh.coords), "stats": dict(mesh.stats)})
@@ -92,9 +106,10 @@ def live(tmp_path_factory):
         torch.set_num_threads(n)
 
 
-def _placeholder_stats(arch, kind, sizes, coords) -> Counter:
+def _placeholder_stats(arch, kind, sizes, coords, opts=None) -> Counter:
     mesh = placeholder_rank_mesh(_layout(sizes), coords)
-    run, _, _ = dryrun.build_cell(get_smoke_config(arch), CELLS[kind], mesh)
+    run, _, _ = dryrun.build_cell(get_smoke_config(arch), CELLS[kind], mesh,
+                                  opts=opts)
     mesh.reset_stats()
     run()
     return mesh.stats
@@ -102,16 +117,17 @@ def _placeholder_stats(arch, kind, sizes, coords) -> Counter:
 
 @pytest.mark.parametrize("job", range(len(LIVE_JOBS)),
                          ids=["-".join(map(str, (a, k, "x".join(
-                             map(str, s))))) for a, k, s in LIVE_JOBS])
+                             map(str, s)), *o))) for a, k, s, *o in LIVE_JOBS])
 def test_placeholder_collectives_equal_a_live_mesh(live, job):
     torch = pytest.importorskip("torch")  # noqa: F841
-    arch, kind, sizes = LIVE_JOBS[job]
+    arch, kind, sizes, *opt = LIVE_JOBS[job]
     ranks = [r[job] for r in live if r[job] is not None]
     assert len(ranks) == int(torch.tensor(sizes).prod())
     for r in ranks:
         want = Counter(r["stats"])
         assert want, r
-        got = _placeholder_stats(arch, kind, sizes, r["coords"])
+        got = _placeholder_stats(arch, kind, sizes, r["coords"],
+                                 {o: True for o in opt})
         assert got == want, (r["coords"], dict(got), dict(want))
 
 
@@ -187,6 +203,48 @@ for arch in sys.argv[1].split(","):
             "argument_bytes":
                 int(compiled.memory_analysis().argument_size_in_bytes),
             "flops": analyze_hlo(compiled.as_text())["flops"]}
+
+# the decode cell of qwen3 on 1 x 4 (2 KV heads over 4 ranks) under the
+# reference's cache layouts, and every cache leaf's spec
+from repro.models.decode import decode_step, init_cache
+P = jax.sharding.PartitionSpec
+meshes = {"1x4": jax.make_mesh((1, 4), ("data", "model"),
+                               axis_types=(jax.sharding.AxisType.Auto,) * 2),
+          "2x2": mesh}
+# imported once the backend is up: the module sets XLA_FLAGS for 512
+# host devices, which a live backend ignores
+from repro.launch.dryrun import _batch_axes, cache_shardings
+kv_opts = json.loads(sys.argv[2])
+m14 = meshes["1x4"]
+cfg = get_smoke_config("qwen3-0.6b")
+model = build_model(cfg)
+shape = ShapeConfig("cell", 32, 8, "decode")
+for name, opts in kv_opts.items():
+    p_sh = params_sharding(model.param_specs(), m14, ShardingRules())
+    cache_abs = init_cache(model, 8, 32, abstract=True)
+    c_sh = cache_shardings(m14, model, cache_abs, shape, **opts)
+    in_sds = model.input_specs(shape)
+    tok = jax.sharding.NamedSharding(m14, P(_batch_axes(m14, 8)))
+    repl = jax.sharding.NamedSharding(m14, P())
+    lowered = jax.jit(lambda p, c, t, i: decode_step(model, p, c, t, i),
+                      in_shardings=(p_sh, c_sh, tok, repl),
+                      donate_argnums=(1,)).lower(
+        model.abstract_params(), cache_abs, in_sds["tokens"],
+        in_sds["index"])
+    out["qwen3-0.6b/decode/" + name] = {"argument_bytes": int(
+        lowered.compile().memory_analysis().argument_size_in_bytes)}
+specs = {}
+for cname, arch, over, kw in json.loads(sys.argv[3]):
+    smodel = build_model(get_smoke_config(arch).replace(**over))
+    cache_abs = init_cache(smodel, 8, 32, abstract=True, **kw)
+    for mname, m in meshes.items():
+        for name, opts in kv_opts.items():
+            sh = cache_shardings(m, smodel, cache_abs, shape, **opts)
+            specs[f"{cname}/{mname}/{name}"] = {
+                f"{g}/{k}": [list(a) if isinstance(a, tuple) else a
+                             for a in v.spec]
+                for g, gc in sh.items() for k, v in gc.items()}
+out["cache_specs"] = specs
 print(json.dumps(out))
 '''
 
@@ -195,7 +253,9 @@ print(json.dumps(out))
 def reference_cells():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _REFERENCE,
-                          "qwen3-0.6b,dbrx-132b"], cwd=ROOT, env=env,
+                          "qwen3-0.6b,dbrx-132b",
+                          json.dumps(KV_OPTS),
+                          json.dumps(SPEC_CACHES)], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -216,6 +276,69 @@ def test_argument_bytes_equal_the_reference(reference_cells, arch, kind):
           f"{ref['flops']:.0f}; argument bytes "
           f"{rec['memory']['argument_bytes']} / {ref['argument_bytes']}")
     assert rec["memory"]["argument_bytes"] == ref["argument_bytes"]
+
+
+@pytest.mark.parametrize("opt", list(KV_OPTS))
+def test_decode_argument_bytes_equal_the_reference(reference_cells, opt):
+    """The qwen3 decode cell on 1 x 4, where its 2 KV heads do not divide
+    ``model``, under the reference's cache layouts."""
+    torch = pytest.importorskip("torch")  # noqa: F841
+    ref = reference_cells[f"qwen3-0.6b/decode/{opt}"]
+    rec = dryrun.trace_cell(get_smoke_config("qwen3-0.6b"), CELLS["decode"],
+                            placeholder_rank_mesh(_layout((1, 4))),
+                            opts=KV_OPTS[opt])
+    assert rec["memory"]["argument_bytes"] == ref["argument_bytes"]
+
+
+def test_cache_shardings_equal_the_reference(reference_cells):
+    """Every leaf's spec of five smoke caches (int8 scales, cross leaves,
+    recurrent state and conv, rings) on 1 x 4 and 2 x 2 under each of the
+    reference's cache options."""
+    from repro_torch.models import build_model
+    from repro_torch.models.decode import cache_shardings, init_cache
+    want = reference_cells["cache_specs"]
+    shape = ShapeConfig("cell", 32, 8, "decode")
+    n = 0
+    for cname, arch, over, kw in SPEC_CACHES:
+        model = build_model(get_smoke_config(arch).replace(**over))
+        cache = init_cache(model, 8, 32, device="meta", **kw)
+        for sizes in SPEC_MESHES:
+            for name, opts in KV_OPTS.items():
+                sh = cache_shardings(_layout(sizes), model, cache, shape,
+                                     **opts)
+                got = {f"{g}/{k}": [list(a) if isinstance(a, tuple) else a
+                                    for a in v.spec]
+                       for g, gc in sh.items() for k, v in gc.items()}
+                key = f"{cname}/{'x'.join(map(str, sizes))}/{name}"
+                assert got == want[key], key
+                n += len(got)
+    assert n > 0
+
+
+def test_kv_shard_options_reach_the_decode_cell():
+    """``lower_cell``'s ``opts`` reach ``cache_shardings``: on 1 x 4, where
+    qwen3's 2 KV heads do not divide ``model``, either cut holds a quarter
+    of the K/V a rank, and on 2 x 2, where they divide, neither changes the
+    step."""
+    torch = pytest.importorskip("torch")  # noqa: F841
+    cfg = get_smoke_config("qwen3-0.6b")
+
+    def arg_bytes(sizes, opts):
+        rec = dryrun.trace_cell(cfg, CELLS["decode"],
+                                placeholder_rank_mesh(_layout(sizes)),
+                                opts=opts)
+        return rec["memory"]["argument_bytes"]
+
+    whole = arg_bytes((1, 4), {})
+    # the whole cache: K and V (layers, B, S, KV, D) of every layer
+    from repro_torch.models import build_model
+    from repro_torch.models.decode import init_cache
+    kv = sum(leaf.numel() * leaf.element_size() for gc in init_cache(
+        build_model(cfg), 8, 32, device="meta").values()
+        for leaf in gc.values())
+    for name in ("seq", "dim", "both"):
+        assert arg_bytes((1, 4), KV_OPTS[name]) == whole - kv + kv // 4, name
+        assert arg_bytes((2, 2), KV_OPTS[name]) == arg_bytes((2, 2), {})
 
 
 def test_qwen3_prefill_flops_equal_analyze_hlo(reference_cells):

@@ -18,6 +18,17 @@ default rules (FSDP over ``data``, gathered a layer at a time) and the
 caches by ``cache_shardings``.  The same world runs the uneven-heads
 qwen3 train step on 1 x 4.
 
+The reference's decode caches for KV heads that do not divide ``model``
+(``cache_shardings(kv_shard_seq=, kv_shard_dim=)``): qwen3, dbrx, llava,
+seamless with 2 KV heads (its cross leaves) and the uneven-heads qwen3,
+each under the sequence cut, the channel cut and int8 with the sequence
+cut, qwen3 also int8 with the channel cut, and gemma3's rings of 4 slots
+under the sequence cut (the slot's owner wraps to rank 0), each at
+positions 4-8, which cross from rank 0's slots to rank 1's.  On 1 x 4 their
+2 KV heads do not divide and the K/V leaves are cut on the positions or
+the channels; on 2 x 2 they divide and the options change nothing.  Each
+is held to one rank within the same 1e-5.
+
 A world of eight ranks takes a train step of qwen3-0.6b on 2 x 2 x 2
 (``pod``, ``data``, ``model``: the batch over ``(pod, data)``, FSDP over
 ``data``, every gradient summed over ``pod``), held to one rank's step
@@ -63,6 +74,32 @@ DECODES = {
     "qwen3-6-heads": ("qwen3-0.6b", UNEVEN_QWEN3, {}),
     "rwkv6-6-heads": ("rwkv6-3b", UNEVEN_RWKV, {}),
 }
+# the reference's decode caches for KV heads that do not divide ``model``
+# (2 KV heads on 1 x 4; on 2 x 2 they divide and the options change
+# nothing): name -> cache_shardings keywords
+SEQ, DIM = {"kv_shard_seq": True}, {"kv_shard_dim": True}
+KV_CUTS = {"seq": ({}, SEQ), "dim": ({}, DIM),
+           "int8-seq": ({"quantize_kv": True}, SEQ)}
+CUT_BASES = {"qwen3": ("qwen3-0.6b", {}),
+             "dbrx": ("dbrx-132b", {}),
+             "llava": ("llava-next-34b", {}),
+             "seamless-kv2": ("seamless-m4t-medium", {"kv_heads": 2}),
+             "qwen3-6-heads": ("qwen3-0.6b", UNEVEN_QWEN3)}
+SHARD_OPTS = {}
+for _base, (_arch, _over) in CUT_BASES.items():
+    for _cut, (_kw, _opts) in KV_CUTS.items():
+        DECODES[f"{_base}-{_cut}"] = (_arch, _over, _kw)
+        SHARD_OPTS[f"{_base}-{_cut}"] = _opts
+DECODES["qwen3-int8-dim"] = ("qwen3-0.6b", {}, {"quantize_kv": True})
+SHARD_OPTS["qwen3-int8-dim"] = DIM
+# a ring of 4 slots, one a rank: position 4 wraps to rank 0's slot
+DECODES["gemma3-ring-seq"] = ("gemma3-27b", {"window": 4},
+                              {"ring_local": True})
+SHARD_OPTS["gemma3-ring-seq"] = SEQ
+# the cut caches decode positions 4-8: across ranks 0 and 1 of the
+# sequence cut (6 slots each on 1 x 4); those before hold zeros on both
+# sides
+START = {name: 4 for name in SHARD_OPTS}
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
 TOL = 1e-5
 LOSS_TOL, GNORM_TOL = 1e-4, 1e-3
@@ -89,7 +126,8 @@ def _one_rank_logits(name) -> list:
     cache = init_cache(model, B, CACHE, device="cpu", **DECODES[name][2])
     out = []
     for t in range(STEPS):
-        logits, cache = decode_step(model, params, cache, _tokens(cfg, t), t,
+        logits, cache = decode_step(model, params, cache, _tokens(cfg, t),
+                                    t + START.get(name, 0),
                                     ring_local=DECODES[name][2].get(
                                         "ring_local", False))
         out.append(logits.numpy())
@@ -106,14 +144,16 @@ def _decode_on(mesh, name) -> dict:
     params = shard_params(_params(model), p_sh)
     full = init_cache(model, B, CACHE, device="cpu", **kw)
     c_sh = cache_shardings(mesh, model, full, ShapeConfig("d", CACHE, B,
-                                                          "decode"))
+                                                          "decode"),
+                           **SHARD_OPTS.get(name, {}))
     cache = shard_params(full, c_sh)
     rows = B // (mesh.shape["data"])
     d = mesh.coords["data"]
     logits = []
     for t in range(STEPS):
         tok = _tokens(cfg, t)[d * rows:(d + 1) * rows]
-        out, cache = decode_step(model, params, cache, tok, t,
+        out, cache = decode_step(model, params, cache, tok,
+                                 t + START.get(name, 0),
                                  ring_local=kw.get("ring_local", False),
                                  mesh=mesh, shardings=p_sh, cache_sh=c_sh)
         logits.append(out.numpy())
@@ -193,6 +233,36 @@ def test_sharded_decode_matches_one_rank(decoded, single, shape, name):
             assert got.shape == block.shape, (t, got.shape, block.shape)
             err = float(np.abs(got - block).max()) / top
             assert err <= TOL, (shape, name, r["coords"], t, err)
+
+
+@pytest.mark.parametrize("name", list(SHARD_OPTS))
+def test_kv_shard_options_cut_only_what_does_not_divide(name):
+    """On 2 x 2 the 2 KV heads divide ``model`` and each option leaves
+    the layout as it is; on 1 x 4 every K/V leaf is cut on the option's
+    dim and every other leaf is as without it."""
+    from repro_torch.launch.mesh import MeshLayout
+    cfg = _cfg(name)
+    model = build_model(cfg)
+    full = init_cache(model, B, CACHE, device="meta", **DECODES[name][2])
+    shape = ShapeConfig("d", CACHE, B, "decode")
+    opts = SHARD_OPTS[name]
+    dim = 4 if opts.get("kv_shard_dim") else 2
+
+    def specs(sizes, **kw):
+        sh = cache_shardings(MeshLayout(sizes, ("data", "model")), model,
+                             full, shape, **kw)
+        return {(g, k): v.spec for g, gc in sh.items()
+                for k, v in gc.items()}
+
+    assert specs((2, 2), **opts) == specs((2, 2))
+    cut, whole = specs((1, 4), **opts), specs((1, 4))
+    for (g, k), spec in cut.items():
+        if k.endswith(("_k", "_v", "_xk", "_xv")):
+            want = list(whole[(g, k)])
+            want[dim] = "model"
+            assert list(spec) == want, (g, k)
+        else:
+            assert spec == whole[(g, k)], (g, k)
 
 
 def _single_step(arch, overrides):

@@ -115,6 +115,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.launch.elastic, repro_torch.core.collectives\n"
         "import repro_torch.examples.train_sharded\n"
         "import repro_torch.launch.dryrun, repro_torch.launch.op_analysis\n"
+        "from repro_torch.launch.serve import planned_prefill, serve_request\n"
+        "from repro_torch.examples import quickstart, polisci_analysis, "
+        "serve_async, serve_batched\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and m.split('.')[0] in ('repro', 'jax', 'jaxlib')]\n"
